@@ -1,0 +1,328 @@
+// Flash-attention forward for Hopper (sm_90a), bf16 / fp16 in, fp32 accumulate.
+//
+// Replaces the Pallas TPU kernel flash_attn_tpu/kernels/flash_fwd.py::_fwd_kernel
+// (launched at flash_fwd.py:1517 by flash_attn_fwd_bhsd), and serves the
+// full-length causal/local calls that the JAX package sends to
+// _fwd_sched_kernel (flash_fwd.py:870).
+//
+// What bounds it on the H100: operations.  Prefill at the serving shapes does
+// 4*sq*sk*d FLOPs per head (about half of it for causal) against 2*(sq+2*sk)*d
+// bytes, far above the card's ~295 FLOP/byte balance point, so the tensor cores
+// are the limit.
+//
+// What the design does about it:
+// * Both products run on the tensor cores with mma.sync.m16n8k16 (bf16/fp16 ->
+//   fp32).  One block of 4 warps owns a 64-row Q tile of one (batch, head);
+//   each warp owns 16 rows, so S = Q K^T and O += P V stay in registers and P
+//   goes from the S accumulators straight into the A operand of the second
+//   product without touching shared memory.
+// * The KV loop runs only over the 64-key tiles the masks leave
+//   ([n_min, n_max] from the causal/window bounds and seqused_k, as
+//   _kv_block_bounds at flash_fwd.py:176 does), so a causal call does about
+//   half the work and a cache read stops at seqused_k, not at max_seqlen.
+// * Online softmax in fp32 on exp2: each score is scaled (and softcapped,
+//   ALiBi-biased) in natural units, then multiplied by log2(e) once, so the
+//   exponent is a bare exp2.  A masked element is -inf and its p is exactly 0.
+// * Shared-memory rows are padded by 8 elements so the 32-bit fragment loads
+//   are free of bank conflicts.
+// This first version loads K/V tiles synchronously (no cp.async/TMA pipeline,
+// no wgmma); overlapping loads with math is later work.
+//
+// GQA: q head h reads kv head h / g.  Rows at or past seqused_q are computed
+// like any other row (the JAX kernel does not mask them either); rows past the
+// tensor's sq are not written.  A row with no valid key writes o = 0 and
+// lse = +inf.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 64;   // q rows per block
+constexpr int kBlockN = 64;   // keys per KV tile
+constexpr int kThreads = 128; // 4 warps x 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct FwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  const int* seqused_q;
+  const int* seqused_k;
+  const float* alibi;  // (b, h) or null
+  int b, h, hk, g, sq, sk;
+  float scale;
+  int has_upper, wr, has_lower, wl;
+  float softcap;
+};
+
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two 16-bit elements from different rows, lower address half = first.
+__device__ __forceinline__ uint32_t pack16(const void* lo, const void* hi) {
+  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
+         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Copy `rows` rows of D elements (row stride D in global) into shared rows of
+// stride kStride, 16 bytes per thread per step; rows at or past `valid` are
+// zero-filled so stale or uninitialised memory never reaches the math.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int valid) {
+  constexpr int kStride = D + 8;
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < kBlockN * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const FwdParams p) {
+  constexpr int kStride = D + 8;
+  constexpr int kKSteps = D / 16;  // k-steps of S = Q K^T
+  constexpr int kOTiles = D / 8;   // n-tiles of O
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sK = sQ + kBlockM * kStride;
+  T* sV = sK + kBlockN * kStride;
+
+  const int qblk = blockIdx.x, hq = blockIdx.y, bb = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int hkv = hq / p.g;
+  const int sq_b = p.seqused_q[bb];
+  const int sk_b = min(p.seqused_k[bb], p.sk);
+  const int offset = sk_b - sq_b;
+  const int row0 = qblk * kBlockM;
+  const float slope = p.alibi ? p.alibi[bb * p.h + hq] : 0.f;
+
+  const T* q = static_cast<const T*>(p.q) + ((size_t)(bb * p.h + hq) * p.sq) * D;
+  const T* k = static_cast<const T*>(p.k) + ((size_t)(bb * p.hk + hkv) * p.sk) * D;
+  const T* v = static_cast<const T*>(p.v) + ((size_t)(bb * p.hk + hkv) * p.sk) * D;
+
+  // KV tiles that any row of this q tile can see.
+  int max_col = sk_b - 1;
+  if (p.has_upper) max_col = min(max_col, row0 + kBlockM - 1 + offset + p.wr);
+  const int min_col = p.has_lower ? max(0, row0 + offset - p.wl) : 0;
+  const int n_min = min_col / kBlockN;
+  const int n_max = max_col >= 0 ? max_col / kBlockN : -1;
+
+  load_tile<T, D>(sQ, q + (size_t)row0 * D, p.sq - row0);
+  __syncthreads();
+
+  const int r_lo = warp * 16 + gid;  // this thread's two rows in the tile
+  uint32_t qf[kKSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk) {
+    const int c = kk * 16 + tig * 2;
+    qf[kk][0] = ld32(sQ + r_lo * kStride + c);
+    qf[kk][1] = ld32(sQ + (r_lo + 8) * kStride + c);
+    qf[kk][2] = ld32(sQ + r_lo * kStride + c + 8);
+    qf[kk][3] = ld32(sQ + (r_lo + 8) * kStride + c + 8);
+  }
+
+  float acc[kOTiles][4];
+#pragma unroll
+  for (int n = 0; n < kOTiles; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // in log2 units of scaled scores
+  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
+  const int rows[2] = {row0 + r_lo, row0 + r_lo + 8};
+
+  for (int nb = n_min; nb <= n_max; ++nb) {
+    const int col0 = nb * kBlockN;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_tile<T, D>(sK, k + (size_t)col0 * D, sk_b - col0);
+    load_tile<T, D>(sV, v + (size_t)col0 * D, sk_b - col0);
+    __syncthreads();
+
+    float s[kBlockN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const T* krow = sK + (j * 8 + gid) * kStride + tig * 2;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t bfrag[2] = {ld32(krow + kk * 16), ld32(krow + kk * 16 + 8)};
+        Mma<T>::mma(s[j], qf[kk], bfrag);
+      }
+    }
+
+    // scale, softcap, ALiBi and masks; then the tile's row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rows[e >> 1];
+        const int col = col0 + j * 8 + tig * 2 + (e & 1);
+        float x = s[j][e] * p.scale;
+        if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
+        if (p.alibi) x -= slope * fabsf((float)(row + offset - col));
+        bool masked = col >= sk_b;
+        if (p.has_upper) masked |= col > row + offset + p.wr;
+        if (p.has_lower) masked |= col < row + offset - p.wl;
+        x = masked ? -INFINITY : x * kLog2e;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m_run[i], quad_max(mx[i]));
+      // A row with nothing valid so far keeps m = -inf; exponentiate against
+      // 0 then, so p = exp2(-inf) = 0 and no inf - inf appears.
+      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = exp2f(m_run[i] - m_use[i]);
+      m_run[i] = m_new;
+      l_run[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(s[j][e] - m_use[e >> 1]);
+        s[j][e] = pe;
+        l_run[e >> 1] += pe;
+      }
+    }
+
+    // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 are exactly the
+    // A fragment of k-step kk.
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const T* vrow = sV + (kk * 16 + tig * 2) * kStride + gid;
+#pragma unroll
+      for (int n = 0; n < kOTiles; ++n) {
+        const T* vp = vrow + n * 8;
+        uint32_t bfrag[2] = {pack16(vp, vp + kStride),
+                             pack16(vp + 8 * kStride, vp + 9 * kStride)};
+        Mma<T>::mma(acc[n], a, bfrag);
+      }
+    }
+  }
+
+  T* o = static_cast<T*>(p.o) + ((size_t)(bb * p.h + hq) * p.sq) * D;
+  float* lse = p.lse + (size_t)(bb * p.h + hq) * p.sq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l = quad_sum(l_run[i]);
+    const int row = rows[i];
+    if (row >= p.sq) continue;
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    T* orow = o + (size_t)row * D + tig * 2;
+#pragma unroll
+    for (int n = 0; n < kOTiles; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          Mma<T>::pack(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    }
+    if (tig == 0) lse[row] = l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : INFINITY;
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
+  const int smem = 3 * kBlockM * (D + 8) * (int)sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.h, p.b);
+  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" const char* fa_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// dtype: 0 = bf16, 1 = fp16.  Returns cudaGetLastError() after the launch.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
+                         float* lse, const int* seqused_q, const int* seqused_k,
+                         const float* alibi, int b, int h, int hk, int sq,
+                         int sk, int d, int dtype, float scale, int has_upper,
+                         int wr, int has_lower, int wl, float softcap,
+                         void* stream) {
+  if (b == 0 || h == 0 || sq == 0) return 0;
+  FwdParams p{q, k, v, o, lse, seqused_q, seqused_k, alibi, b, h, hk, h / hk,
+              sq, sk, scale, has_upper, wr, has_lower, wl, softcap};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 64) return launch<__nv_bfloat16, 64>(p, s);
+  if (dtype == 0 && d == 128) return launch<__nv_bfloat16, 128>(p, s);
+  if (dtype == 1 && d == 64) return launch<__half, 64>(p, s);
+  if (dtype == 1 && d == 128) return launch<__half, 128>(p, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,267 @@
+"""GPT model (counterpart of `flash_attn_tpu/models/gpt.py`: `GPTModel:178`,
+`GPTLMHeadModel:274`, the factories `create_mixer_cls:41`,
+`create_mlp_cls:81`, `create_block:120`).
+
+`GPTConfig` carries the `transformers.GPT2Config` attribute names that the
+JAX model reads, so a GPT-2 config maps over field by field.  Features this
+slice does not cover raise `NotImplementedError`: rotary, grouped KV heads
+at model level, parallel blocks, RMSNorm, muP and tensor parallelism.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from flash_attn_tpu_torch.env import default_device
+from flash_attn_tpu_torch.modules.block import Block, _Norm
+from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
+from flash_attn_tpu_torch.modules.mha import MHA, InferenceParams
+from flash_attn_tpu_torch.modules.mlp import ACT2FN, GatedMlp, Mlp
+from flash_attn_tpu_torch.ops.activations import gelu_approx, swiglu_fwd
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    n_inner: Optional[int] = None
+    activation_function: str = "gelu_new"
+    layer_norm_epsilon: float = 1e-5
+    tie_word_embeddings: bool = True
+    lm_head_bias: bool = False
+    qkv_proj_bias: bool = True
+    out_proj_bias: bool = True
+    mlp_fc1_bias: bool = True
+    mlp_fc2_bias: bool = True
+    residual_in_fp32: bool = False
+    prenorm: bool = True
+    window_size: tuple = (-1, -1)
+    attn_softcap: float = 0.0
+    use_alibi: bool = False
+    no_abs_pos_emb: bool = False
+    multiple_of: int = 128
+    # Not covered by this slice: any other value raises NotImplementedError.
+    n_head_kv: Optional[int] = None
+    rotary_emb_fraction: float = 0.0
+    parallel_block: bool = False
+    rms_norm: bool = False
+    use_mup: bool = False
+    tensor_parallel: bool = False
+
+    @property
+    def hidden_size(self):
+        return self.n_embd
+
+    @property
+    def num_attention_heads(self):
+        return self.n_head
+
+    @property
+    def num_hidden_layers(self):
+        return self.n_layer
+
+    @property
+    def max_position_embeddings(self):
+        return self.n_positions
+
+    def check_supported(self):
+        unsupported = {
+            "rotary_emb_fraction": self.rotary_emb_fraction > 0,
+            "n_head_kv": self.n_head_kv not in (None, self.n_head),
+            "parallel_block": self.parallel_block,
+            "rms_norm": self.rms_norm,
+            "use_mup": self.use_mup,
+            "tensor_parallel": self.tensor_parallel,
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"GPT features not ported yet: {', '.join(bad)}")
+
+
+@dataclasses.dataclass
+class CausalLMOutput:
+    logits: Any
+    inference_params: Optional[InferenceParams] = None
+
+
+def create_mlp(config: GPTConfig, device, dtype):
+    act = config.activation_function
+    inner = config.n_inner or 4 * config.n_embd
+    kw = dict(bias1=config.mlp_fc1_bias, bias2=config.mlp_fc2_bias,
+              device=device, dtype=dtype)
+    if act in ("glu", "swiglu", "geglu"):
+        activation = {"glu": torch.sigmoid, "swiglu": swiglu_fwd,
+                      "geglu": gelu_approx}[act]
+        return GatedMlp(config.n_embd, inner, activation=activation,
+                        multiple_of=config.multiple_of, **kw)
+    return Mlp(config.n_embd, inner, activation=ACT2FN.get(act, gelu_approx),
+               **kw)
+
+
+def create_block(config: GPTConfig, layer_idx: int, device, dtype):
+    mixer = MHA(config.n_embd, config.n_head,
+                qkv_proj_bias=config.qkv_proj_bias,
+                out_proj_bias=config.out_proj_bias, causal=True,
+                layer_idx=layer_idx, window_size=config.window_size,
+                softcap=config.attn_softcap, use_alibi=config.use_alibi,
+                device=device, dtype=dtype)
+    return Block(config.n_embd, mixer, create_mlp(config, device, dtype),
+                 prenorm=config.prenorm,
+                 residual_in_fp32=config.residual_in_fp32,
+                 norm_eps=config.layer_norm_epsilon, device=device,
+                 dtype=dtype)
+
+
+class GPTModel(nn.Module):
+    """Embeddings, N pre-norm blocks, final norm.  `device=None` means CUDA
+    and raises RuntimeError when there is none."""
+
+    def __init__(self, config: GPTConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        device = default_device(device)
+        config.check_supported()
+        self.config = config
+        self.dtype = dtype
+        n_pos = (0 if config.use_alibi or config.no_abs_pos_emb
+                 else config.n_positions)
+        self.embeddings = GPT2Embeddings(config.n_embd, config.vocab_size,
+                                         n_pos, device=device, dtype=dtype)
+        self.layers = nn.ModuleList(
+            create_block(config, i, device, dtype)
+            for i in range(config.n_layer))
+        self.ln_f = _Norm(config.n_embd, config.layer_norm_epsilon,
+                          device=device, dtype=dtype)
+
+    def forward(self, input_ids, position_ids=None, inference_params=None):
+        s = input_ids.shape[1]
+        if position_ids is None and inference_params is not None:
+            lengths = inference_params.lengths_per_sample
+            position_ids = lengths[:, None] + torch.arange(
+                s, device=input_ids.device, dtype=lengths.dtype)[None, :]
+        hidden_states = self.embeddings(input_ids, position_ids)
+        residual = None
+        for layer in self.layers:
+            hidden_states, residual = layer(hidden_states, residual,
+                                            inference_params=inference_params)
+        res_dtype = (torch.float32 if self.config.residual_in_fp32
+                     else hidden_states.dtype)
+        residual = hidden_states.to(res_dtype) + residual
+        hidden_states = self.ln_f(residual.to(self.dtype))
+        if inference_params is not None:
+            # once per forward, not per layer (gpt.py:265-269)
+            inference_params.lengths_per_sample = (
+                inference_params.lengths_per_sample + s)
+        return hidden_states
+
+
+class GPTLMHeadModel(nn.Module):
+    """GPTModel plus the (by default tied) LM head.  `device=None` means
+    CUDA and raises RuntimeError when there is none."""
+
+    def __init__(self, config: GPTConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        device = default_device(device)
+        self.config = config
+        self.transformer = GPTModel(config, device=device, dtype=dtype)
+        self.lm_head = (None if config.tie_word_embeddings
+                        else nn.Linear(config.n_embd, config.vocab_size,
+                                       bias=config.lm_head_bias,
+                                       device=device, dtype=dtype))
+
+    @property
+    def device(self):
+        return self.transformer.embeddings.wte.weight.device
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None,
+                     std: float = 0.02):
+        """Matrices and embeddings ~ N(0, std) drawn from `generator` (on the
+        CPU, so a seed gives the same weights on every device); biases 0,
+        norm weights 1."""
+        for name, p in self.named_parameters():
+            if p.ndim == 2:
+                w = torch.empty(p.shape, dtype=torch.float32)
+                w.normal_(0.0, std, generator=generator)
+                p.copy_(w)
+            elif name.endswith("weight"):  # the only 1-D weights are norms'
+                p.fill_(1.0)
+            else:
+                p.zero_()
+        return self
+
+    def forward(self, input_ids, position_ids=None, inference_params=None,
+                num_last_tokens: int = 0):
+        hidden_states = self.transformer(input_ids, position_ids,
+                                         inference_params=inference_params)
+        if num_last_tokens > 0:
+            hidden_states = hidden_states[:, -num_last_tokens:]
+        if self.lm_head is None:
+            logits = self.transformer.embeddings.attend(hidden_states)
+        else:
+            logits = self.lm_head(hidden_states)
+        return CausalLMOutput(logits=logits, inference_params=inference_params)
+
+
+def state_dict_from_jax_params(params, config: GPTConfig):
+    """The port's state_dict from the JAX model's flax parameter tree
+    (nested dicts of numpy arrays, with or without the top "params" key).
+
+    Dense kernels (in, out) are transposed to `nn.Linear.weight` (out, in).
+    Raises KeyError if an expected array is missing and ValueError if any
+    array of the tree is left unused."""
+    tree = params.get("params", params)
+    flat = {}
+
+    def walk(node, prefix):
+        for key, val in node.items():
+            path = f"{prefix}/{key}" if prefix else key
+            if isinstance(val, dict):
+                walk(val, path)
+            else:
+                flat[path] = np.asarray(val)
+
+    walk(tree, "")
+    sd = {}
+
+    def take(jax_path, name, transpose=False):
+        arr = flat.pop(jax_path)
+        sd[name] = torch.from_numpy(np.array(arr.T if transpose else arr))
+
+    def dense(jax_prefix, name):
+        take(f"{jax_prefix}/kernel", f"{name}.weight", transpose=True)
+        if f"{jax_prefix}/bias" in flat:
+            take(f"{jax_prefix}/bias", f"{name}.bias")
+
+    def norm(jax_prefix, name):
+        take(f"{jax_prefix}/weight", f"{name}.weight")
+        if f"{jax_prefix}/bias" in flat:
+            take(f"{jax_prefix}/bias", f"{name}.bias")
+
+    tr = "transformer"
+    take(f"{tr}/embeddings/wte/embedding", "transformer.embeddings.wte.weight")
+    if f"{tr}/embeddings/wpe/embedding" in flat:
+        take(f"{tr}/embeddings/wpe/embedding",
+             "transformer.embeddings.wpe.weight")
+    for i in range(config.n_layer):
+        jp, tp = f"{tr}/layers_{i}", f"transformer.layers.{i}"
+        norm(f"{jp}/norm1", f"{tp}.norm1")
+        norm(f"{jp}/norm2", f"{tp}.norm2")
+        dense(f"{jp}/mixer/Wqkv", f"{tp}.mixer.Wqkv")
+        dense(f"{jp}/mixer/out_proj", f"{tp}.mixer.out_proj")
+        dense(f"{jp}/mlp/fc1", f"{tp}.mlp.fc1")
+        dense(f"{jp}/mlp/fc2", f"{tp}.mlp.fc2")
+    norm(f"{tr}/ln_f", "transformer.ln_f")
+    if not config.tie_word_embeddings:
+        dense("lm_head", "lm_head")
+    if flat:
+        raise ValueError(f"unused JAX parameters: {sorted(flat)}")
+    return sd

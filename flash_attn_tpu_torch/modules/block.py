@@ -1,0 +1,64 @@
+"""Transformer block (counterpart of `flash_attn_tpu/modules/block.py`:
+`_Norm:19`, pre-norm `Block:39`).
+
+Inference only: dropout and stochastic depth are training features and are
+not ported in this slice.  Post-norm blocks and `ParallelBlock` raise
+`NotImplementedError` and are queued.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from flash_attn_tpu_torch.env import default_device
+from flash_attn_tpu_torch.ops.layer_norm import _norm
+
+
+class _Norm(nn.Module):
+    """LayerNorm or RMSNorm with float32 math, output in the module dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, is_rms: bool = False,
+                 use_bias: bool = True, *, device=None, dtype=torch.float32):
+        super().__init__()
+        device = default_device(device)
+        self.eps = eps
+        self.is_rms = is_rms
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+                     if use_bias and not is_rms else None)
+
+    def forward(self, x):
+        return _norm(x, self.weight, self.bias, self.eps,
+                     self.is_rms).to(self.dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm block: (hidden, residual) -> (hidden, residual); pass
+    residual=None to the first block."""
+
+    def __init__(self, dim: int, mixer: nn.Module, mlp: nn.Module, *,
+                 prenorm: bool = True, residual_in_fp32: bool = False,
+                 norm_eps: float = 1e-5, device=None, dtype=torch.float32):
+        super().__init__()
+        if not prenorm:
+            raise NotImplementedError("post-norm blocks are not ported yet")
+        device = default_device(device)
+        self.dtype = dtype
+        self.residual_in_fp32 = residual_in_fp32
+        self.norm1 = _Norm(dim, norm_eps, device=device, dtype=dtype)
+        self.norm2 = _Norm(dim, norm_eps, device=device, dtype=dtype)
+        self.mixer = mixer
+        self.mlp = mlp
+
+    def forward(self, hidden_states, residual=None, inference_params=None):
+        res_dtype = (torch.float32 if self.residual_in_fp32
+                     else hidden_states.dtype)
+        h = hidden_states.to(res_dtype)
+        residual = h if residual is None else h + residual
+        h = self.mixer(self.norm1(residual.to(self.dtype)),
+                       inference_params=inference_params)
+        residual = h.to(res_dtype) + residual
+        h = self.mlp(self.norm2(residual.to(self.dtype)))
+        return h, residual

@@ -1,0 +1,138 @@
+"""Multi-head self-attention with a KV cache (counterpart of
+`flash_attn_tpu/modules/mha.py`: `InferenceParams:39`, `MHA:126`,
+`MHA._cached_attention:329-388`).
+
+Only the self-attention, single-device case is ported; cross attention,
+rotary, tensor parallelism and the sharded / ring paths are queued.
+KV caches keep the JAX layout (b, hk, smax, d), which the decode kernel reads
+without transposes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from flash_attn_tpu_torch.env import default_device
+from flash_attn_tpu_torch.kernels.flash_decode import decode_attn_bhsd
+from flash_attn_tpu_torch.kernels.flash_fwd import flash_attn_fwd_bhsd
+
+DECODE_MAX_SEQLEN = 16  # s <= this runs the decode kernel (mha.py:367)
+
+
+@dataclasses.dataclass
+class InferenceParams:
+    """KV-cache state for generation.  Unlike the JAX pytree, this object is
+    updated in place: layers write into the caches and `GPTModel` advances
+    `lengths_per_sample` once per forward."""
+
+    max_seqlen: int
+    max_batch_size: int
+    lengths_per_sample: Optional[torch.Tensor] = None  # (b,) int32 cached
+    key_value_memory_dict: dict = dataclasses.field(default_factory=dict)
+
+
+def alibi_slopes(h: int, device=None) -> torch.Tensor:
+    """The standard ALiBi slope schedule 2^(-8i/h), (h,) float32
+    (`MHA._alibi_slopes`)."""
+    def slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(h).is_integer():
+        s = slopes(h)
+    else:
+        n = 2 ** math.floor(math.log2(h))
+        s = slopes(n) + slopes(2 * n)[0::2][: h - n]
+    return torch.tensor(s, dtype=torch.float32, device=device)
+
+
+class MHA(nn.Module):
+    """Self-attention: Wqkv -> attention kernel -> out_proj."""
+
+    def __init__(self, embed_dim: int, num_heads: int,
+                 num_heads_kv: Optional[int] = None,
+                 head_dim: Optional[int] = None, qkv_proj_bias: bool = True,
+                 out_proj_bias: bool = True,
+                 softmax_scale: Optional[float] = None, causal: bool = True,
+                 layer_idx: int = 0, window_size=(-1, -1),
+                 softcap: float = 0.0, use_alibi: bool = False, *,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        device = default_device(device)
+        self.num_heads = num_heads
+        self.num_heads_kv = num_heads_kv or num_heads
+        self.head_dim = head_dim or embed_dim // num_heads
+        self.softmax_scale = softmax_scale or 1.0 / math.sqrt(self.head_dim)
+        self.causal = causal
+        self.layer_idx = layer_idx
+        self.window_size = tuple(window_size)
+        self.softcap = softcap
+        h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
+        self.Wqkv = nn.Linear(embed_dim, (h + 2 * hk) * d, bias=qkv_proj_bias,
+                              device=device, dtype=dtype)
+        self.out_proj = nn.Linear(h * d, embed_dim, bias=out_proj_bias,
+                                  device=device, dtype=dtype)
+        self.register_buffer(
+            "alibi", alibi_slopes(h, device) if use_alibi else None,
+            persistent=False)
+
+    def _kernel_kwargs(self, b):
+        return dict(softmax_scale=self.softmax_scale,
+                    window_size=self.window_size, softcap=self.softcap,
+                    alibi_slopes=(None if self.alibi is None
+                                  else self.alibi.expand(b, -1)))
+
+    def forward(self, x, inference_params: Optional[InferenceParams] = None):
+        b, s, _ = x.shape
+        h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
+        qkv = self.Wqkv(x)
+        q = qkv[..., : h * d].reshape(b, s, h, d)
+        k = qkv[..., h * d: (h + hk) * d].reshape(b, s, hk, d)
+        v = qkv[..., (h + hk) * d:].reshape(b, s, hk, d)
+        if inference_params is None:
+            # Forward only: the autograd Function with the backward kernels
+            # belongs to the training slice.
+            full = torch.full((b,), s, dtype=torch.int32, device=x.device)
+            ctx, _ = flash_attn_fwd_bhsd(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), full, full, causal=self.causal,
+                **self._kernel_kwargs(b))
+        else:
+            ctx = self._cached_attention(q, k, v, inference_params)
+        return self.out_proj(ctx.transpose(1, 2).reshape(b, s, h * d))
+
+    def _cached_attention(self, q, k, v, inference_params):
+        """Append k/v to this layer's cache at each row's length, then
+        attend over the cache: decode kernel for s <= 16, prefill kernel
+        otherwise.  Returns ctx (b, h, s, d)."""
+        hk, d = self.num_heads_kv, self.head_dim
+        b, s = q.shape[0], q.shape[1]
+        ip = inference_params
+        lengths = ip.lengths_per_sample
+        if self.layer_idx not in ip.key_value_memory_dict:
+            kc = torch.zeros((ip.max_batch_size, hk, ip.max_seqlen, d),
+                             dtype=q.dtype, device=q.device)
+            ip.key_value_memory_dict[self.layer_idx] = (kc, torch.zeros_like(kc))
+        kc, vc = ip.key_value_memory_dict[self.layer_idx]
+        # In-place write of the new rows, where JAX scatters functionally.
+        bidx = torch.arange(b, device=q.device)[:, None]
+        sidx = lengths[:, None] + torch.arange(s, device=q.device,
+                                               dtype=lengths.dtype)[None, :]
+        kc[bidx, :, sidx] = k
+        vc[bidx, :, sidx] = v
+        new_len = lengths + s
+        qt = q.transpose(1, 2).contiguous()
+        if s <= DECODE_MAX_SEQLEN:
+            ctx, _ = decode_attn_bhsd(qt, kc, vc, new_len, causal=True,
+                                      **self._kernel_kwargs(b))
+        else:
+            seqused_q = torch.full((b,), s, dtype=torch.int32, device=q.device)
+            ctx, _ = flash_attn_fwd_bhsd(qt, kc[:b], vc[:b], seqused_q, new_len,
+                                         causal=self.causal,
+                                         **self._kernel_kwargs(b))
+        return ctx

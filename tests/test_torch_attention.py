@@ -1,0 +1,177 @@
+"""The port's prefill attention (`flash_attn_tpu_torch.kernels.flash_fwd`,
+plain version on the CPU) against the JAX package's `flash_attn_fwd_bhsd`
+(Pallas interpret mode) and JAX `attention_ref`, on the same seeded numpy
+inputs in float32.
+
+Tolerance: o atol 2e-5 and lse atol 1e-5, on rows < seqused_q (the JAX
+kernel leaves rows past seqused_q unmasked).  Both sides compute in float32
+and differ only in summation order.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flash_attn_tpu.kernels.flash_fwd import flash_attn_fwd_bhsd as jax_fwd
+from flash_attn_tpu.utils import testing as jax_testing
+from flash_attn_tpu_torch.kernels import flash_fwd as port_fwd
+from flash_attn_tpu_torch.utils import testing as port_testing
+
+O_ATOL, LSE_ATOL = 2e-5, 1e-5
+
+CASES = {
+    "causal_ragged": dict(h=4, hk=4, d=32, sq=24, sk=64, seqused_q=[24, 17],
+                          seqused_k=[64, 40], causal=True),
+    "gqa": dict(h=4, hk=2, d=32, sq=24, sk=64, seqused_q=[24, 24],
+                seqused_k=[64, 64], causal=True),
+    "window_8_0": dict(h=4, hk=2, d=32, sq=24, sk=64, seqused_q=[24, 20],
+                       seqused_k=[64, 50], window=(8, 0)),
+    "window_one_sided": dict(h=4, hk=4, d=32, sq=24, sk=64,
+                             seqused_q=[24, 24], seqused_k=[64, 64],
+                             window=(8, -1)),
+    "softcap": dict(h=4, hk=4, d=32, sq=24, sk=64, seqused_q=[24, 19],
+                    seqused_k=[64, 33], causal=True, softcap=30.0),
+    "alibi": dict(h=4, hk=2, d=32, sq=24, sk=64, seqused_q=[24, 24],
+                  seqused_k=[64, 57], causal=True, alibi=True),
+    "seqused_k_zero": dict(h=4, hk=4, d=32, sq=24, sk=64, seqused_q=[24, 24],
+                           seqused_k=[64, 0], causal=True),
+    # offset = seqused_k - seqused_q < 0: the first causal rows see no key
+    "seqused_k_lt_q": dict(h=4, hk=4, d=32, sq=24, sk=64, seqused_q=[24, 22],
+                           seqused_k=[64, 10], causal=True),
+    "d64": dict(h=4, hk=2, d=64, sq=24, sk=64, seqused_q=[21, 24],
+                seqused_k=[64, 48], causal=True),
+}
+
+
+def make_inputs(c, seed=0):
+    rng = np.random.default_rng(seed)
+    b = len(c["seqused_q"])
+    q = rng.standard_normal((b, c["h"], c["sq"], c["d"])).astype(np.float32)
+    k = rng.standard_normal((b, c["hk"], c["sk"], c["d"])).astype(np.float32)
+    v = rng.standard_normal((b, c["hk"], c["sk"], c["d"])).astype(np.float32)
+    slopes = (rng.uniform(0.05, 0.5, (b, c["h"])).astype(np.float32)
+              if c.get("alibi") else None)
+    return q, k, v, slopes
+
+
+def kwargs(c, slopes, lib):
+    return dict(softmax_scale=c["d"] ** -0.5, causal=c.get("causal", False),
+                window_size=c.get("window", (-1, -1)),
+                softcap=c.get("softcap", 0.0),
+                alibi_slopes=None if slopes is None else lib(slopes))
+
+
+def rows_valid(c):
+    sq = c["sq"]
+    return np.arange(sq)[None, None, :] < np.asarray(c["seqused_q"])[:, None,
+                                                                      None]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fwd_matches_jax_kernel(name):
+    c = CASES[name]
+    q, k, v, slopes = make_inputs(c)
+    squ = np.asarray(c["seqused_q"], np.int32)
+    sku = np.asarray(c["seqused_k"], np.int32)
+    o_j, lse_j = jax_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         jnp.asarray(squ), jnp.asarray(sku),
+                         **kwargs(c, slopes, jnp.asarray))
+    o_t, lse_t = port_fwd.flash_attn_fwd_bhsd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(squ), torch.from_numpy(sku),
+        **kwargs(c, slopes, torch.from_numpy))
+    valid = np.broadcast_to(rows_valid(c), lse_t.shape)
+    o_j, lse_j = np.asarray(o_j), np.asarray(lse_j)
+    o_t, lse_t = o_t.numpy(), lse_t.numpy()
+    np.testing.assert_allclose(o_t[valid], o_j[valid], atol=O_ATOL, rtol=0)
+    assert np.array_equal(np.isinf(lse_t[valid]), np.isinf(lse_j[valid]))
+    fin = valid & np.isfinite(lse_j)
+    np.testing.assert_allclose(lse_t[fin], lse_j[fin], atol=LSE_ATOL, rtol=0)
+    if name == "seqused_k_zero":
+        assert np.all(o_t[1] == 0.0) and np.all(np.isposinf(lse_t[1]))
+    if name == "seqused_k_lt_q":
+        empty = c["seqused_q"][1] - c["seqused_k"][1]
+        assert np.all(o_t[1, :, :empty] == 0.0)
+        assert np.all(np.isposinf(lse_t[1, :, :empty]))
+        assert np.all(np.isfinite(lse_t[1, :, empty:c["seqused_q"][1]]))
+
+
+def _jax_oracle(c, q, k, v, slopes):
+    """JAX attention_ref in its (b, s, h, d) layout, with padding masks for
+    the ragged lengths."""
+    qpm = jnp.asarray(np.arange(c["sq"])[None] < np.asarray(
+        c["seqused_q"])[:, None])
+    kpm = jnp.asarray(np.arange(c["sk"])[None] < np.asarray(
+        c["seqused_k"])[:, None])
+    bias = None
+    if slopes is not None:
+        bias = jax_testing.attn_bias_from_alibi_slopes(
+            jnp.asarray(slopes), c["sq"], c["sk"], qpm, kpm, causal=False)
+    out, _ = jax_testing.attention_ref(
+        jnp.asarray(q.transpose(0, 2, 1, 3)), jnp.asarray(k.transpose(0, 2, 1, 3)),
+        jnp.asarray(v.transpose(0, 2, 1, 3)), query_padding_mask=qpm,
+        key_padding_mask=kpm, attn_bias=bias, causal=c.get("causal", False),
+        window_size=c.get("window", (-1, -1)), softcap=c.get("softcap", 0.0),
+        softmax_scale=c["d"] ** -0.5)
+    return np.asarray(out).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_fwd_matches_jax_oracle(name):
+    c = CASES[name]
+    q, k, v, slopes = make_inputs(c, seed=1)
+    o_t, _ = port_fwd.flash_attn_fwd_bhsd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.tensor(c["seqused_q"], dtype=torch.int32),
+        torch.tensor(c["seqused_k"], dtype=torch.int32),
+        **kwargs(c, slopes, torch.from_numpy))
+    ref = _jax_oracle(c, q, k, v, slopes)
+    valid = np.broadcast_to(rows_valid(c)[..., None], ref.shape)
+    np.testing.assert_allclose(o_t.numpy()[valid], ref[valid], atol=O_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("name", ["causal_ragged", "window_8_0", "alibi",
+                                  "seqused_k_zero"])
+def test_port_oracle_matches_jax_oracle(name):
+    """The port's own `attention_ref` (used by the plain versions' checks)
+    against its JAX twin."""
+    c = CASES[name]
+    q, k, v, slopes = make_inputs(c, seed=2)
+    qpm = torch.arange(c["sq"])[None] < torch.tensor(c["seqused_q"])[:, None]
+    kpm = torch.arange(c["sk"])[None] < torch.tensor(c["seqused_k"])[:, None]
+    bias = None
+    if slopes is not None:
+        bias = port_testing.attn_bias_from_alibi_slopes(
+            torch.from_numpy(slopes), c["sq"], c["sk"], qpm, kpm)
+    out, _ = port_testing.attention_ref(
+        torch.from_numpy(q.transpose(0, 2, 1, 3)),
+        torch.from_numpy(k.transpose(0, 2, 1, 3)),
+        torch.from_numpy(v.transpose(0, 2, 1, 3)), query_padding_mask=qpm,
+        key_padding_mask=kpm, attn_bias=bias, causal=c.get("causal", False),
+        window_size=c.get("window", (-1, -1)), softmax_scale=c["d"] ** -0.5)
+    ref = _jax_oracle(c, q, k, v, slopes)
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 1, 3), ref,
+                               atol=O_ATOL, rtol=0)
+
+
+def test_check_close_rule():
+    ref = torch.zeros(4)
+    pt = torch.full((4,), 1e-3)
+    assert port_testing.check_close(torch.full((4,), 2e-3), ref, pt)[0] == \
+        pytest.approx(2e-3)
+    with pytest.raises(AssertionError):
+        port_testing.check_close(torch.full((4,), 3e-3), ref, pt)
+
+
+@pytest.mark.parametrize("kw", [dict(dropout_p=0.1), dict(sinks=torch.zeros(4)),
+                                dict(attention_chunk=8)])
+def test_fwd_unsupported_options_raise(kw):
+    c = CASES["gqa"]
+    q, k, v, _ = make_inputs(c)
+    with pytest.raises(NotImplementedError):
+        port_fwd.flash_attn_fwd_bhsd(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            [24, 24], [64, 64], softmax_scale=0.1, **kw)
+

@@ -1,0 +1,177 @@
+"""The port's GPT-2 model (`flash_attn_tpu_torch.models.gpt`) against the JAX
+model on the same weights, carried across by `state_dict_from_jax_params`,
+plus the norm and activation ops.  Tiny model in float32, on the CPU.
+
+Tolerances: logits atol 1e-4 (two layers of float32 matmuls summed in
+different orders); live KV-cache rows atol 1e-5 (one projection from
+identical inputs); norms atol 1e-5 in float32 and one bf16 rounding
+(rtol 2^-7) in bfloat16; GELU atol 1e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flash_attn_tpu.models.gpt import GPTLMHeadModel as JaxGPT
+from flash_attn_tpu.modules.mha import InferenceParams as JaxInferenceParams
+from flash_attn_tpu.ops.activations import gelu_approx as jax_gelu
+from flash_attn_tpu.ops.layer_norm import layer_norm as jax_layer_norm
+from flash_attn_tpu.ops.layer_norm import rms_norm as jax_rms_norm
+from flash_attn_tpu_torch.models.gpt import (GPTConfig, GPTLMHeadModel,
+                                             state_dict_from_jax_params)
+from flash_attn_tpu_torch.modules.mha import InferenceParams
+from flash_attn_tpu_torch.ops.activations import gelu_approx
+from flash_attn_tpu_torch.ops.layer_norm import layer_norm, rms_norm
+
+LOGIT_ATOL, KV_ATOL = 1e-4, 1e-5
+TINY = dict(n_embd=128, n_head=4, n_layer=2, vocab_size=311, n_positions=256)
+
+
+def jax_config(**extra):
+    from transformers import GPT2Config
+
+    cfg = GPT2Config(**TINY, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    for k, v in extra.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def to_numpy_tree(tree):
+    return {k: to_numpy_tree(v) if hasattr(v, "items") else np.asarray(v)
+            for k, v in tree.items()}
+
+
+@pytest.fixture(scope="module")
+def models():
+    ids = np.random.default_rng(0).integers(0, 311, (2, 24)).astype(np.int32)
+    jmodel = JaxGPT(jax_config(), dtype=jnp.float32)
+    init = JaxGPT(jax_config(use_flash_attn=False), dtype=jnp.float32).init
+    params = jax.jit(init)(jax.random.PRNGKey(0), jnp.asarray(ids[:, :4]))
+    cfg = GPTConfig(**TINY)
+    port = GPTLMHeadModel(cfg, device="cpu", dtype=torch.float32)
+    port.load_state_dict(state_dict_from_jax_params(to_numpy_tree(params), cfg))
+    port.eval()
+    return jmodel, params, port, ids
+
+
+def test_converter_uses_every_array_once(models):
+    _, params, port, _ = models
+    tree = to_numpy_tree(params)
+    sd = state_dict_from_jax_params(tree, port.config)
+    n_arrays = len(jax.tree_util.tree_leaves(tree))
+    assert len(sd) == n_arrays
+    expected = port.state_dict()
+    assert set(sd) == set(expected)
+    for k, v in sd.items():
+        assert tuple(v.shape) == tuple(expected[k].shape), k
+    # Dense kernels are (in, out) in flax and (out, in) in nn.Linear.
+    w = tree["params"]["transformer"]["layers_0"]["mixer"]["Wqkv"]["kernel"]
+    np.testing.assert_array_equal(
+        sd["transformer.layers.0.mixer.Wqkv.weight"].numpy(), w.T)
+    tree["params"]["transformer"]["extra"] = {"kernel": np.zeros((2, 2))}
+    with pytest.raises(ValueError, match="unused"):
+        state_dict_from_jax_params(tree, port.config)
+
+
+@pytest.mark.parametrize("use_flash_attn", [False, True])
+def test_no_cache_logits_match_jax(models, use_flash_attn):
+    """Default JAX path (interpret-mode Pallas) and its XLA reference path."""
+    jmodel, params, port, ids = models
+    jm = JaxGPT(jax_config(use_flash_attn=use_flash_attn), dtype=jnp.float32)
+    ref = np.asarray(jax.jit(lambda p, x: jm.apply(p, x).logits)(
+        params, jnp.asarray(ids)))
+    with torch.no_grad():
+        out = port(torch.from_numpy(ids).long()).logits.numpy()
+    np.testing.assert_allclose(out, ref, atol=LOGIT_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "sqrelu"])
+def test_mlp_variants_match_jax(act):
+    """`GatedMlp` with SwiGLU and the squared-ReLU `Mlp`, through the tiny
+    model (XLA reference attention on the JAX side)."""
+    ids = np.random.default_rng(1).integers(0, 311, (2, 12)).astype(np.int32)
+    jm = JaxGPT(jax_config(activation_function=act, use_flash_attn=False),
+                dtype=jnp.float32)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(ids[:, :4]))
+    cfg = GPTConfig(**TINY, activation_function=act)
+    port = GPTLMHeadModel(cfg, device="cpu")
+    port.load_state_dict(state_dict_from_jax_params(to_numpy_tree(params), cfg))
+    ref = np.asarray(jax.jit(lambda p, x: jm.apply(p, x).logits)(
+        params, jnp.asarray(ids)))
+    with torch.no_grad():
+        out = port(torch.from_numpy(ids).long()).logits.numpy()
+    np.testing.assert_allclose(out, ref, atol=LOGIT_ATOL, rtol=0)
+
+
+def test_cached_prefill_and_decode_match_jax(models):
+    """Prefill of 17 tokens (the prefill kernel: s > 16) then 3 one-token
+    decode steps, logits and live cache rows compared at every step."""
+    jmodel, params, port, ids = models
+    b, smax = 2, 32
+    steps = [ids[:, :17]] + [ids[:, 17 + i:18 + i] for i in range(3)]
+    jip = JaxInferenceParams(max_seqlen=smax, max_batch_size=b,
+                             lengths_per_sample=jnp.zeros((b,), jnp.int32))
+    tip = InferenceParams(max_seqlen=smax, max_batch_size=b,
+                          lengths_per_sample=torch.zeros(b, dtype=torch.int32))
+
+    @jax.jit
+    def jstep(p, x, ip):
+        out = jmodel.apply(p, x, inference_params=ip)
+        return out.logits, out.inference_params
+
+    for x in steps:
+        jlogits, jip = jstep(params, jnp.asarray(x), jip)
+        with torch.no_grad():
+            tout = port(torch.from_numpy(x).long(), inference_params=tip)
+        np.testing.assert_allclose(tout.logits.numpy(), np.asarray(jlogits),
+                                   atol=LOGIT_ATOL, rtol=0)
+        n = int(jip.lengths_per_sample[0])
+        assert tip.lengths_per_sample.tolist() == [n, n]
+        for li in range(TINY["n_layer"]):
+            for jc, tc in zip(jip.key_value_memory_dict[li],
+                              tip.key_value_memory_dict[li]):
+                np.testing.assert_allclose(tc[:, :, :n].numpy(),
+                                           np.asarray(jc)[:, :, :n],
+                                           atol=KV_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_layer_norm_matches_jax(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32) * 3 + 1
+    w = rng.standard_normal(64).astype(np.float32)
+    bias = rng.standard_normal(64).astype(np.float32)
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    jdt = jnp.float32 if dtype is np.float32 else jnp.bfloat16
+    xt = torch.from_numpy(x).to(tdt)
+    xj = jnp.asarray(x).astype(jdt)
+    out = layer_norm(xt, torch.from_numpy(w), torch.from_numpy(bias))
+    ref = jax_layer_norm(xj, jnp.asarray(w), jnp.asarray(bias))
+    # float32: summation order only; bf16: one rounding of the output
+    tol = (dict(atol=1e-5, rtol=0) if dtype is np.float32
+           else dict(atol=1e-6, rtol=2 ** -7))
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), **tol)
+    out = rms_norm(xt, torch.from_numpy(w))
+    ref = jax_rms_norm(xj, jnp.asarray(w))
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), **tol)
+
+
+def test_gelu_approx_matches_jax():
+    x = np.linspace(-8, 8, 4001).astype(np.float32)
+    np.testing.assert_allclose(gelu_approx(torch.from_numpy(x)).numpy(),
+                               np.asarray(jax_gelu(jnp.asarray(x))),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("rotary_emb_fraction", 0.5), ("n_head_kv", 2), ("parallel_block", True),
+    ("rms_norm", True), ("use_mup", True), ("tensor_parallel", True),
+    ("prenorm", False)])
+def test_unported_features_raise(field, value):
+    cfg = GPTConfig(**TINY, **{field: value})
+    with pytest.raises(NotImplementedError):
+        GPTLMHeadModel(cfg, device="cpu")

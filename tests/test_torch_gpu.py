@@ -1,0 +1,122 @@
+"""Tests of the port that need the card: each CUDA kernel against its plain
+PyTorch version, and the GPT serving path on CUDA against the plain CPU path.
+
+Marked `gpu`; they skip where torch sees no CUDA device.  Run them on a GPU
+machine with `python -m pytest tests/test_torch_gpu.py -m gpu -q` (add
+`--noconftest` where JAX is not installed: `tests/conftest.py` imports it).
+Tolerance: the repo's rule, |kernel - fp32 plain| <= 2 |bf16 plain - fp32
+plain| + 1e-5 on valid rows.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from flash_attn_tpu_torch.kernels import flash_decode, flash_fwd
+from flash_attn_tpu_torch.utils.testing import check_close
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,h,hk,causal,window,softcap,alibi", [
+    (64, 4, 4, True, (-1, -1), 0.0, False),
+    (128, 8, 2, True, (-1, -1), 0.0, False),
+    (64, 4, 2, False, (32, 8), 30.0, True),
+    (128, 4, 4, False, (-1, -1), 0.0, False),
+])
+def test_fwd_kernel_matches_plain(cuda, dtype, d, h, hk, causal, window,
+                                  softcap, alibi):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, sq, sk = 3, 150, 300
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    # batch 1: seqused_k < seqused_q, so its first causal rows see no key
+    squ = torch.tensor([150, 140, 150], dtype=torch.int32, device=cuda)
+    sku = torch.tensor([300, 97, 0], dtype=torch.int32, device=cuda)
+    slopes = torch.rand(b, h, generator=gen, device=cuda) if alibi else None
+    kw = dict(softmax_scale=d ** -0.5, causal=causal, window_size=window,
+              softcap=softcap, alibi_slopes=slopes)
+    before = flash_fwd.launches
+    o, lse = flash_fwd.flash_attn_fwd_bhsd(q, k, v, squ, sku, **kw)
+    assert flash_fwd.launches == before + 1
+    o_ref, lse_ref = flash_fwd.flash_attn_fwd_bhsd_ref(
+        q.float(), k.float(), v.float(), squ, sku, **kw)
+    o_pt, lse_pt = flash_fwd.flash_attn_fwd_bhsd_ref(q, k, v, squ, sku, **kw)
+    rows = (torch.arange(sq, device=cuda)[None, None, :]
+            < squ[:, None, None]).expand(b, h, sq)
+    check_close(o[rows], o_ref[rows], o_pt[rows])
+    assert torch.equal(torch.isinf(lse[rows]), torch.isinf(lse_ref[rows]))
+    fin = rows & torch.isfinite(lse_ref)
+    check_close(lse[fin], lse_ref[fin], lse_pt[fin])
+    assert torch.all(o[2] == 0) and torch.all(torch.isposinf(lse[2]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,h,hk,sq,num_splits,window,softcap,alibi", [
+    (64, 12, 12, 1, 1, (-1, -1), 0.0, False),
+    (128, 32, 8, 1, 1, (-1, -1), 0.0, False),
+    (64, 8, 4, 4, 1, (-1, -1), 0.0, False),
+    (64, 12, 12, 1, 3, (-1, -1), 0.0, False),
+    (128, 8, 1, 16, 2, (-1, -1), 0.0, False),
+    (64, 8, 2, 4, 3, (100, 0), 30.0, True),
+])
+def test_decode_kernel_matches_plain(cuda, dtype, d, h, hk, sq, num_splits,
+                                     window, softcap, alibi):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, smax = 4, 600
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    kc = torch.randn(b + 1, hk, smax, d, generator=gen, device=cuda).to(dtype)
+    vc = torch.randn(b + 1, hk, smax, d, generator=gen, device=cuda).to(dtype)
+    lens = torch.tensor([600, 17, 0, 333], dtype=torch.int32, device=cuda)
+    cbi = torch.tensor([4, 0, 1, 2], dtype=torch.int32, device=cuda)
+    slopes = torch.rand(b, h, generator=gen, device=cuda) if alibi else None
+    kw = dict(softmax_scale=d ** -0.5, causal=True, num_splits=num_splits,
+              block_k=128, cache_batch_idx=cbi, window_size=window,
+              softcap=softcap, alibi_slopes=slopes)
+    before = flash_decode.launches
+    o, lse = flash_decode.decode_attn_bhsd(q, kc, vc, lens, **kw)
+    assert flash_decode.launches == before + 1
+    o_ref, lse_ref = flash_decode.decode_attn_bhsd_ref(
+        q.float(), kc.float(), vc.float(), lens, **kw)
+    o_pt, lse_pt = flash_decode.decode_attn_bhsd_ref(q, kc, vc, lens, **kw)
+    check_close(o, o_ref, o_pt)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    check_close(lse[fin], lse_ref[fin], lse_pt[fin])
+
+
+def test_serving_on_cuda_matches_cpu_plain_path(cuda):
+    from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    from flash_attn_tpu_torch.serving import ServingEngine
+
+    cfg = GPTConfig(n_embd=256, n_head=4, n_layer=2, vocab_size=1000,
+                    n_positions=512)
+    gpu = GPTLMHeadModel(cfg, device=cuda, dtype=torch.float16)
+    gpu.init_weights(torch.Generator().manual_seed(0))
+    cpu = GPTLMHeadModel(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 1000, n) for n in (20, 70, 5, 130)]
+    eng = ServingEngine(gpu, max_batch=2, max_seqlen=256, chunk_steps=4,
+                        prefill_buckets=(32, 64, 128, 256))
+    fwd0, dec0 = flash_fwd.launches, flash_decode.launches
+    uids = [eng.submit(p, max_new_tokens=12) for p in prompts]
+    results = eng.run()
+    assert flash_fwd.launches - fwd0 == eng.stats.prefill_waves * 2
+    assert flash_decode.launches - dec0 == eng.stats.decode_steps * 2
+    for uid, p in zip(uids, prompts):
+        toks = results[uid]
+        seq = torch.as_tensor(np.concatenate([p, toks[:-1]]))[None]
+        with torch.no_grad():
+            logits = cpu(seq).logits[0, len(p) - 1:]
+        picked = logits[torch.arange(len(toks)), torch.as_tensor(toks)]
+        assert float((logits.max(-1).values - picked).max()) < 0.05

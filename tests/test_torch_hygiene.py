@@ -1,0 +1,133 @@
+"""Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
+package, and its entry points never fall back to the CPU by themselves."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "flash_attn_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "transformers", "flash_attn_tpu")
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    for name in imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import flash_attn_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules "
+        "if m.startswith('flash_attn_tpu_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[1]) >= 15
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    from flash_attn_tpu_torch import default_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_device()
+    assert default_device("cpu") == torch.device("cpu")
+
+
+def test_model_raises_without_cuda(no_cuda):
+    from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTLMHeadModel(GPTConfig(n_embd=64, n_head=2, n_layer=1,
+                                 vocab_size=17, n_positions=32))
+
+
+def _entry_points():
+    from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from flash_attn_tpu_torch.modules.block import Block, _Norm
+    from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
+    from flash_attn_tpu_torch.modules.mha import MHA
+    from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
+    from flash_attn_tpu_torch.utils.generation import allocate_inference_cache
+
+    stub = torch.nn.Identity()
+    return {
+        "GPTModel": lambda: GPTModel(GPTConfig(n_embd=64, n_head=2, n_layer=1,
+                                               vocab_size=17, n_positions=32)),
+        "MHA": lambda: MHA(64, 2),
+        "Mlp": lambda: Mlp(64, 128),
+        "GatedMlp": lambda: GatedMlp(64, 128),
+        "_Norm": lambda: _Norm(64),
+        "Block": lambda: Block(64, stub, stub),
+        "GPT2Embeddings": lambda: GPT2Embeddings(64, 17, 32),
+        "allocate_inference_cache": lambda: allocate_inference_cache(2, 32),
+    }
+
+
+@pytest.mark.parametrize("name", ["GPTModel", "MHA", "Mlp", "GatedMlp",
+                                  "_Norm", "Block", "GPT2Embeddings",
+                                  "allocate_inference_cache"])
+def test_entry_point_raises_without_cuda(no_cuda, name):
+    """Every public constructor resolves device=None to CUDA, so none of
+    them builds on the CPU unless asked to."""
+    make = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+
+
+@pytest.mark.parametrize("fn", ["flash_attn_fwd_bhsd", "decode_attn_bhsd"])
+def test_wrappers_run_no_plain_version_off_cpu(fn):
+    """A tensor that is not on the CPU never reaches the plain version."""
+    from flash_attn_tpu_torch.kernels import flash_decode, flash_fwd
+
+    q = torch.empty(1, 2, 4, 64, device="meta")
+    k = torch.empty(1, 2, 8, 64, device="meta")
+    lens = torch.empty(1, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for meta"):
+        if fn == "flash_attn_fwd_bhsd":
+            flash_fwd.flash_attn_fwd_bhsd(q, k, k, lens, lens,
+                                          softmax_scale=0.125)
+        else:
+            flash_decode.decode_attn_bhsd(q, k, k, lens, softmax_scale=0.125)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from flash_attn_tpu_torch.kernels import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a CUDA toolkit is installed here")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
