@@ -3,14 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from `flash_attn_tpu_torch/csrc/`, holds each
-against its plain PyTorch version at the serving path's shapes (and a few
-more), times kernel, plain version and a PyTorch library call beside the
-card's bound, then serves GPT-2 small (124M, random weights from a seed) at
-full width and depth through `ServingEngine` and checks that the path went
-through both kernels and that greedy tokens agree with an fp32 CPU
-reference.  Prints one JSON line per phase, the kernel summary, the card's
-name and power limit, and as its last line
+Builds the CUDA kernels from `flash_attn_tpu_torch/csrc/` (one `nvcc` per
+source, all started together), holds each against its plain PyTorch version
+at the shapes of the serving and training paths (and a few more), times
+kernel, plain version and a PyTorch library call beside the card's bound.
+Then it drives both main paths of the port at the full width and depth of
+GPT-2 small (124M, random weights from a seed): it serves a batch through
+`ServingEngine`, checking that greedy tokens agree with an fp32 CPU
+reference, and it trains 20 steps through `training.trainer.Trainer` at the
+JAX defaults (seq_len 1024, batch 8, bf16 autocast over fp32 weights),
+checking finite losses from about ln(50257).  The kernel launch counts of
+each path are set to 0 just before it and read just after.  A last phase
+holds one training step's gradients on the card against fp32 on the CPU
+and checks that 30 steps on one batch bring its loss down.  Prints one JSON
+line per phase, the kernel summary, the card's name and power limit, and
+as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero.
 """
@@ -18,6 +25,7 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -159,27 +167,14 @@ def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     err_o, err_o_pt, err_l, err_l_pt = check_attention(
         label, o, lse, o_ref, lse_ref, o_pt, lse_pt, rows_ok)
 
-    # live (row, key) pairs from the same masks, rows < seqused_q only
-    wl, wr = ff.normalize_window(window, causal, sk)
-    has_upper, wr, has_lower, wl = ff.mask_params(causal, wl, wr)
-    rows = torch.arange(sq, device=dev).view(1, sq, 1)
-    cols = torch.arange(sk, device=dev).view(1, 1, sk)
-    sk_b = sku.long().view(b, 1, 1)
-    offset = sk_b - squ.long().view(b, 1, 1)
-    live = (cols < sk_b) & (rows < squ.long().view(b, 1, 1))
-    if has_upper:
-        live &= cols <= rows + offset + wr
-    if has_lower:
-        live &= cols >= rows + offset - wl
+    live = live_pairs(sq, sk, squ, sku, causal, window)
     pairs = int(live.sum()) * h
     flops = 4 * d * pairs
     elt = 2
     bytes_ = (b * h * sq * d * elt            # q
               + 2 * hk * d * elt * int(sku.clamp(max=sk).sum())  # live k, v
               + b * h * sq * d * elt + b * h * sq * 4)           # o, lse
-    bound_ms = max(flops / PEAK_FLOPS, bytes_ / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_FLOPS >= bytes_ / PEAK_BYTES \
-        else "bytes"
+    bound_ms, bound_by = bound(flops, bytes_)
     args = input_copies(q, k, v, squ, sku)
     before = ff.launches
     kernel_ms = time_ms(lambda *a: ff.flash_attn_fwd_bhsd(*a, **kw), args)
@@ -200,6 +195,181 @@ def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
                bytes=bytes_, share_of_bound=bound_ms / kernel_ms)
     emit(res)
     return res
+
+
+def live_pairs(sq, sk, squ, sku, causal, window):
+    """(b, sq, sk) bool: the (row, key) pairs the masks leave, on rows <
+    seqused_q and keys < seqused_k (the kernels' own mask arithmetic)."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+
+    b = squ.shape[0]
+    wl, wr = ff.normalize_window(window, causal, sk)
+    has_upper, wr, has_lower, wl = ff.mask_params(causal, wl, wr)
+    rows = torch.arange(sq, device=squ.device).view(1, sq, 1)
+    cols = torch.arange(sk, device=squ.device).view(1, 1, sk)
+    sk_b = sku.long().clamp(max=sk).view(b, 1, 1)
+    offset = sk_b - squ.long().view(b, 1, 1)
+    live = (cols < sk_b) & (rows < squ.long().view(b, 1, 1))
+    if has_upper:
+        live &= cols <= rows + offset + wr
+    if has_lower:
+        live &= cols >= rows + offset - wl
+    return live
+
+
+def kernel_device_ms(fn, args, names, iters=20):
+    """Median device time of each kernel whose name contains one of `names`,
+    over `iters` calls fn(*args[j]) (cycling over the input sets), from
+    `torch.profiler`'s device activity.  Returns {name: ms}.  The profiler
+    may miss a record now and then (19 of 20 were seen once), so the median
+    is over the records it kept, and fewer than half of them fail."""
+    import torch
+
+    for j in range(3):
+        fn(*args[j % len(args)])
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        for j in range(iters):
+            fn(*args[j % len(args)])
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        times = sorted(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and name in e.name)
+        if len(times) < iters // 2:
+            raise RuntimeError(f"profiler saw {len(times)} launches of "
+                               f"{name}, expected {iters}")
+        out[name] = times[len(times) // 2] * 1e-3
+    return out
+
+
+def bound(flops, bytes_):
+    """(bound ms, what bounds it) on the card's dense bf16 rate and HBM
+    rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, bytes_ / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
+             causal=True, window=(-1, -1), softcap=0.0, alibi=False,
+             library=False, repeat=False):
+    """The backward kernels against the plain version (fp32 oracle, bf16
+    yardstick) on dq (rows < seqused_q), dk and dv; times of the whole
+    backward, of each kernel (profiler), of the plain version and, with
+    `library`, of SDPA's causal backward on the same inputs.  With
+    `repeat`, a second call on the same inputs must be bitwise equal."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    dev = "cuda"
+    q = torch.randn(b, h, sq, d, generator=gen, device=dev).bfloat16()
+    k = torch.randn(b, hk, sk, d, generator=gen, device=dev).bfloat16()
+    v = torch.randn(b, hk, sk, d, generator=gen, device=dev).bfloat16()
+    squ = torch.tensor(seqused_q, dtype=torch.int32, device=dev)
+    sku = torch.tensor(seqused_k, dtype=torch.int32, device=dev)
+    slopes = (torch.rand(b, h, generator=gen, device=dev) * 0.3
+              if alibi else None)
+    kw = dict(softmax_scale=d ** -0.5, causal=causal, window_size=window,
+              softcap=softcap, alibi_slopes=slopes)
+    rows_ok = (torch.arange(sq, device=dev)[None, None, :]
+               < squ[:, None, None]).expand(b, h, sq)
+    # callers pass do = 0 on rows past seqused_q
+    do = (torch.randn(b, h, sq, d, generator=gen, device=dev)
+          * rows_ok[..., None]).bfloat16()
+    before = ff.launches, fb.launches_dq, fb.launches_dkv
+    o, lse = ff.flash_attn_fwd_bhsd(q, k, v, squ, sku, **kw)
+    dq, dk, dv = fb.flash_attn_bwd_bhsd(do, q, k, v, o, lse, squ, sku, **kw)
+    torch.cuda.synchronize()
+    ref = fb.flash_attn_bwd_bhsd_ref(do.float(), q.float(), k.float(),
+                                     v.float(), o.float(), lse, squ, sku, **kw)
+    pt = fb.flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, squ, sku, **kw)
+    sel = rows_ok[..., None].expand_as(dq)
+    errs = {}
+    for name, x, r, y, m in (("dq", dq, ref[0], pt[0], sel),
+                             ("dk", dk, ref[1], pt[1], None),
+                             ("dv", dv, ref[2], pt[2], None)):
+        if m is not None:
+            x, r, y = x[m], r[m], y[m]
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+        errs[name] = check_close(x, r, y, label=f"{label} {name}")
+    del ref, pt
+    bitwise_repeat = None
+    if repeat:
+        again = fb.flash_attn_bwd_bhsd(do, q, k, v, o, lse, squ, sku, **kw)
+        bitwise_repeat = all(torch.equal(x, y)
+                             for x, y in zip((dq, dk, dv), again))
+        if not bitwise_repeat:
+            raise AssertionError(f"{label}: two runs differ")
+    for i, n in enumerate(seqused_k):  # keys past seqused_k get no gradient
+        if dk[i, :, n:].any() or dv[i, :, n:].any():
+            raise AssertionError(f"{label}: dk/dv past seqused_k")
+        if n == 0 and dq[i].any():
+            raise AssertionError(f"{label}: dq of a row with no key")
+
+    pairs = int(live_pairs(sq, sk, squ, sku, causal, window).sum()) * h
+    elt = 2
+    q_side = b * h * sq * d * elt      # q, o, do, dq each
+    kv_side = b * hk * sk * d * elt    # k, v, dk, dv each
+    stats = 2 * b * h * sq * 4         # lse, delta
+    bound_ms, bound_by = bound(10 * d * pairs,
+                               4 * q_side + 4 * kv_side + stats)
+    dq_bound = bound(6 * d * pairs, 3 * q_side + 2 * kv_side + stats)
+    dkv_bound = bound(8 * d * pairs, 2 * q_side + 4 * kv_side + stats)
+    args = input_copies(do, q, k, v, o, lse, squ, sku)
+    kernel_ms = time_ms(lambda *a: fb.flash_attn_bwd_bhsd(*a, **kw), args)
+    dev_ms = kernel_device_ms(lambda *a: fb.flash_attn_bwd_bhsd(*a, **kw),
+                              args, ("flash_bwd_dq_kernel",
+                                     "flash_bwd_dkv_kernel"))
+    # The plain backward issues ~45 kernels a call: 8 calls keep the host's
+    # queue, which the timing fills while a spin kernel holds the card,
+    # below CUDA's launch-queue depth.
+    plain_ms = time_ms(lambda *a: fb.flash_attn_bwd_bhsd_ref(*a, **kw), args,
+                       iters=8)
+    ff.launches, fb.launches_dq, fb.launches_dkv = before  # not a main path
+    library_ms = None
+    if library:
+        library_ms = sdpa_backward_ms(q, k, v, do)
+    res = dict(phase="kernel_bwd", case=label, b=b, h=h, hk=hk, sq=sq, sk=sk,
+               d=d, causal=causal, window=list(window), softcap=softcap,
+               alibi=alibi, seqused_q=list(seqused_q),
+               seqused_k=list(seqused_k),
+               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
+               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
+               kernel_ms=kernel_ms,
+               dq_kernel_ms=dev_ms["flash_bwd_dq_kernel"],
+               dkv_kernel_ms=dev_ms["flash_bwd_dkv_kernel"],
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+               dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+               library_ms=library_ms, flops=10 * d * pairs,
+               share_of_bound=bound_ms / kernel_ms,
+               bitwise_repeat=bitwise_repeat)
+    emit(res)
+    return res
+
+
+def sdpa_backward_ms(q, k, v, do):
+    """Device time of the backward of `F.scaled_dot_product_attention(
+    is_causal=True)` on the same (b, h, s, d) inputs: one retained graph per
+    input set, `torch.autograd.grad(out, (q, k, v), do, retain_graph=True)`
+    timed.  A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    graphs = []
+    for qc, kc, vc, dc in input_copies(q, k, v, do):
+        qc, kc, vc = (t.detach().requires_grad_() for t in (qc, kc, vc))
+        out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
+        graphs.append((out, (qc, kc, vc), dc))
+    return time_ms(lambda out, ins, dc: torch.autograd.grad(
+        out, ins, dc, retain_graph=True), graphs)
 
 
 def sdpa_masked(q, k, v, live):
@@ -240,7 +410,7 @@ def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=1,
     live_rows = int(lens.sum())
     bytes_ = 2 * hk * d * elt * live_rows + 2 * b * h * sq * d * elt
     flops = 4 * d * h * sq * live_rows
-    bound_ms = max(bytes_ / PEAK_BYTES, flops / PEAK_FLOPS) * 1e3
+    bound_ms, bound_by = bound(flops, bytes_)
     args = input_copies(q, kc, vc, lens)
     before = fd.launches
     kernel_ms = time_ms(lambda *a: fd.decode_attn_bhsd(*a, **kw), args)
@@ -261,9 +431,7 @@ def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=1,
                plain_bf16_err_o=err_o_pt, max_abs_err_lse=err_l,
                plain_bf16_err_lse=err_l_pt, kernel_ms=kernel_ms,
                kernel_call_ms=kernel_call_ms, plain_ms=plain_ms,
-               bound_ms=bound_ms,
-               bound_by="bytes" if bytes_ / PEAK_BYTES >= flops / PEAK_FLOPS
-               else "operations",
+               bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, bytes=bytes_,
                share_of_bound=bound_ms / kernel_ms,
                blocks=b * hk * num_splits_eff,
@@ -349,6 +517,189 @@ def serve_phase(gen_seed=0):
 SERVE_MARGIN = 0.05
 
 
+# The training runs: the JAX package's TrainConfig defaults (GPT-2 small,
+# seq_len 1024, batch 8, bf16 autocast over fp32 weights, AdamW 6e-4 with a
+# cosine schedule after 100 warmup steps, clip 1.0, synthetic tokens from
+# seed 0).
+TRAIN_STEPS = 20
+TRAIN_WARMUP_STEPS = 2
+PROFILE_STEPS = 3
+EVAL_STEPS = 2
+LN_VOCAB = 10.82490  # ln(50257): the loss of a uniform prediction
+
+
+def train_config(**over):
+    from flash_attn_tpu_torch.training.config import TrainConfig
+
+    cfg = TrainConfig()
+    cfg.trainer.resume = False
+    cfg.trainer.log_every = 1
+    cfg.trainer.eval_steps = EVAL_STEPS
+    for key, val in over.items():
+        section, field = key.split("__")
+        setattr(getattr(cfg, section), field, val)
+    return cfg
+
+
+def train_phase():
+    """Trainer.train() for TRAIN_STEPS steps after TRAIN_WARMUP_STEPS
+    warm-up steps, kernel launches counted on those steps alone, then an
+    evaluation counted apart."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    t = Trainer(train_config())
+    n_layer = t.gpt_config.n_layer
+    warm = [float(t.train_step(next(t.loader))[0])
+            for _ in range(TRAIN_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t.config.trainer.max_steps = t.step + TRAIN_STEPS
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    ff.launches = fb.launches_dq = fb.launches_dkv = 0
+    t0 = time.perf_counter()
+    t.train(log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(flash_fwd=ff.launches, flash_bwd_dq=fb.launches_dq,
+                  flash_bwd_dkv=fb.launches_dkv)
+    peak = torch.cuda.max_memory_allocated()
+    ff.launches = fb.launches_dq = fb.launches_dkv = 0
+    eval_loss = t.evaluate()
+    eval_counts = dict(flash_fwd=ff.launches, flash_bwd_dq=fb.launches_dq,
+                       flash_bwd_dkv=fb.launches_dkv)
+    losses = warm + [m["loss"] for m in logs if "loss" in m]
+    tflops = t.flops.flops_per_step * TRAIN_STEPS / wall / 1e12
+    profile = profile_train_steps(t, PROFILE_STEPS, wall / TRAIN_STEPS)
+    res = dict(phase="train", model="gpt2-124M (random weights, seed 0)",
+               param_dtype="float32", compute_dtype="bfloat16",
+               seq_len=t.config.data.seq_len,
+               batch_size=t.config.data.batch_size, steps=TRAIN_STEPS,
+               warmup_steps=TRAIN_WARMUP_STEPS, wall_s=wall,
+               step_ms=wall / TRAIN_STEPS * 1e3,
+               tokens_per_s=t.speed.tokens_per_step * TRAIN_STEPS / wall,
+               model_tflops=tflops, share_of_989_tflops=tflops * 1e12
+               / PEAK_FLOPS, flops_per_step=t.flops.flops_per_step,
+               max_memory_allocated=peak, losses=losses,
+               last_log=logs[-1], eval_loss=eval_loss,
+               launches=counts, eval_launches=eval_counts, profile=profile)
+    emit(res)
+    want = n_layer * TRAIN_STEPS
+    if counts != dict(flash_fwd=want, flash_bwd_dq=want, flash_bwd_dkv=want):
+        raise AssertionError(f"train launches {counts}, expected {want} "
+                             "of each kernel")
+    if eval_counts != dict(flash_fwd=n_layer * EVAL_STEPS, flash_bwd_dq=0,
+                           flash_bwd_dkv=0):
+        raise AssertionError(f"eval launches {eval_counts}")
+    if len(losses) != TRAIN_WARMUP_STEPS + TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses + [eval_loss]):
+        raise AssertionError(f"losses {losses}, eval {eval_loss}")
+    if abs(losses[0] - LN_VOCAB) > 0.5:
+        raise AssertionError(f"first loss {losses[0]} not within 0.5 of "
+                             f"ln(50257)")
+    return res
+
+
+def profile_train_steps(t, steps, step_s):
+    """`steps` more train_steps under torch.profiler (after the main path's
+    launch counts are read): device busy time per step (the union of the
+    kernel intervals), the device's idle share against the unprofiled step
+    time `step_s`, the attention kernels' share of kernel time, and device
+    ms per step by kernel name, largest first."""
+    import torch
+    from flash_attn_tpu_torch.serve_profile import busy_seconds
+
+    batches = [next(t.loader) for _ in range(steps)]
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for batch in batches:
+            t.train_step(batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = busy_seconds(kernels)
+    total = sum(by_name.values())
+    attention = sum(v for k, v in by_name.items() if "flash_" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return dict(steps=steps, device_kernels_per_step=len(kernels) / steps,
+                device_busy_ms_per_step=busy / steps * 1e3,
+                device_idle_share=1.0 - busy / (steps * step_s),
+                attention_share_of_kernel_time=attention / total,
+                kernel_ms_per_step_by_name={
+                    k[:80]: v / steps * 1e-3 for k, v in top})
+
+
+def cosine(a, b):
+    """Cosine of two flat vectors, in float64: over GPT-2's 124M gradient
+    entries a float32 cosine is off by percents."""
+    a, b = a.double(), b.double()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def train_check_phase():
+    """(1) One batch (b=1, s=1024) through the Trainer's loss and backward
+    on the card (kernels, bf16 autocast) and in fp32 on the CPU (plain
+    path), same weights: loss within 0.02, cosine of the whole gradient >=
+    0.999 and of each matrix's >= 0.99.  (2) OVERFIT_STEPS train_steps on
+    one repeated batch, constant schedule, no warmup: the loss falls by at
+    least OVERFIT_DROP nats."""
+    import torch
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    gpu = Trainer(train_config(data__batch_size=1))
+    cpu = Trainer(train_config(data__batch_size=1, model__dtype="float32"),
+                  device="cpu")
+    batch = next(cpu.loader)
+    matrices = [n for n, p in cpu.model.named_parameters() if p.ndim == 2]
+    losses, grads = [], []
+    for t in (gpu, cpu):
+        loss = t.loss(batch)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu().flatten()
+                      for n, p in t.model.named_parameters()})
+    del gpu, cpu
+    names = list(grads[0])
+    cos_all = cosine(torch.cat([grads[0][n] for n in names]),
+                     torch.cat([grads[1][n] for n in names]))
+    cos_2d = {n: cosine(grads[0][n], grads[1][n]) for n in matrices}
+    worst = min(cos_2d, key=cos_2d.get)
+
+    t = Trainer(train_config(scheduler__name="constant",
+                             scheduler__warmup_steps=0))
+    one = next(t.loader)
+    curve = [float(t.train_step(one)[0]) for _ in range(OVERFIT_STEPS)]
+    del t
+    torch.cuda.empty_cache()
+    res = dict(phase="train_check", loss_gpu=losses[0],
+               loss_cpu_fp32=losses[1],
+               loss_gap=abs(losses[0] - losses[1]), grad_cosine=cos_all,
+               min_matrix_grad_cosine=cos_2d[worst], min_cosine_matrix=worst,
+               overfit_losses=curve, overfit_drop=curve[0] - curve[-1])
+    emit(res)
+    if not (res["loss_gap"] <= 0.02 and cos_all >= 0.999
+            and cos_2d[worst] >= 0.99):
+        raise AssertionError("card gradients disagree with fp32 CPU")
+    if not all(math.isfinite(x) for x in curve) or \
+            res["overfit_drop"] < OVERFIT_DROP:
+        raise AssertionError(f"overfit drop {res['overfit_drop']} < "
+                             f"{OVERFIT_DROP}")
+    return res
+
+
+OVERFIT_STEPS = 30
+OVERFIT_DROP = 1.0
+
+
 def main():
     import torch
 
@@ -387,6 +738,8 @@ def main():
                         softcap=30.0, alibi=True)
     fwd["e"] = fwd_case("e: seqused_k = 0", 2, 12, 12, 256, 256, 64,
                         [256, 256], [256, 0], gen)
+    fwd["f"] = fwd_case("f: training shape", 8, 12, 12, 1024, 1024, 64,
+                        [1024] * 8, [1024] * 8, gen, library=sdpa_causal)
     dec = {}
     dec["a"] = decode_case("a: serving decode", 8, 12, 12, 1, 1024, 64, gen,
                            library=True)
@@ -395,13 +748,31 @@ def main():
     dec["d"] = decode_case("d: num_splits = 4", 8, 12, 12, 1, 1024, 64, gen,
                            num_splits=4)
 
-    serve = serve_phase()
+    bwd = {}
+    bwd["a"] = bwd_case("a: training shape", 8, 12, 12, 1024, 1024, 64,
+                        [1024] * 8, [1024] * 8, gen, library=True,
+                        repeat=True)
+    bwd["b"] = bwd_case("b: GQA", 2, 32, 8, 2048, 2048, 128, [2048] * 2,
+                        [2048] * 2, gen)
+    bwd["c"] = bwd_case("c: window+softcap+alibi", 2, 12, 12, 1024, 1024, 64,
+                        [1024] * 2, [1024] * 2, gen, window=(256, 0),
+                        softcap=30.0, alibi=True)
+    bwd["d"] = bwd_case("d: ragged, seqused_k = 0", 3, 12, 12, 1024, 1024,
+                        64, [1024, 700, 1024], [1024, 500, 0], gen)
 
+    serve = serve_phase()
+    train = train_phase()
+    train_check_phase()
+
+    a = bwd["a"]
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
              replaces="flash_attn_tpu/kernels/flash_fwd.py:200",
-             launches=serve["flash_fwd_launches"],
+             launches=serve["flash_fwd_launches"]
+             + train["launches"]["flash_fwd"],
+             launches_by_path=dict(serve=serve["flash_fwd_launches"],
+                                   train=train["launches"]["flash_fwd"]),
              max_abs_err=fwd["a"]["max_abs_err_o"], ms=fwd["a"]["kernel_ms"],
              plain_ms=fwd["a"]["plain_ms"], bound_ms=fwd["a"]["bound_ms"],
              bound_by=fwd["a"]["bound_by"],
@@ -414,6 +785,21 @@ def main():
              plain_ms=dec["a"]["plain_ms"], bound_ms=dec["a"]["bound_ms"],
              bound_by=dec["a"]["bound_by"],
              library_ms=dec["a"]["library_ms"]),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
+             replaces="flash_attn_tpu/kernels/flash_bwd.py:121",
+             launches=train["launches"]["flash_bwd_dq"],
+             max_abs_err=a["max_abs_err_dq"], ms=a["dq_kernel_ms"],
+             plain_ms=a["plain_ms"], bound_ms=a["dq_bound_ms"],
+             bound_by=a["dq_bound_by"], library_ms=a["library_ms"]),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
+             replaces="flash_attn_tpu/kernels/flash_bwd.py:232",
+             launches=train["launches"]["flash_bwd_dkv"],
+             max_abs_err=max(a["max_abs_err_dk"], a["max_abs_err_dv"]),
+             ms=a["dkv_kernel_ms"], plain_ms=a["plain_ms"],
+             bound_ms=a["dkv_bound_ms"], bound_by=a["dkv_bound_by"],
+             library_ms=a["library_ms"]),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

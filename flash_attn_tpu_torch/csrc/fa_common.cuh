@@ -1,0 +1,153 @@
+// Helpers shared by the flash-attention forward and backward kernels
+// (flash_fwd.cu, flash_bwd.cu): the mma.sync.m16n8k16 wrappers, fragment
+// loads, quad reductions, tile copies, and the score transform.
+//
+// ScoreMod is the one place where a raw Q K^T score becomes the exponent of
+// the softmax.  The backward recomputes p = exp2(score - lse * log2(e)) with
+// the same arithmetic as the forward, in the same order (scale, softcap,
+// ALiBi, masks, then the log2(e) factor), so its probabilities are the
+// forward's; this is the role of the JAX backward's `folded` mode
+// (flash_attn_tpu/kernels/flash_bwd.py:75-81).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace fa {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two 16-bit elements from different rows, lower address half = first.
+__device__ __forceinline__ uint32_t pack16(const void* lo, const void* hi) {
+  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
+         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
+}
+
+// The A fragment of a row-major 16x16 tile at `tile` (row stride `stride`
+// elements): rows gid and gid + 8, columns tig*2 and tig*2 + 8.
+template <typename T>
+__device__ __forceinline__ void load_a(uint32_t* a, const T* tile, int stride,
+                                       int gid, int tig) {
+  const T* r0 = tile + gid * stride + tig * 2;
+  const T* r1 = r0 + 8 * stride;
+  a[0] = ld32(r0);
+  a[1] = ld32(r1);
+  a[2] = ld32(r0 + 8);
+  a[3] = ld32(r1 + 8);
+}
+
+// The B fragment of B = X^T, for an 8x16 block of row-major X at `rows`
+// (n along X's rows, k along its columns): one 32-bit load per register.
+template <typename T>
+__device__ __forceinline__ void load_b_t(uint32_t* b, const T* rows, int stride,
+                                         int gid, int tig) {
+  const T* r = rows + gid * stride + tig * 2;
+  b[0] = ld32(r);
+  b[1] = ld32(r + 8);
+}
+
+// The B fragment of B = X, for a 16x8 block of row-major X at `block`
+// (k along X's rows, n along its columns): two rows per register.
+template <typename T>
+__device__ __forceinline__ void load_b(uint32_t* b, const T* block, int stride,
+                                       int gid, int tig) {
+  const T* c = block + (tig * 2) * stride + gid;
+  b[0] = pack16(c, c + stride);
+  b[1] = pack16(c + 8 * stride, c + 9 * stride);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Copy kRows rows of D elements (row stride D in global) into shared rows of
+// stride D + 8, 16 bytes per thread per step; rows at or past `valid` are
+// zero-filled so stale or uninitialised memory never reaches the math.
+template <typename T, int D, int kRows, int kThreads>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int valid) {
+  constexpr int kStride = D + 8;
+  constexpr int kChunks = D / 8;
+  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
+  }
+}
+
+// Scale, softcap, ALiBi and the bottom-right aligned masks of one
+// (batch, head): offset = seqused_k - seqused_q.
+struct ScoreMod {
+  float scale, softcap, slope;
+  bool alibi;
+  int offset, sk_b, has_upper, wr, has_lower, wl;
+
+  // The scaled and softcapped score, in natural units (before ALiBi).
+  __device__ __forceinline__ float capped(float s) const {
+    float x = s * scale;
+    if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+    return x;
+  }
+
+  // The capped score with ALiBi, in log2 units; -inf where masked.
+  __device__ __forceinline__ float log2_score(float x, int row, int col) const {
+    if (alibi) x -= slope * fabsf((float)(row + offset - col));
+    bool masked = col >= sk_b;
+    if (has_upper) masked |= col > row + offset + wr;
+    if (has_lower) masked |= col < row + offset - wl;
+    return masked ? -INFINITY : x * kLog2e;
+  }
+};
+
+}  // namespace fa

@@ -23,6 +23,8 @@
 // * Online softmax in fp32 on exp2: each score is scaled (and softcapped,
 //   ALiBi-biased) in natural units, then multiplied by log2(e) once, so the
 //   exponent is a bare exp2.  A masked element is -inf and its p is exactly 0.
+//   That transform is fa_common.cuh's ScoreMod, which the backward
+//   (flash_bwd.cu) shares, so both see the same scores.
 // * Shared-memory rows are padded by 8 elements so the 32-bit fragment loads
 //   are free of bank conflicts.
 // This first version loads K/V tiles synchronously (no cp.async/TMA pipeline,
@@ -33,19 +35,15 @@
 // tensor's sq are not written.  A row with no valid key writes o = 0 and
 // lse = +inf.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fa_common.cuh"
 
 namespace {
+
+using namespace fa;
 
 constexpr int kBlockM = 64;   // q rows per block
 constexpr int kBlockN = 64;   // keys per KV tile
 constexpr int kThreads = 128; // 4 warps x 16 rows
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct FwdParams {
   const void* q;
@@ -61,77 +59,6 @@ struct FwdParams {
   int has_upper, wr, has_lower, wl;
   float softcap;
 };
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two 16-bit elements from different rows, lower address half = first.
-__device__ __forceinline__ uint32_t pack16(const void* lo, const void* hi) {
-  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Copy `rows` rows of D elements (row stride D in global) into shared rows of
-// stride kStride, 16 bytes per thread per step; rows at or past `valid` are
-// zero-filled so stale or uninitialised memory never reaches the math.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int valid) {
-  constexpr int kStride = D + 8;
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kBlockN * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -152,7 +79,9 @@ __global__ void __launch_bounds__(kThreads)
   const int sk_b = min(p.seqused_k[bb], p.sk);
   const int offset = sk_b - sq_b;
   const int row0 = qblk * kBlockM;
-  const float slope = p.alibi ? p.alibi[bb * p.h + hq] : 0.f;
+  const ScoreMod sm{p.scale, p.softcap, p.alibi ? p.alibi[bb * p.h + hq] : 0.f,
+                    p.alibi != nullptr, offset, sk_b, p.has_upper, p.wr,
+                    p.has_lower, p.wl};
 
   const T* q = static_cast<const T*>(p.q) + ((size_t)(bb * p.h + hq) * p.sq) * D;
   const T* k = static_cast<const T*>(p.k) + ((size_t)(bb * p.hk + hkv) * p.sk) * D;
@@ -165,19 +94,14 @@ __global__ void __launch_bounds__(kThreads)
   const int n_min = min_col / kBlockN;
   const int n_max = max_col >= 0 ? max_col / kBlockN : -1;
 
-  load_tile<T, D>(sQ, q + (size_t)row0 * D, p.sq - row0);
+  load_rows<T, D, kBlockM, kThreads>(sQ, q + (size_t)row0 * D, p.sq - row0);
   __syncthreads();
 
   const int r_lo = warp * 16 + gid;  // this thread's two rows in the tile
   uint32_t qf[kKSteps][4];
 #pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qf[kk][0] = ld32(sQ + r_lo * kStride + c);
-    qf[kk][1] = ld32(sQ + (r_lo + 8) * kStride + c);
-    qf[kk][2] = ld32(sQ + r_lo * kStride + c + 8);
-    qf[kk][3] = ld32(sQ + (r_lo + 8) * kStride + c + 8);
-  }
+  for (int kk = 0; kk < kKSteps; ++kk)
+    load_a(qf[kk], sQ + warp * 16 * kStride + kk * 16, kStride, gid, tig);
 
   float acc[kOTiles][4];
 #pragma unroll
@@ -190,18 +114,18 @@ __global__ void __launch_bounds__(kThreads)
   for (int nb = n_min; nb <= n_max; ++nb) {
     const int col0 = nb * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(sK, k + (size_t)col0 * D, sk_b - col0);
-    load_tile<T, D>(sV, v + (size_t)col0 * D, sk_b - col0);
+    load_rows<T, D, kBlockN, kThreads>(sK, k + (size_t)col0 * D, sk_b - col0);
+    load_rows<T, D, kBlockN, kThreads>(sV, v + (size_t)col0 * D, sk_b - col0);
     __syncthreads();
 
     float s[kBlockN / 8][4];
 #pragma unroll
     for (int j = 0; j < kBlockN / 8; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const T* krow = sK + (j * 8 + gid) * kStride + tig * 2;
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t bfrag[2] = {ld32(krow + kk * 16), ld32(krow + kk * 16 + 8)};
+        uint32_t bfrag[2];
+        load_b_t(bfrag, sK + j * 8 * kStride + kk * 16, kStride, gid, tig);
         Mma<T>::mma(s[j], qf[kk], bfrag);
       }
     }
@@ -214,13 +138,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int row = rows[e >> 1];
         const int col = col0 + j * 8 + tig * 2 + (e & 1);
-        float x = s[j][e] * p.scale;
-        if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
-        if (p.alibi) x -= slope * fabsf((float)(row + offset - col));
-        bool masked = col >= sk_b;
-        if (p.has_upper) masked |= col > row + offset + p.wr;
-        if (p.has_lower) masked |= col < row + offset - p.wl;
-        x = masked ? -INFINITY : x * kLog2e;
+        const float x = sm.log2_score(sm.capped(s[j][e]), row, col);
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -263,12 +181,10 @@ __global__ void __launch_bounds__(kThreads)
       a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
       a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const T* vrow = sV + (kk * 16 + tig * 2) * kStride + gid;
 #pragma unroll
       for (int n = 0; n < kOTiles; ++n) {
-        const T* vp = vrow + n * 8;
-        uint32_t bfrag[2] = {pack16(vp, vp + kStride),
-                             pack16(vp + 8 * kStride, vp + 9 * kStride)};
+        uint32_t bfrag[2];
+        load_b(bfrag, sV + kk * 16 * kStride + n * 8, kStride, gid, tig);
         Mma<T>::mma(acc[n], a, bfrag);
       }
     }

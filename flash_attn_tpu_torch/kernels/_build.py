@@ -4,8 +4,8 @@ kernels compile at trace time).
 Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
 `nvcc` for Hopper (`sm_90a`) into `_build/lib<name>.so`, which is loaded with
 `ctypes`.  The build happens at first use, is reused while the library is
-newer than its source, and raises on any failure: nothing falls back to a
-plain version.
+newer than its source and the shared `csrc/*.cuh` headers, and raises on any
+failure: nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("flash_fwd", "flash_decode")
+KERNELS = ("flash_fwd", "flash_decode", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,7 +53,8 @@ def _stale(name: str) -> bool:
     lib = _lib_path(name)
     if not lib.exists():
         return True
-    src_mtime = max(p.stat().st_mtime for p in CSRC_DIR.glob(f"{name}*"))
+    sources = [*CSRC_DIR.glob(f"{name}*"), *CSRC_DIR.glob("*.cuh")]
+    src_mtime = max(p.stat().st_mtime for p in sources)
     return lib.stat().st_mtime < src_mtime
 
 

@@ -1,9 +1,10 @@
 """Transformer block (counterpart of `flash_attn_tpu/modules/block.py`:
 `_Norm:19`, pre-norm `Block:39`).
 
-Inference only: dropout and stochastic depth are training features and are
-not ported in this slice.  Post-norm blocks and `ParallelBlock` raise
-`NotImplementedError` and are queued.
+Dropout and stochastic depth are not ported: the trainer's GPT-2 runs with
+every dropout at 0, as the JAX `ModelConfig.to_gpt2_config` sets it.
+Post-norm blocks and `ParallelBlock` raise `NotImplementedError` and are
+queued.
 """
 
 from __future__ import annotations

@@ -1,6 +1,10 @@
-"""Multi-head self-attention with a KV cache (counterpart of
-`flash_attn_tpu/modules/mha.py`: `InferenceParams:39`, `MHA:126`,
+"""Multi-head self-attention (counterpart of `flash_attn_tpu/modules/mha.py`:
+`InferenceParams:39`, `MHA:126`, the no-cache branch at `:299`,
 `MHA._cached_attention:329-388`).
+
+Without a cache, attention runs through `interface.flash_attn_func` (the
+autograd `Function` over the forward and backward kernels), as training
+needs; with one, through the forward-only prefill and decode kernels.
 
 Only the self-attention, single-device case is ported; cross attention,
 rotary, tensor parallelism and the sharded / ring paths are queued.
@@ -18,6 +22,7 @@ import torch
 from torch import nn
 
 from flash_attn_tpu_torch.env import default_device
+from flash_attn_tpu_torch.interface import flash_attn_func
 from flash_attn_tpu_torch.kernels.flash_decode import decode_attn_bhsd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attn_fwd_bhsd
 
@@ -95,16 +100,12 @@ class MHA(nn.Module):
         k = qkv[..., h * d: (h + hk) * d].reshape(b, s, hk, d)
         v = qkv[..., (h + hk) * d:].reshape(b, s, hk, d)
         if inference_params is None:
-            # Forward only: the autograd Function with the backward kernels
-            # belongs to the training slice.
-            full = torch.full((b,), s, dtype=torch.int32, device=x.device)
-            ctx, _ = flash_attn_fwd_bhsd(
-                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), full, full, causal=self.causal,
-                **self._kernel_kwargs(b))
+            ctx = flash_attn_func(q, k, v, causal=self.causal,
+                                  **self._kernel_kwargs(b))
         else:
-            ctx = self._cached_attention(q, k, v, inference_params)
-        return self.out_proj(ctx.transpose(1, 2).reshape(b, s, h * d))
+            ctx = self._cached_attention(q, k, v,
+                                         inference_params).transpose(1, 2)
+        return self.out_proj(ctx.reshape(b, s, h * d))
 
     def _cached_attention(self, q, k, v, inference_params):
         """Append k/v to this layer's cache at each row's length, then

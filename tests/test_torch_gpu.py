@@ -1,5 +1,6 @@
 """Tests of the port that need the card: each CUDA kernel against its plain
-PyTorch version, and the GPT serving path on CUDA against the plain CPU path.
+PyTorch version, and the GPT serving path and a training step on CUDA
+against the plain CPU path.
 
 Marked `gpu`; they skip where torch sees no CUDA device.  Run them on a GPU
 machine with `python -m pytest tests/test_torch_gpu.py -m gpu -q` (add
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from flash_attn_tpu_torch.kernels import flash_decode, flash_fwd
+from flash_attn_tpu_torch.kernels import flash_bwd, flash_decode, flash_fwd
 from flash_attn_tpu_torch.utils.testing import check_close
 
 pytestmark = pytest.mark.gpu
@@ -120,3 +121,90 @@ def test_serving_on_cuda_matches_cpu_plain_path(cuda):
             logits = cpu(seq).logits[0, len(p) - 1:]
         picked = logits[torch.arange(len(toks)), torch.as_tensor(toks)]
         assert float((logits.max(-1).values - picked).max()) < 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["causal", "gqa", "window_softcap_alibi",
+                                  "ragged"])
+def test_bwd_kernel_matches_plain(cuda, dtype, d, case):
+    """dq (rows < seqused_q), dk and dv against the plain version, and two
+    runs bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, sq, sk = 3, 150, 300
+    h, hk = (8, 2) if case == "gqa" else (4, 4)
+    squ = [150, 150, 150]
+    sku = [300, 300, 300]
+    kw = dict(softmax_scale=d ** -0.5, causal=case != "window_softcap_alibi")
+    if case == "window_softcap_alibi":
+        kw.update(window_size=(32, 8), softcap=30.0,
+                  alibi_slopes=torch.rand(b, h, generator=gen, device=cuda))
+    if case == "ragged":  # batch 2 has no key at all
+        squ, sku = [150, 100, 150], [300, 97, 0]
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    squ = torch.tensor(squ, dtype=torch.int32, device=cuda)
+    sku = torch.tensor(sku, dtype=torch.int32, device=cuda)
+    rows = (torch.arange(sq, device=cuda)[None, None, :]
+            < squ[:, None, None]).expand(b, h, sq)
+    do = (torch.randn(b, h, sq, d, generator=gen, device=cuda)
+          * rows[..., None]).to(dtype)
+    o, lse = flash_fwd.flash_attn_fwd_bhsd(q, k, v, squ, sku, **kw)
+    before = flash_bwd.launches_dq, flash_bwd.launches_dkv
+    dq, dk, dv = flash_bwd.flash_attn_bwd_bhsd(do, q, k, v, o, lse, squ, sku,
+                                               **kw)
+    assert (flash_bwd.launches_dq, flash_bwd.launches_dkv) == (
+        before[0] + 1, before[1] + 1)
+    ref = flash_bwd.flash_attn_bwd_bhsd_ref(
+        do.float(), q.float(), k.float(), v.float(), o.float(), lse, squ, sku,
+        **kw)
+    pt = flash_bwd.flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, squ, sku, **kw)
+    check_close(dq[rows], ref[0][rows], pt[0][rows], label="dq")
+    check_close(dk, ref[1], pt[1], label="dk")
+    check_close(dv, ref[2], pt[2], label="dv")
+    if case == "ragged":
+        assert not dq[2].any() and not dk[2].any() and not dv[2].any()
+        assert not dk[1, :, 97:].any() and not dv[1, :, 97:].any()
+    again = flash_bwd.flash_attn_bwd_bhsd(do, q, k, v, o, lse, squ, sku, **kw)
+    for x, y in zip((dq, dk, dv), again):
+        assert torch.equal(x, y)
+
+
+def test_cuda_train_step_matches_cpu_plain_path(cuda, tmp_path):
+    """One batch through the Trainer's loss and backward: CUDA (kernels,
+    bf16 autocast) against float32 on the CPU (plain path), same weights.
+    Loss within 0.02, cosine of the whole gradient >= 0.999; then one
+    train_step launches each kernel once per layer."""
+    from flash_attn_tpu_torch.training.config import TrainConfig
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    def config(dtype):
+        cfg = TrainConfig()
+        cfg.model.n_embd, cfg.model.n_head, cfg.model.n_layer = 256, 4, 2
+        cfg.model.vocab_size, cfg.model.dtype = 1000, dtype
+        cfg.data.seq_len, cfg.data.batch_size = 256, 2
+        cfg.trainer.checkpoint_dir = str(tmp_path)
+        return cfg
+
+    gpu = Trainer(config("bfloat16"), device=cuda)
+    cpu = Trainer(config("float32"), device="cpu")
+    batch = next(cpu.loader)
+    losses, grads = [], []
+    for t in (gpu, cpu):
+        loss = t.loss(batch)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append(torch.cat([p.grad.float().flatten().cpu()
+                                for p in t.model.parameters()]))
+        t.optimizer.zero_grad(set_to_none=True)
+    assert abs(losses[0] - losses[1]) <= 0.02, losses
+    g0, g1 = grads[0].double(), grads[1].double()
+    cos = float(g0 @ g1 / (g0.norm() * g1.norm()))
+    assert cos >= 0.999, cos
+    counts = (flash_fwd.launches, flash_bwd.launches_dq,
+              flash_bwd.launches_dkv)
+    loss, gnorm = gpu.train_step(batch)
+    assert torch.isfinite(loss) and torch.isfinite(gnorm)
+    assert (flash_fwd.launches - counts[0], flash_bwd.launches_dq - counts[1],
+            flash_bwd.launches_dkv - counts[2]) == (2, 2, 2)

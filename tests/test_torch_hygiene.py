@@ -79,8 +79,13 @@ def _entry_points():
     from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
     from flash_attn_tpu_torch.modules.mha import MHA
     from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
+    from flash_attn_tpu_torch.training.config import TrainConfig
+    from flash_attn_tpu_torch.training.trainer import Trainer
     from flash_attn_tpu_torch.utils.generation import allocate_inference_cache
 
+    tiny = TrainConfig()
+    tiny.model.n_embd, tiny.model.n_head, tiny.model.n_layer = 64, 2, 1
+    tiny.model.vocab_size, tiny.data.seq_len = 17, 8
     stub = torch.nn.Identity()
     return {
         "GPTModel": lambda: GPTModel(GPTConfig(n_embd=64, n_head=2, n_layer=1,
@@ -92,12 +97,13 @@ def _entry_points():
         "Block": lambda: Block(64, stub, stub),
         "GPT2Embeddings": lambda: GPT2Embeddings(64, 17, 32),
         "allocate_inference_cache": lambda: allocate_inference_cache(2, 32),
+        "Trainer": lambda: Trainer(tiny),
     }
 
 
 @pytest.mark.parametrize("name", ["GPTModel", "MHA", "Mlp", "GatedMlp",
                                   "_Norm", "Block", "GPT2Embeddings",
-                                  "allocate_inference_cache"])
+                                  "allocate_inference_cache", "Trainer"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     """Every public constructor resolves device=None to CUDA, so none of
     them builds on the CPU unless asked to."""
@@ -106,10 +112,12 @@ def test_entry_point_raises_without_cuda(no_cuda, name):
         make()
 
 
-@pytest.mark.parametrize("fn", ["flash_attn_fwd_bhsd", "decode_attn_bhsd"])
+@pytest.mark.parametrize("fn", ["flash_attn_fwd_bhsd", "decode_attn_bhsd",
+                                "flash_attn_bwd_bhsd", "flash_attn_func"])
 def test_wrappers_run_no_plain_version_off_cpu(fn):
     """A tensor that is not on the CPU never reaches the plain version."""
-    from flash_attn_tpu_torch.kernels import flash_decode, flash_fwd
+    from flash_attn_tpu_torch.interface import flash_attn_func
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_decode, flash_fwd
 
     q = torch.empty(1, 2, 4, 64, device="meta")
     k = torch.empty(1, 2, 8, 64, device="meta")
@@ -118,8 +126,14 @@ def test_wrappers_run_no_plain_version_off_cpu(fn):
         if fn == "flash_attn_fwd_bhsd":
             flash_fwd.flash_attn_fwd_bhsd(q, k, k, lens, lens,
                                           softmax_scale=0.125)
-        else:
+        elif fn == "decode_attn_bhsd":
             flash_decode.decode_attn_bhsd(q, k, k, lens, softmax_scale=0.125)
+        elif fn == "flash_attn_bwd_bhsd":
+            lse = torch.empty(1, 2, 4, device="meta")
+            flash_bwd.flash_attn_bwd_bhsd(q, q, k, k, q, lse, lens, lens,
+                                          softmax_scale=0.125)
+        else:
+            flash_attn_func(q, k, k, causal=True)
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

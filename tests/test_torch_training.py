@@ -1,0 +1,428 @@
+"""The port's training path (`flash_attn_tpu_torch.losses`,
+`flash_attn_tpu_torch.training`) against the JAX package's, on the CPU in
+float32, from the same seeded numpy inputs and the same carried parameters.
+
+The JAX model runs its XLA reference attention here (`use_flash_attn=False`):
+the attention kernels' gradients are held to JAX in
+`tests/test_torch_backward.py`, and these tests are about the loss, the
+optimizer, the data stream and the trainer around them.
+
+Tolerances (all float32 on both sides, differing in summation order):
+losses and learning rates rtol 1e-6 (one expression, no reduction over
+more than a vocab row); parameters after optimizer updates atol 1e-6
+(Adam divides by sqrt(nu), so an update is about lr in size whatever the
+gradient); gradients of the LM loss atol 1e-5; trainer losses atol 2e-4
+and grad norms atol 2e-3 (the trainers log them rounded to 4 and 3
+decimals) and final parameters atol 1e-5.
+"""
+
+import csv
+import functools
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from flash_attn_tpu.losses.cross_entropy import CrossEntropyLoss as JaxCE
+from flash_attn_tpu.losses.cross_entropy import \
+    cross_entropy_loss as jax_cross_entropy
+from flash_attn_tpu.models.gpt import GPTLMHeadModel as JaxGPT
+from flash_attn_tpu.training import callbacks as jax_callbacks
+from flash_attn_tpu.training import config as jax_config_mod
+from flash_attn_tpu.training import data as jax_data
+from flash_attn_tpu.training import loggers as jax_loggers
+from flash_attn_tpu.training import optim as jax_optim
+from flash_attn_tpu.training.loss import chunked_lm_loss as jax_lm_loss
+from flash_attn_tpu.training.run import parse_overrides as jax_parse
+from flash_attn_tpu.training.trainer import Trainer as JaxTrainer
+from flash_attn_tpu_torch.losses.cross_entropy import (CrossEntropyLoss,
+                                                       cross_entropy_loss)
+from flash_attn_tpu_torch.models.gpt import (GPTLMHeadModel,
+                                             state_dict_from_jax_params)
+from flash_attn_tpu_torch.training import callbacks, data, loggers, optim
+from flash_attn_tpu_torch.training.config import TrainConfig
+from flash_attn_tpu_torch.training.loss import chunked_lm_loss
+from flash_attn_tpu_torch.training.run import parse_overrides
+from flash_attn_tpu_torch.training.trainer import Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def quick_jax_compiles():
+    """The JAX references here are tiny programs whose time is compiling,
+    not running: compile them with XLA's optimizations off."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The tiny models run faster on one thread than with torch's threads
+    contending with JAX's in one process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def to_numpy_tree(tree):
+    return {k: to_numpy_tree(v) if hasattr(v, "items") else np.asarray(v)
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------- loss
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(label_smoothing=0.1, lse_square_scale=1e-3, ignore_index=-100),
+    dict(logit_scale=0.5, label_smoothing=0.2, ignore_index=3),
+])
+def test_cross_entropy_matches_jax(kw):
+    rng = np.random.default_rng(0)
+    logits = (rng.standard_normal((12, 37)) * 3).astype(np.float32)
+    labels = rng.integers(0, 37, 12).astype(np.int32)
+    labels[[2, 7]] = kw.get("ignore_index", -100)
+    lj, zj = jax.jit(functools.partial(jax_cross_entropy, **kw))(
+        jnp.asarray(logits), jnp.asarray(labels))
+    lt, zt = cross_entropy_loss(torch.from_numpy(logits),
+                                torch.from_numpy(labels), **kw)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(zt.numpy(), np.asarray(zj), rtol=1e-6,
+                               atol=1e-9)
+    for reduction in ("mean", "sum", "none"):
+        mk = {k: v for k, v in kw.items()}
+        out_j = JaxCE(reduction=reduction, **mk)(jnp.asarray(logits),
+                                                 jnp.asarray(labels))
+        out_t = CrossEntropyLoss(reduction=reduction, **mk)(
+            torch.from_numpy(logits), torch.from_numpy(labels))
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(NotImplementedError):
+        cross_entropy_loss(torch.from_numpy(logits), torch.from_numpy(labels),
+                           axis_name="model")
+
+
+TINY = dict(n_embd=64, n_head=2, n_layer=1, vocab_size=97, n_positions=64)
+
+
+@pytest.fixture(scope="module")
+def tiny_models():
+    from transformers import GPT2Config
+
+    from flash_attn_tpu_torch.models.gpt import GPTConfig
+
+    jcfg = GPT2Config(**TINY, resid_pdrop=0.0, embd_pdrop=0.0,
+                      attn_pdrop=0.0)
+    jcfg.use_flash_attn = False
+    jmodel = JaxGPT(jcfg, dtype=jnp.float32)
+    # The parameter tree's shapes, filled from a seed (tracing only, no
+    # compile): N(0, 0.5) everywhere, so biases and norms are not trivial.
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                            jnp.zeros((2, 8), jnp.int32))
+    rng = np.random.default_rng(0)
+    params = to_numpy_tree(jax.tree_util.tree_map(
+        lambda x: (rng.standard_normal(x.shape) * 0.5).astype(np.float32),
+        shapes))
+    cfg = GPTConfig(**TINY)
+    port = GPTLMHeadModel(cfg, device="cpu")
+    port.load_state_dict(state_dict_from_jax_params(params, cfg))
+    return jmodel, params, port, cfg
+
+
+@pytest.fixture(scope="module")
+def lm_loss_reference(tiny_models):
+    """A (3, 17) batch with one ignored label, and the JAX whole-logits
+    loss and gradients of it (the JAX chunked loss is the same function)."""
+    jmodel, params, _, cfg = tiny_models
+    batch = np.random.default_rng(1).integers(0, 97, (3, 17)).astype(np.int32)
+    batch[1, -1] = -100  # a target only: the last column is no input
+    loss_j, grads_j = jax.jit(jax.value_and_grad(lambda p: jax_lm_loss(
+        jmodel, p, jnp.asarray(batch), chunk_tokens=0, **LM_LOSS_KW)))(params)
+    return batch, float(loss_j), state_dict_from_jax_params(
+        to_numpy_tree(grads_j), cfg)
+
+
+LM_LOSS_KW = dict(label_smoothing=0.1, lse_square_scale=1e-4)
+
+
+@pytest.mark.parametrize("chunk_tokens", [0, 20])
+def test_chunked_lm_loss_matches_jax(tiny_models, lm_loss_reference,
+                                     chunk_tokens):
+    """Whole logits (chunk 0) and 20-token chunks of n = 3 * 16 = 48 (the
+    last chunk short, each chunk under checkpoint): value and every
+    gradient against JAX."""
+    port = tiny_models[2]
+    batch, loss_j, expected = lm_loss_reference
+    port.zero_grad(set_to_none=True)
+    loss_t = chunked_lm_loss(port, torch.from_numpy(batch).long(),
+                             chunk_tokens=chunk_tokens, **LM_LOSS_KW)
+    loss_t.backward()
+    np.testing.assert_allclose(loss_t.item(), loss_j, rtol=1e-6)
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), expected[name].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=name)
+
+
+# ----------------------------------------------------------- optimizer
+
+SCHEDULES = [
+    dict(name="cosine", warmup_steps=3, decay_steps=8),
+    dict(name="linear", warmup_steps=4),
+    dict(name="linear", warmup_steps=0),
+    dict(name="constant"),
+    dict(name="step", step_size=3),
+    dict(name="step"),
+    dict(name="multistep", decay_steps=8),
+    dict(name="multistep", milestones=[2, 5]),
+    dict(name="invsqrt", warmup_steps=3),
+    dict(name="poly", warmup_steps=2, decay_steps=9, power=2.0),
+]
+
+
+@pytest.mark.parametrize("sched", SCHEDULES,
+                         ids=lambda s: "-".join(str(v) for v in s.values()))
+def test_schedule_matches_jax(sched):
+    jcfg = jax_config_mod.SchedulerConfig(**sched)
+    tcfg = jax_config_mod.SchedulerConfig(**sched)
+    fj, ft = jax_optim.make_schedule(jcfg), optim.make_schedule(tcfg)
+    for count in range(10):
+        np.testing.assert_allclose(ft(count), float(fj(jnp.int32(count))),
+                                   rtol=1e-6, atol=1e-7, err_msg=str(count))
+
+
+def test_plateau_scheduler_raises():
+    with pytest.raises(NotImplementedError):
+        optim.make_schedule(jax_config_mod.SchedulerConfig(name="plateau"))
+
+
+def test_optimizer_update_matches_optax(tiny_models):
+    """Three updates from given gradients (global norm above the clip, so
+    the clip acts), warmup 2 so the first update has lr 0, decay only where
+    `decay_mask` holds: parameters after each update against optax."""
+    _, params, _, cfg = tiny_models
+    oc = jax_config_mod.OptimizerConfig(lr=1e-2, weight_decay=0.1,
+                                        grad_clip=1.0)
+    sc = jax_config_mod.SchedulerConfig(name="cosine", warmup_steps=2,
+                                        decay_steps=10)
+    tx = jax_optim.make_optimizer(oc, sc, params)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    state = tx.init(jparams)
+    port = GPTLMHeadModel(cfg, device="cpu")
+    port.load_state_dict(state_dict_from_jax_params(params, cfg))
+    opt, sched = optim.make_optimizer(oc, sc, port)
+    mask = optim.decay_mask(port)
+    assert not mask["transformer.embeddings.wte.weight"]
+    assert not mask["transformer.layers.0.mixer.Wqkv.bias"]
+    assert mask["transformer.layers.0.mixer.Wqkv.weight"]
+
+    @jax.jit
+    def jax_step(grads, state, jparams):
+        updates, state = tx.update(grads, state, jparams)
+        return optax.apply_updates(jparams, updates), state
+
+    rng = np.random.default_rng(2)
+    for _ in range(3):
+        grads = jax.tree_util.tree_map(
+            lambda x: rng.standard_normal(x.shape).astype(np.float32), params)
+        jparams, state = jax_step(grads, state, jparams)
+        g_t = state_dict_from_jax_params(grads, cfg)
+        for name, p in port.named_parameters():
+            p.grad = g_t[name].clone()
+        norm = optim.clip_by_global_norm(list(port.parameters()),
+                                         oc.grad_clip)
+        assert float(norm) > oc.grad_clip
+        np.testing.assert_allclose(float(norm), np.sqrt(sum(
+            np.sum(np.square(g, dtype=np.float64))
+            for g in jax.tree_util.tree_leaves(grads))), rtol=1e-6)
+        opt.step()
+        sched.step()
+        expected = state_dict_from_jax_params(to_numpy_tree(jparams), cfg)
+        for name, p in port.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       expected[name].numpy(), atol=1e-6,
+                                       rtol=0, err_msg=name)
+
+
+# ----------------------------------------------------------------- data
+
+def test_loader_matches_jax_and_resumes():
+    """Batches across an epoch boundary, and the stream after a resume from
+    a mid-epoch state, are bit-identical to the JAX loader's."""
+    cfg = jax_config_mod.DataConfig(seq_len=16, batch_size=3, seed=4)
+    lj, lt = jax_data.make_loader(cfg, 50), data.make_loader(cfg, 50)
+    assert lt.batches_per_epoch == lj.batches_per_epoch == 64
+    for _ in range(66):
+        np.testing.assert_array_equal(next(lt), next(lj))
+    assert lt.state.to_dict() == lj.state.to_dict()
+    state = data.LoaderState.from_dict(lt.state.to_dict())
+    resumed = data.make_loader(cfg, 50)
+    resumed.state = state
+    for _ in range(3):
+        np.testing.assert_array_equal(next(resumed), next(lj))
+
+
+def test_bin_and_npy_datasets_match_jax(tmp_path):
+    tokens = np.random.default_rng(5).integers(0, 300, 500).astype(np.uint16)
+    tokens.tofile(tmp_path / "t.bin")
+    np.save(tmp_path / "t.npy", tokens.astype(np.int32))
+    for name in ("t.bin", "t.npy"):
+        cfg = jax_config_mod.DataConfig(dataset=str(tmp_path / name),
+                                        seq_len=20, batch_size=4)
+        lj, lt = jax_data.make_loader(cfg, 300), data.make_loader(cfg, 300)
+        for _ in range(8):
+            np.testing.assert_array_equal(next(lt), next(lj))
+
+
+# ----------------------------------------------- callbacks, loggers, CLI
+
+def test_callbacks_match_jax(tiny_models):
+    _, _, _, cfg = tiny_models
+    from transformers import GPT2Config
+
+    assert callbacks.model_flops_per_token(cfg) == \
+        jax_callbacks.model_flops_per_token(GPT2Config(**TINY))
+    assert callbacks.FlopCount(cfg, 64).tflops(2.0) == \
+        jax_callbacks.FlopCount(GPT2Config(**TINY), 64).tflops(2.0)
+    xs = [np.arange(6, dtype=np.float32).reshape(2, 3), np.ones(4, np.float32)]
+    np.testing.assert_allclose(
+        callbacks.global_norm([torch.from_numpy(x) for x in xs]),
+        jax_callbacks.global_norm([jnp.asarray(x) for x in xs]), rtol=1e-6)
+    pt, pj = callbacks.Perplexity(), jax_callbacks.Perplexity()
+    for ls, n in ((12.0, 5), (3.5, 2)):
+        pt.update(ls, n)
+        pj.update(ls, n)
+    assert pt.compute() == pj.compute()
+
+
+def test_loggers_match_jax(tmp_path):
+    records = [(1, {"loss": 4.5}), (2, {"loss": 4.25, "tokens_per_s": 10})]
+    for mod, sub in ((jax_loggers, "jax"), (loggers, "port")):
+        lg = mod.make_loggers(["jsonl", "csv"], tmp_path / sub)
+        for step, m in records:
+            lg.log(step, m)
+        lg.close()
+    for sub in ("jax", "port"):
+        rows = [json.loads(ln) for ln in
+                (tmp_path / sub / "metrics.jsonl").read_text().splitlines()]
+        assert [{k: v for k, v in r.items() if k != "time"} for r in rows] \
+            == [{"step": s, **m} for s, m in records]
+    assert (tmp_path / "port" / "metrics.csv").read_text() == \
+        (tmp_path / "jax" / "metrics.csv").read_text()
+    assert list(csv.DictReader(open(tmp_path / "port" / "metrics.csv")))[1][
+        "tokens_per_s"] == "10"
+    for name in ("tensorboard", "wandb", "mlflow"):
+        with pytest.raises(NotImplementedError):
+            loggers.make_loggers([name], tmp_path)
+
+
+def test_parse_overrides_matches_jax():
+    kvs = ["trainer.max_steps=20", "model.dtype=float32", "data.seq_len=64",
+           "scheduler.milestones=[2, 5]", "optimizer.lr=3e-4"]
+    assert parse_overrides(kvs) == jax_parse(kvs)
+
+
+# --------------------------------------------------------------- trainer
+
+def tiny_train_config(tmp_path, **over):
+    """The same tiny run for either package: 2 layers, n_embd 64, 2 heads,
+    seq_len 32, batch 2, float32, warmup 2."""
+    cfg = TrainConfig() if over.pop("port", True) else \
+        jax_config_mod.TrainConfig()
+    cfg.model.n_embd, cfg.model.n_layer, cfg.model.n_head = 64, 2, 2
+    cfg.model.vocab_size, cfg.model.max_position_embeddings = 128, 64
+    cfg.model.dtype = "float32"
+    cfg.data.seq_len, cfg.data.batch_size = 32, 2
+    cfg.trainer.log_every = 1
+    cfg.trainer.resume = False
+    cfg.trainer.checkpoint_dir = str(tmp_path / "ckpt")
+    cfg.optimizer.lr = 1e-3
+    cfg.scheduler.warmup_steps = 2
+    for key, val in over.items():
+        section, field = key.split("__")
+        setattr(getattr(cfg, section), field, val)
+    return cfg
+
+
+@pytest.mark.parametrize("accum,steps", [(1, 3), (2, 2)])
+def test_trainer_matches_jax(tmp_path, monkeypatch, accum, steps):
+    """The JAX Trainer and the port's, from the same carried parameters:
+    per-step loss and grad norm, and the parameters at the end."""
+    from flash_attn_tpu.training import config as jcm
+
+    to_gpt2 = jcm.ModelConfig.to_gpt2_config
+
+    def xla_attention(self):
+        c = to_gpt2(self)
+        c.use_flash_attn = False
+        return c
+
+    monkeypatch.setattr(jcm.ModelConfig, "to_gpt2_config", xla_attention)
+    over = dict(trainer__max_steps=steps,
+                trainer__accumulate_grad_batches=accum)
+    jt = JaxTrainer(tiny_train_config(tmp_path / "j", port=False, **over))
+    tt = Trainer(tiny_train_config(tmp_path / "t", **over), device="cpu")
+    tt.model.load_state_dict(state_dict_from_jax_params(
+        to_numpy_tree(jt.params), tt.gpt_config))
+    logs_j, logs_t = [], []
+    jt.train(log_fn=logs_j.append)
+    tt.train(log_fn=logs_t.append)
+    assert len(logs_t) == len(logs_j) == steps
+    for mt, mj in zip(logs_t, logs_j):
+        assert mt["step"] == mj["step"]
+        assert abs(mt["loss"] - mj["loss"]) <= 2e-4, (mt, mj)
+        assert abs(mt["grad_norm"] - mj["grad_norm"]) <= 2e-3, (mt, mj)
+    expected = state_dict_from_jax_params(to_numpy_tree(jt.params),
+                                          tt.gpt_config)
+    for name, p in tt.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), expected[name].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=name)
+
+
+def test_trainer_resume_is_exact(tmp_path):
+    """4 steps, a checkpoint, and 4 more in a new Trainer equal 8 steps in
+    one, bit for bit."""
+    first = tiny_train_config(tmp_path / "a", trainer__max_steps=4,
+                              trainer__checkpoint_every=4)
+    Trainer(first, device="cpu").train(log_fn=lambda m: None)
+    second = tiny_train_config(tmp_path / "a", trainer__max_steps=8,
+                               trainer__resume=True)
+    resumed = Trainer(second, device="cpu")
+    logs = []
+    resumed.train(log_fn=logs.append)
+    assert logs[0] == {"step": 4, "event": "resumed"} and resumed.step == 8
+    straight = Trainer(tiny_train_config(tmp_path / "b", trainer__max_steps=8),
+                       device="cpu")
+    straight.train(log_fn=lambda m: None)
+    for (name, p), q in zip(resumed.model.named_parameters(),
+                            straight.model.parameters()):
+        assert torch.equal(p, q), name
+    assert resumed.loader.state == straight.loader.state
+
+
+def test_trainer_evaluate_and_bf16_params(tmp_path):
+    cfg = tiny_train_config(tmp_path, trainer__max_steps=2,
+                            trainer__eval_every=2, trainer__eval_steps=2,
+                            model__param_dtype="bfloat16",
+                            model__dtype="bfloat16")
+    t = Trainer(cfg, device="cpu")
+    assert not t.autocast
+    assert all(p.dtype == torch.bfloat16 for p in t.model.parameters())
+    logs = []
+    t.train(log_fn=logs.append)
+    assert np.isfinite(logs[-1]["eval_loss"])
+
+
+@pytest.mark.parametrize("over", [
+    dict(model__task="image"), dict(mesh__data=2),
+    dict(optimizer__zero_stage=1),
+    dict(model__remat_blocks=True), dict(data__hf_dataset="wikitext"),
+    dict(trainer__ema_decay=0.99), dict(scheduler__name="plateau"),
+    dict(model__dtype="float16")])
+def test_trainer_unported_settings_raise(tmp_path, over):
+    with pytest.raises(NotImplementedError):
+        Trainer(tiny_train_config(tmp_path, **over), device="cpu")
