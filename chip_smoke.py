@@ -12,12 +12,19 @@ GPT-2 small (124M, random weights from a seed): it serves a batch through
 `ServingEngine`, checking that greedy tokens agree with an fp32 CPU
 reference, and it trains 20 steps through `training.trainer.Trainer` at the
 JAX defaults (seq_len 1024, batch 8, bf16 autocast over fp32 weights),
-checking finite losses from about ln(50257).  The kernel launch counts of
-each path are set to 0 just before it and read just after.  A last phase
-holds one training step's gradients on the card against fp32 on the CPU
-and checks that 30 steps on one batch bring its loss down.  Prints one JSON
-line per phase, the kernel summary, the card's name and power limit, and
-as its last line
+checking finite losses from about ln(50257).  A further phase holds one
+training step's gradients on the card against fp32 on the CPU and checks
+that 30 steps on one batch bring its loss down.  The last path is the
+paged KV-cache API at Llama-3-8B's attention widths: 16 decode steps of
+its 32 layers through `flash_attn_with_kvcache` (rotary, append into 512
+pages of 256 rows a layer), with bf16 and then int8 caches; the
+`kernel_kvcache` cases before it hold the decode kernel against its plain
+version on paged, fused, int8, fp8 and contiguous caches and a paged
+chunked prefill (int8 also against the plain int8 version on the kernel's
+own 64-key tiles).  The kernel launch counts of each path are
+set to 0 just before it and read just after.  Prints one JSON line per
+phase, the kernel summary, the card's name and power limit, and as its
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero.
 """
@@ -35,6 +42,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_OPS_8BIT = 1979e12  # H100 SXM dense int8 / fp8 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2**20  # H100 SXM L2
 
@@ -246,10 +254,10 @@ def kernel_device_ms(fn, args, names, iters=20):
     return out
 
 
-def bound(flops, bytes_):
-    """(bound ms, what bounds it) on the card's dense bf16 rate and HBM
-    rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, bytes_ / PEAK_BYTES
+def bound(flops, bytes_, peak_flops=PEAK_FLOPS):
+    """(bound ms, what bounds it) on the card's dense rate for the inputs'
+    type (bf16 by default) and HBM rate."""
+    t_ops, t_bytes = flops / peak_flops, bytes_ / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -700,6 +708,614 @@ OVERFIT_STEPS = 30
 OVERFIT_DROP = 1.0
 
 
+# The KV-cache slice runs at Llama-3-8B's attention widths (HF
+# meta-llama/Meta-Llama-3-8B config.json: 32 layers, 32 heads, 8 kv heads,
+# head dim 128, rope_theta 500000) on paged caches as bench.py:93-151
+# drives the JAX package: page 256, 16384 cached tokens, batch 8.
+LLAMA3 = dict(layers=32, h=32, hk=8, d=128, rope_theta=500000.0)
+KV_BATCH, KV_PAGE, KV_NPAGES = 8, 256, 512  # 64 pages a sequence
+KV_STEPS = 16
+
+
+def quantise_paged_int8(cache, table):
+    """int8 pages and per-(sequence, kv head) descales (b, hk) of a bf16
+    paged cache, each sequence's amax over its own pages through the table
+    (bench.py:118-125 takes the identity table)."""
+    import torch
+
+    hk = cache.shape[-2]
+    out = torch.empty(cache.shape, dtype=torch.int8, device=cache.device)
+    descale = torch.empty(table.shape[0], hk, device=cache.device)
+    for i in range(table.shape[0]):
+        pages = table[i].long()
+        x = cache[pages].float()
+        descale[i] = x.abs().amax(dim=(0, 1, 3)).clamp_min(1e-9) / 127.0
+        out[pages] = (x / descale[i].view(hk, 1)).round().clamp(
+            -127, 127).to(torch.int8)
+    return out, descale
+
+
+def live_pairs_ref_layout(lens, leftpad, sq, cap, causal, window, chunk):
+    """(b, sq, cap) bool: the (query row, cache key) pairs the masks of
+    `decode_attn_ref_layout` leave (leftpad, length, causal / window,
+    attention_chunk)."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+
+    b = lens.shape[0]
+    dev = lens.device
+    has_upper, wr, has_lower, wl = ff.mask_params(causal, *window)
+    lp = (torch.zeros_like(lens) if leftpad is None else leftpad).long()
+    rel = torch.arange(cap, device=dev).view(1, 1, cap) - lp.view(b, 1, 1)
+    qpos = (torch.arange(sq, device=dev).view(1, sq, 1)
+            + (lens.long() - lp - sq).view(b, 1, 1))
+    live = (rel >= 0) & (rel < (lens.long() - lp).view(b, 1, 1))
+    live = live.expand(b, sq, cap)
+    if has_upper:
+        live = live & (rel <= qpos + wr)
+    if has_lower:
+        live = live & (rel >= qpos - wl)
+    if chunk:
+        live = live & (torch.div(rel, chunk, rounding_mode="floor")
+                       == torch.div(qpos, chunk, rounding_mode="floor"))
+    return live
+
+
+# The int8 rule above is loose: the plain int8 version's own error (P
+# quantised as round(127 p)) is about as large as a typical |o| at 16384
+# keys, so a wrong page could pass it.  So each int8 call is also held
+# against the plain int8 version tiled as the kernel tiles (64-key tiles:
+# 64-row pages, one split).  Both then quantise the same p against the same
+# running maximum and differ only in float32 summation order, far less than
+# one bf16 step of the output; so the two bf16 outputs are equal or one
+# step apart, which is at most 2^-7 of |o| (the 1e-6 floor covers values
+# near 0, a ten-thousandth of a typical |o|).  The float32 lse moves by far
+# less than INT8_TILED_LSE_ATOL.  One wrong page of 64 moves o by ~40 % of
+# |o| and lse by ~0.015.
+INT8_TILED_O_RTOL = 2.0 ** -7
+INT8_TILED_O_ATOL = 1e-6
+INT8_TILED_LSE_ATOL = 1e-4
+
+
+def int8_tiled_check(label, q, kc, vc, lens, **kw):
+    """The int8 kernel on 64-row pages of the same paged cache (a view;
+    fused pages are re-fused) at one split, against the plain int8 version
+    on the same pages.  Raises where |o - o_plain| > INT8_TILED_O_RTOL
+    |o_plain| + INT8_TILED_O_ATOL or |lse - lse_plain| >
+    INT8_TILED_LSE_ATOL; returns the errors."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+
+    fused = vc is None
+    page = kc.shape[2] if fused else kc.shape[1]
+    r = page // 64
+    if fused:
+        k64 = fd.fuse_kv_cache(kc[:, 0].reshape(-1, 64, *kc.shape[3:]),
+                               kc[:, 1].reshape(-1, 64, *kc.shape[3:]))
+        v64 = None
+    else:
+        k64 = kc.view(-1, 64, *kc.shape[2:])
+        v64 = vc.view(-1, 64, *vc.shape[2:])
+    table = kw["block_table"].long()
+    t64 = (table[:, :, None] * r + torch.arange(r, device=table.device))
+    kw = dict(kw, block_table=t64.reshape(table.shape[0], -1).int(),
+              num_splits=1)
+    o, lse = fd.decode_attn_ref_layout(q, k64, v64, lens, **kw)
+    o_pt, lse_pt = fd.decode_attn_ref_layout_ref(q, k64, v64, lens, **kw)
+    o, o_pt = o.float(), o_pt.float()
+    diff = (o - o_pt).abs()
+    worst = float((diff / (INT8_TILED_O_RTOL * o_pt.abs()
+                           + INT8_TILED_O_ATOL)).max())
+    fin = torch.isfinite(lse_pt)
+    if not torch.equal(fin, torch.isfinite(lse)):
+        raise AssertionError(f"{label}: +inf lse rows differ (64-key tiles)")
+    err_l = float((lse[fin] - lse_pt[fin]).abs().max())
+    res = dict(o_max_abs_err=float(diff.max()), o_worst_over_limit=worst,
+               o_elements_differing=int((diff > 0).sum()),
+               o_elements=o.numel(), lse_max_abs_err=err_l)
+    if worst > 1.0 or err_l > INT8_TILED_LSE_ATOL:
+        raise AssertionError(f"{label}: int8 kernel against the plain int8 "
+                             f"version on the same 64-key tiles: {res}")
+    return res
+
+
+def kvcache_case(label, q, kc, vc, lens, library=None, **kw):
+    """`decode_attn_ref_layout` against its plain version: the fp32 oracle
+    on the dequantised cache and the plain version in the cache's own
+    precision (the low-precision yardstick) under `check_close`; kernel,
+    plain version and library timed beside the bound (each live K/V row of
+    a kv head read once, q read and o, lse written once)."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+    from flash_attn_tpu_torch.utils.testing import dequantise_cache
+
+    b, sq, h, d = q.shape
+    fused = vc is None
+    hk = kc.shape[-2]
+    kw.setdefault("softmax_scale", d ** -0.5)
+    kw.setdefault("causal", True)
+    o, lse = fd.decode_attn_ref_layout(q, kc, vc, lens, **kw)
+    torch.cuda.synchronize()
+    o_pt, lse_pt = fd.decode_attn_ref_layout_ref(q, kc, vc, lens, **kw)
+    ref_kw = {k: v for k, v in kw.items()
+              if k not in ("k_descale", "v_descale")}
+    quant = kc.element_size() == 1
+    if quant:
+        deq = dict(block_table=kw.get("block_table"),
+                   cache_batch_idx=kw.get("cache_batch_idx"))
+        if fused:
+            kf = torch.stack([
+                dequantise_cache(kc[:, 0], kw["k_descale"], **deq),
+                dequantise_cache(kc[:, 1], kw["v_descale"], **deq)], dim=1)
+            vf = None
+        else:
+            kf = dequantise_cache(kc, kw["k_descale"], **deq)
+            vf = dequantise_cache(vc, kw["v_descale"], **deq)
+    else:
+        kf, vf = kc.float(), None if fused else vc.float()
+    o_ref, lse_ref = fd.decode_attn_ref_layout_ref(q.float(), kf, vf, lens,
+                                                   **ref_kw)
+    del kf, vf
+    rows_ok = torch.ones(b, h, sq, dtype=torch.bool, device=q.device)
+    err_o, err_o_pt, err_l, err_l_pt = check_attention(
+        label, o.transpose(1, 2), lse, o_ref.transpose(1, 2), lse_ref,
+        o_pt.transpose(1, 2), lse_pt, rows_ok)
+    if not torch.isfinite(o).all():
+        raise AssertionError(f"{label}: non-finite output")
+    tiled = None
+    if kc.dtype == torch.int8:
+        tiled = int8_tiled_check(label, q, kc, vc, lens, **kw)
+
+    if kw.get("block_table") is not None:
+        cap = kw["block_table"].shape[1] * (kc.shape[2] if fused
+                                            else kc.shape[1])
+    else:
+        cap = kc.shape[1]
+    live = live_pairs_ref_layout(lens, kw.get("cache_leftpad"), sq, cap,
+                                 kw["causal"], kw.get("window_size",
+                                                      (-1, -1)),
+                                 kw.get("attention_chunk", 0))
+    live_keys = int(live.any(dim=1).sum())
+    pairs = int(live.sum()) * h
+    elt = kc.element_size()
+    bytes_ = (2 * hk * d * elt * live_keys + 2 * b * sq * h * d * 2
+              + b * h * sq * 4)
+    bound_ms, bound_by = bound(4 * d * pairs, bytes_,
+                               PEAK_OPS_8BIT if quant else PEAK_FLOPS)
+    tensors = (q, kc, lens) if fused else (q, kc, vc, lens)
+
+    def unpack(f):
+        if fused:
+            return lambda q_, kc_, lens_: f(q_, kc_, None, lens_, **kw)
+        return lambda *a: f(*a, **kw)
+
+    args = input_copies(*tensors)
+    before = fd.launches
+    kernel_ms = time_ms(unpack(fd.decode_attn_ref_layout), args)
+    kernel_call_ms = call_ms(unpack(fd.decode_attn_ref_layout), args)
+    # The plain version issues ~20 kernels per cache tile: timed one call
+    # at a time, host included (call_ms), not queued behind a spin kernel.
+    plain_ms = call_ms(unpack(fd.decode_attn_ref_layout_ref), args, iters=5,
+                       warmup=1)
+    fd.launches = before  # timing launches are not the main path's
+    library_ms = library() if library is not None else None
+    bk, nk_max, bundle, ns, bps = fd.ref_layout_tiles(
+        kc, vc, kw.get("block_table"), kw.get("num_splits", 1),
+        kw.get("block_k"))
+    rows = h // hk * sq
+    blocks = -(-rows // 64) * ns * b * hk
+    res = dict(phase="kernel_kvcache", case=label, b=b, h=h, hk=hk, sq=sq,
+               d=d, cache_dtype=str(kc.dtype), fused=fused,
+               paged=kw.get("block_table") is not None,
+               cache_seqlens=lens.tolist(), num_splits=ns,
+               max_abs_err_o=err_o, plain_lowp_err_o=err_o_pt,
+               max_abs_err_lse=err_l, plain_lowp_err_lse=err_l_pt,
+               int8_tiled=tiled,
+               kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, bytes=bytes_, flops=4 * d * pairs,
+               live_keys=live_keys, share_of_bound=bound_ms / kernel_ms,
+               blocks=blocks, sm_fill=blocks / 132)
+    emit(res)
+    return res, o, lse
+
+
+def sdpa_gqa_ms(kc, vc, table, q):
+    """Device time of `scaled_dot_product_attention(enable_gqa=True)` on a
+    contiguous (b, hk, s, d) copy of the paged cache: the same function
+    without the page gather, as a yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    b = table.shape[0]
+    hk, d = kc.shape[-2:]
+
+    def contiguous(c):
+        return c[table.long()].reshape(b, -1, hk, d).transpose(1, 2)\
+            .contiguous()
+
+    kq, vq = contiguous(kc), contiguous(vc)
+    qq = q.transpose(1, 2).contiguous()
+    ms = time_ms(lambda a, k_, v_: F.scaled_dot_product_attention(
+        a, k_, v_, enable_gqa=True), input_copies(qq, kq, vq))
+    return ms
+
+
+def kernel_kvcache_phase(gen):
+    """Cases (a)-(h) of the reference-layout decode kernel."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+
+    dev = "cuda"
+    h, hk, d = LLAMA3["h"], LLAMA3["hk"], LLAMA3["d"]
+    b, page = KV_BATCH, KV_PAGE
+    pps = KV_NPAGES // b
+    table = torch.randperm(KV_NPAGES, generator=gen, device=dev).view(
+        b, pps).int()
+    shape = (KV_NPAGES, page, hk, d)
+    kc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    q = torch.randn(b, 1, h, d, generator=gen, device=dev).bfloat16()
+    lens = torch.full((b,), pps * page, dtype=torch.int32, device=dev)
+    out = {}
+    out["a"], _, _ = kvcache_case(
+        "a: paged bf16 (bench shape)", q, kc, vc, lens,
+        library=lambda: sdpa_gqa_ms(kc, vc, table, q), block_table=table)
+    kq, kds = quantise_paged_int8(kc, table)
+    vq, vds = quantise_paged_int8(vc, table)
+    out["b"], _, _ = kvcache_case(
+        "b: paged int8", q, kq, vq, lens, block_table=table,
+        k_descale=kds, v_descale=vds)
+    kvf = fd.fuse_kv_cache(kc, vc)
+    del kc, vc
+    out["c"], _, _ = kvcache_case("c: fused bf16", q, kvf, None, lens,
+                                  block_table=table)
+    del kvf
+    kvf8 = fd.fuse_kv_cache(kq, vq)
+    del kq, vq
+    out["d"], _, _ = kvcache_case(
+        "d: fused int8", q, kvf8, None, lens, block_table=table,
+        k_descale=kds, v_descale=vds)
+    del kvf8
+    torch.cuda.empty_cache()
+
+    # (e) contiguous fp8 e4m3, cache_batch_idx, cache_leftpad, ragged, splits
+    smax, bc = 8192, b + 2
+    x = torch.randn(2, bc, smax, hk, d, generator=gen, device=dev)
+    amax = x.abs().amax(dim=(2, 4))  # (2, bc, hk)
+    cbi = torch.randperm(bc, generator=gen, device=dev)[:b].int()
+    kd, vd = (amax[i][cbi.long()] / 448.0 for i in (0, 1))
+    k8, v8 = ((x[i] / (amax[i] / 448.0)[:, None, :, None]).to(
+        torch.float8_e4m3fn) for i in (0, 1))
+    del x
+    leftpad = torch.randint(0, 200, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lens_e = torch.randint(1000, smax + 1, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    out["e"], _, _ = kvcache_case(
+        "e: contiguous fp8, batch idx, leftpad, 4 splits", q, k8, v8,
+        lens_e, cache_batch_idx=cbi, cache_leftpad=leftpad,
+        num_splits=4, k_descale=kd, v_descale=vd)
+    del k8, v8
+
+    # (f) GQA, sq 4, window + softcap + ALiBi + attention_chunk, contiguous
+    bf, smax = 4, 8192
+    kcf = torch.randn(bf, smax, hk, d, generator=gen, device=dev).bfloat16()
+    vcf = torch.randn(bf, smax, hk, d, generator=gen, device=dev).bfloat16()
+    qf = torch.randn(bf, 4, h, d, generator=gen, device=dev).bfloat16()
+    lens_f = torch.randint(2048, smax + 1, (bf,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    slopes = torch.rand(bf, h, generator=gen, device=dev) * 0.01
+    out["f"], _, _ = kvcache_case(
+        "f: GQA sq 4, window+softcap+alibi+chunk", qf, kcf, vcf, lens_f,
+        window_size=(1024, 0), softcap=30.0, alibi_slopes=slopes,
+        attention_chunk=2048)
+    del kcf, vcf
+
+    out["g"] = paged_prefill_case(gen)
+
+    # (h) a sequence with no key, and sinks
+    kc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    lens_h = torch.randint(1, pps * page + 1, (b,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lens_h[0] = 0
+    sinks = torch.randn(h, generator=gen, device=dev)
+    out["h"], o, lse = kvcache_case(
+        "h: cache_seqlens 0, sinks", q, kc, vc, lens_h,
+        block_table=table, sinks=sinks)
+    if not (torch.all(o[0] == 0) and torch.equal(lse[0], sinks[:, None])):
+        raise AssertionError("h: the empty sequence is not o = 0, "
+                             "lse = sink")
+    del kc, vc
+    torch.cuda.empty_cache()
+    return out
+
+
+def paged_prefill_case(gen):
+    """(g) chunked prefill through `interface.flash_attn_varlen_func(
+    block_table=)`: 4 sequences, new chunks of 64-512 tokens at the end of
+    2048-4096 cached tokens (up to 2048 packed rows, several row tiles).
+    Each sequence is held alone against the plain version (fp32 oracle and
+    bf16 yardstick), which also checks the padding and scatter around the
+    kernel."""
+    import torch
+    from flash_attn_tpu_torch import interface
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+
+    dev = "cuda"
+    h, hk, d, page = LLAMA3["h"], LLAMA3["hk"], LLAMA3["d"], KV_PAGE
+    b, pps = 4, 16
+    npages = b * pps + 8
+    table = torch.randperm(npages, generator=gen, device=dev)[
+        :b * pps].view(b, pps).int()
+    kc = torch.randn(npages, page, hk, d, generator=gen,
+                     device=dev).bfloat16()
+    vc = torch.randn(npages, page, hk, d, generator=gen,
+                     device=dev).bfloat16()
+    lens_k = torch.randint(2048, 4097, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    lens_q = torch.randint(64, 513, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cu_q = torch.nn.functional.pad(lens_q.cumsum(0), (1, 0)).int()
+    cu_k = torch.nn.functional.pad(lens_k.cumsum(0), (1, 0)).int()
+    max_sq = int(lens_q.max())
+    total = int(lens_q.sum())
+    q = torch.randn(total, h, d, generator=gen, device=dev).bfloat16()
+    kw = dict(causal=True, return_attn_probs=True, block_table=table)
+
+    max_sk = int(lens_k.max())
+
+    def run(q_, kc_, vc_):
+        return interface.flash_attn_varlen_func(
+            q_, kc_, vc_, cu_q, cu_k, max_sq, max_sk, **kw)
+
+    o, lse, _ = run(q, kc, vc)
+    torch.cuda.synchronize()
+    errs = []
+    for i in range(b):
+        qi = q[int(cu_q[i]):int(cu_q[i + 1])][None]
+        li = lens_k[i:i + 1]
+        one = dict(softmax_scale=d ** -0.5, causal=True,
+                   block_table=table[i:i + 1])
+        o_pt, lse_pt = fd.decode_attn_ref_layout_ref(qi, kc, vc, li, **one)
+        o_ref, lse_ref = fd.decode_attn_ref_layout_ref(
+            qi.float(), kc.float(), vc.float(), li, **one)
+        n = qi.shape[1]
+        rows_ok = torch.ones(1, h, n, dtype=torch.bool, device=dev)
+        errs.append(check_attention(
+            f"g: sequence {i}", o[None, int(cu_q[i]):int(cu_q[i + 1])]
+            .transpose(1, 2), lse[i:i + 1, :, :n], o_ref.transpose(1, 2),
+            lse_ref, o_pt.transpose(1, 2), lse_pt, rows_ok))
+        if not torch.all(torch.isposinf(lse[i, :, n:])):
+            raise AssertionError("g: padding rows of the lse are not +inf")
+    live = sum(int(lk) for lk in lens_k.tolist())
+    pairs = sum(int(lq) * int(lk) - int(lq) * (int(lq) - 1) // 2
+                for lq, lk in zip(lens_q.tolist(), lens_k.tolist())) * h
+    bytes_ = 2 * hk * d * 2 * live + 2 * total * h * d * 2 + b * h * max_sq * 4
+    bound_ms, bound_by = bound(4 * d * pairs, bytes_)
+    args = input_copies(q, kc, vc)
+    before = fd.launches
+    kernel_ms = time_ms(lambda *a: run(*a), args)
+    kernel_call_ms = call_ms(lambda *a: run(*a), args)
+    fd.launches = before
+    rows = h // hk * max_sq
+    res = dict(phase="kernel_kvcache",
+               case="g: paged varlen prefill (flash_attn_varlen_func)",
+               b=b, h=h, hk=hk, d=d, lens_q=lens_q.tolist(),
+               lens_k=lens_k.tolist(), packed_rows=rows,
+               row_tiles=-(-rows // 64),
+               max_abs_err_o=max(e[0] for e in errs),
+               plain_lowp_err_o=max(e[1] for e in errs),
+               max_abs_err_lse=max(e[2] for e in errs),
+               plain_lowp_err_lse=max(e[3] for e in errs),
+               kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               plain_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None, flops=4 * d * pairs, bytes=bytes_,
+               share_of_bound=bound_ms / kernel_ms)
+    emit(res)
+    return res
+
+
+def kvcache_phase():
+    """The KV-cache path: attention-only decode of Llama-3-8B's 32 layers,
+    KV_STEPS steps of one new token for each of KV_BATCH sequences through
+    the public `flash_attn_with_kvcache` (rotary from the port's
+    `RotaryEmbedding(128, base=500000)`, append into a paged cache of 512
+    pages of 256 rows per layer, causal), first with bf16 caches, then with
+    int8 caches (quantise-on-append with per-(sequence, kv head) descales).
+    The kernel's launch count is set to 0 just before each run and read
+    just after.  At the first and last step, layer 0's output and appended
+    rows are held against the plain version on the same inputs; that check
+    is left out of the wall time."""
+    import torch
+    from flash_attn_tpu_torch import interface
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+    from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
+
+    dev = "cuda"
+    L, h, hk, d = (LLAMA3[k] for k in ("layers", "h", "hk", "d"))
+    b, page = KV_BATCH, KV_PAGE
+    pps = KV_NPAGES // b
+    cos, sin = RotaryEmbedding(d, base=LLAMA3["rope_theta"]).cos_sin(
+        pps * page)
+    results = {}
+    for run in ("bf16", "int8"):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        table = torch.randperm(KV_NPAGES, generator=gen, device=dev).view(
+            b, pps).int()
+        lens0 = torch.randint(8192, pps * page - KV_STEPS + 1, (b,),
+                              generator=gen, device=dev, dtype=torch.int32)
+        torch.cuda.reset_peak_memory_stats()
+        caches, descales = [], []
+        shape = (KV_NPAGES, page, hk, d)
+        for _ in range(L):
+            if run == "bf16":
+                pair = tuple(torch.randn(shape, generator=gen, device=dev,
+                                         dtype=torch.bfloat16)
+                             for _ in range(2))
+                descales.append({})
+            else:
+                pair = tuple(torch.randint(-127, 128, shape, generator=gen,
+                                           device=dev, dtype=torch.int8)
+                             for _ in range(2))
+                descales.append(dict(
+                    k_descale=torch.rand(b, hk, generator=gen, device=dev)
+                    * 0.01 + 0.01,
+                    v_descale=torch.rand(b, hk, generator=gen, device=dev)
+                    * 0.01 + 0.01))
+            caches.append(pair)
+        # q, k, v of every step and layer, drawn before the timed loop
+        qs = torch.randn(KV_STEPS, L, b, 1, h, d, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        ks = torch.randn(KV_STEPS, L, b, 1, hk, d, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        vs = torch.randn(KV_STEPS, L, b, 1, hk, d, generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        outs = []  # every output, checked for finite values after the run
+        checks, check_s, peak = [], 0.0, 0
+        lens = lens0.clone()
+        torch.cuda.synchronize()
+        fd.launches = 0
+        t0 = time.perf_counter()
+        for step in range(KV_STEPS):
+            for layer in range(L):
+                kc, vc = caches[layer]
+                o = interface.flash_attn_with_kvcache(
+                    qs[step, layer], kc, vc, k=ks[step, layer],
+                    v=vs[step, layer], rotary_cos=cos, rotary_sin=sin,
+                    cache_seqlens=lens, block_table=table, causal=True,
+                    **descales[layer])
+                outs.append(o)
+                if layer == 0 and step in (0, KV_STEPS - 1):
+                    torch.cuda.synchronize()
+                    c0 = time.perf_counter()
+                    peak = max(peak, torch.cuda.max_memory_allocated())
+                    checks.append(kvcache_step_check(
+                        f"kvcache {run} step {step}", o, qs[step, 0],
+                        ks[step, 0], vs[step, 0], kc, vc, lens, table, cos,
+                        sin, descales[0]))
+                    torch.cuda.reset_peak_memory_stats()  # not the path's
+                    check_s += time.perf_counter() - c0
+            lens = lens + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - check_s
+        launches = fd.launches
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        finite = bool(torch.isfinite(torch.stack(outs)).all())
+        profile = profile_kvcache_step(
+            caches, qs[-1], ks[-1], vs[-1], cos, sin, lens - 1, table,
+            descales, wall / KV_STEPS)
+        res = dict(phase="kvcache", run=run,
+                   model="Llama-3-8B attention (32 layers, h 32, hk 8, "
+                   "d 128), random caches (seed 1)",
+                   batch=b, steps=KV_STEPS, page=page, npages=KV_NPAGES,
+                   cache_seqlens_start=lens0.tolist(), wall_s=wall,
+                   decode_tok_per_s=b * KV_STEPS / wall,
+                   ms_per_call=wall / (KV_STEPS * L) * 1e3,
+                   max_memory_allocated=peak,
+                   flash_decode_ref_launches=launches, checks=checks,
+                   profile=profile)
+        emit(res)
+        if launches != L * KV_STEPS:
+            raise AssertionError(f"kvcache {run}: {launches} launches, "
+                                 f"expected {L * KV_STEPS}")
+        if not finite:
+            raise AssertionError(f"kvcache {run}: non-finite output")
+        results[run] = res
+        del caches, kc, vc, o, outs, qs, ks, vs
+        torch.cuda.empty_cache()
+    return results
+
+
+def profile_kvcache_step(caches, q, k, v, cos, sin, lens, table, descales,
+                         step_s):
+    """The last decode step once more (the same rows appended again) under
+    `torch.profiler`, after the path's counts are read: device busy time
+    (the union of the kernel intervals), the device's idle share against
+    the unprofiled step time `step_s`, the reference-layout kernel's share
+    of kernel time, and device ms by kernel name, largest first."""
+    import torch
+    from flash_attn_tpu_torch import interface
+    from flash_attn_tpu_torch.serve_profile import busy_seconds
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for layer, (kc, vc) in enumerate(caches):
+            interface.flash_attn_with_kvcache(
+                q[layer], kc, vc, k=k[layer], v=v[layer], rotary_cos=cos,
+                rotary_sin=sin, cache_seqlens=lens, block_table=table,
+                causal=True, **descales[layer])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device kernels")
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = busy_seconds(kernels)
+    total = sum(by_name.values())
+    ref = sum(v for n, v in by_name.items() if "flash_decode_ref" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(device_kernels_per_step=len(kernels),
+                device_busy_ms_per_step=busy * 1e3,
+                device_idle_share=1.0 - busy / step_s,
+                flash_decode_ref_share_of_kernel_time=ref / total,
+                kernel_ms_per_step_by_name={n[:80]: v * 1e-3
+                                            for n, v in top})
+
+
+def kvcache_step_check(label, o, q, k, v, kc, vc, lens, table, cos, sin,
+                       descales):
+    """Layer 0 of one decode step, after the call: the appended rows equal
+    the plain rotary (and quantisation) of k and v, and the kernel's output
+    agrees with the plain version on the same rotated q and updated cache
+    (fp32 oracle on the dequantised cache, the plain version in the
+    cache's precision as the yardstick)."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+    from flash_attn_tpu_torch.utils.testing import (check_close,
+                                                    dequantise_cache)
+
+    b, page = lens.shape[0], kc.shape[1]
+    pos = lens.long()[:, None]
+    q_rot = fd._apply_rotary(q, cos, sin, pos, False)
+    k_new = fd._apply_rotary(k, cos, sin, pos, False)
+    v_new = v
+    if kc.dtype == torch.int8:
+        k_new = fd.quantise_append(k_new, descales["k_descale"], kc.dtype)
+        v_new = fd.quantise_append(v_new, descales["v_descale"], kc.dtype)
+    pid = table.long()[torch.arange(b, device=lens.device), lens.long()
+                       // page]
+    off = lens.long() % page
+    if not (torch.equal(kc[pid, off], k_new[:, 0])
+            and torch.equal(vc[pid, off], v_new[:, 0])):
+        raise AssertionError(f"{label}: appended rows differ from plain")
+    kw = dict(softmax_scale=q.shape[-1] ** -0.5, causal=True,
+              block_table=table)
+    new_len = lens + 1
+    o_pt, lse_pt = fd.decode_attn_ref_layout_ref(q_rot, kc, vc, new_len,
+                                                 **kw, **descales)
+    if descales:
+        kf = dequantise_cache(kc, descales["k_descale"], block_table=table)
+        vf = dequantise_cache(vc, descales["v_descale"], block_table=table)
+    else:
+        kf, vf = kc.float(), vc.float()
+    o_ref, _ = fd.decode_attn_ref_layout_ref(q_rot.float(), kf, vf, new_len,
+                                             **kw)
+    err, err_pt = check_close(o, o_ref, o_pt, label=label)
+    res = dict(step=label, max_abs_err_o=err, plain_lowp_err_o=err_pt)
+    if kc.dtype == torch.int8:
+        before = fd.launches  # a check's launch is not the path's
+        res["int8_tiled"] = int8_tiled_check(label, q_rot, kc, vc, new_len,
+                                             **kw, **descales)
+        fd.launches = before
+    return res
+
+
 def main():
     import torch
 
@@ -760,9 +1376,15 @@ def main():
     bwd["d"] = bwd_case("d: ragged, seqused_k = 0", 3, 12, 12, 1024, 1024,
                         64, [1024, 700, 1024], [1024, 500, 0], gen)
 
+    kvc = kernel_kvcache_phase(gen)
+
     serve = serve_phase()
     train = train_phase()
     train_check_phase()
+    kvpath = kvcache_phase()
+    kv_launches = sum(r["flash_decode_ref_launches"] for r in kvpath.values())
+    kv_by_run = {run: r["flash_decode_ref_launches"]
+                 for run, r in kvpath.items()}
 
     a = bwd["a"]
     kernels = [
@@ -778,7 +1400,9 @@ def main():
              bound_by=fwd["a"]["bound_by"],
              library_ms=fwd["a"]["library_ms"]),
         dict(name="flash_decode", route="cuda",
-             source="flash_attn_tpu_torch/csrc/flash_decode.cu",
+             source="flash_attn_tpu_torch/csrc/flash_decode_ref.cu",
+             kernel="flash_decode_ref_kernel, heads-first (bc, hk, smax, d) "
+             "caches through decode_attn_bhsd",
              replaces="flash_attn_tpu/kernels/flash_decode.py:117",
              launches=serve["flash_decode_launches"],
              max_abs_err=dec["a"]["max_abs_err_o"], ms=dec["a"]["kernel_ms"],
@@ -800,6 +1424,22 @@ def main():
              ms=a["dkv_kernel_ms"], plain_ms=a["plain_ms"],
              bound_ms=a["dkv_bound_ms"], bound_by=a["dkv_bound_by"],
              library_ms=a["library_ms"]),
+        dict(name="flash_decode_ref", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flash_decode_ref.cu",
+             kernel="flash_decode_ref_kernel, reference-layout caches "
+             "through decode_attn_ref_layout",
+             replaces="flash_attn_tpu/kernels/flash_decode.py:407 and "
+             ":1083 (_decode_paged_pipe_kernel)",
+             launches=kv_launches, launches_by_run=kv_by_run,
+             case=kvc["a"]["case"],
+             max_abs_err=kvc["a"]["max_abs_err_o"], ms=kvc["a"]["kernel_ms"],
+             plain_ms=kvc["a"]["plain_ms"], bound_ms=kvc["a"]["bound_ms"],
+             bound_by=kvc["a"]["bound_by"],
+             library_ms=kvc["a"]["library_ms"],
+             by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["bound_ms"],
+                              max_abs_err=r["max_abs_err_o"])
+                      for k, r in kvc.items()}),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

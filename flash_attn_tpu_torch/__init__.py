@@ -1,8 +1,11 @@
 """PyTorch/CUDA port of `flash_attn_tpu` (the JAX package stays the reference).
 
-This slice covers the GPT-2 serving path: `serving.ServingEngine` ->
-`models.gpt.GPTLMHeadModel` -> `modules.mha.MHA` -> the two hand-written
-Hopper kernels in `csrc/` (prefill `flash_fwd.cu`, decode `flash_decode.cu`).
+Ported so far: the GPT-2 serving path (`serving.ServingEngine` ->
+`models.gpt.GPTLMHeadModel` -> `modules.mha.MHA` -> `csrc/flash_fwd.cu`,
+`csrc/flash_decode_ref.cu`), the GPT-2 training step
+(`training.trainer.Trainer` -> `interface.flash_attn_func` ->
+`csrc/flash_bwd.cu`), and the paged KV-cache API (`flash_attn_with_kvcache`,
+`flash_attn_varlen_func` with `block_table=` -> `csrc/flash_decode_ref.cu`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU present `device=None` raises `RuntimeError`.  On CPU tensors each kernel
@@ -11,5 +14,11 @@ kernel or raises.
 """
 
 from flash_attn_tpu_torch.env import default_device
+from flash_attn_tpu_torch.interface import (
+    flash_attn_combine, flash_attn_func, flash_attn_varlen_func,
+    flash_attn_with_kvcache, fuse_kv_cache, get_scheduler_metadata,
+    split_kv_cache)
 
-__all__ = ["default_device"]
+__all__ = ["default_device", "flash_attn_combine", "flash_attn_func",
+           "flash_attn_varlen_func", "flash_attn_with_kvcache",
+           "fuse_kv_cache", "get_scheduler_metadata", "split_kv_cache"]

@@ -1,6 +1,11 @@
-"""Public flash-attention functions with gradients (counterpart of
-`flash_attn_tpu/interface.py`: `_make_core:48-120`, `flash_attn_func:209`,
-`flash_attn_qkvpacked_func:310`, `flash_attn_kvpacked_func:329`).
+"""Public flash-attention functions (counterpart of
+`flash_attn_tpu/interface.py`): with gradients, `_make_core:48-120`,
+`flash_attn_func:209`, `flash_attn_qkvpacked_func:310`,
+`flash_attn_kvpacked_func:329`; for inference, `flash_attn_with_kvcache`,
+`fuse_kv_cache`, `split_kv_cache` (`:660-679`, in `kernels/flash_decode`),
+`flash_attn_combine:682`, `get_scheduler_metadata:701`, and
+`flash_attn_varlen_func:382` against a paged KV cache (`block_table=`,
+`_varlen_paged_prefill:548`).
 
 Inputs are in the (batch, seqlen, nheads, head_dim) layout; the kernels run
 on (b, h, s, d).  `FlashAttnFunc` is the `torch.autograd.Function` that takes
@@ -11,8 +16,10 @@ saves q, k, v, o and lse, and its backward is `flash_attn_bwd_bhsd`.
   deterministic (`interface.py:15`).
 * `return_attn_probs=True` returns (out, lse, None) and carries the lse's
   gradient (`dlse`) into the backward.
-* Not ported yet, and raising `NotImplementedError`: `dropout_p > 0`, `qv`,
-  `sinks`, fp8 descale and `attention_chunk`.
+* Not ported yet, and raising `NotImplementedError`: in `flash_attn_func`,
+  `dropout_p > 0`, `qv`, `sinks`, fp8 descale and `attention_chunk`; in
+  `flash_attn_varlen_func`, every branch but `block_table=` (the packed
+  scheduled kernel, the padded path, fp8; ROADMAP Queue 1.2).
 """
 
 from __future__ import annotations
@@ -21,7 +28,12 @@ import math
 
 import torch
 
+from flash_attn_tpu_torch.kernels.block_sizes import fwd_block_sizes
+from flash_attn_tpu_torch.kernels.combine import combine_attn_partials
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attn_bwd_bhsd
+from flash_attn_tpu_torch.kernels.flash_decode import (  # noqa: F401
+    FP8_DTYPES, decode_attn_ref_layout, flash_attn_with_kvcache,
+    fuse_kv_cache, split_kv_cache)
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attn_fwd_bhsd
 
 
@@ -106,3 +118,136 @@ def flash_attn_kvpacked_func(q, kv, dropout_p=0.0, softmax_scale=None,
     return flash_attn_func(q, kv[:, :, 0], kv[:, :, 1], dropout_p,
                            softmax_scale, causal, window_size, softcap,
                            alibi_slopes, deterministic, return_attn_probs)
+
+
+def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                           max_seqlen_k, dropout_p=0.0, softmax_scale=None,
+                           causal=False, window_size=(-1, -1), softcap=0.0,
+                           alibi_slopes=None, deterministic=False,
+                           return_attn_probs=False, seqused_q=None,
+                           seqused_k=None, block_table=None,
+                           dropout_seed=None, q_descale=None, k_descale=None,
+                           v_descale=None, qv=None):
+    """Varlen attention over packed tokens (`interface.py:382`).  Only the
+    paged-cache branch is ported: with `block_table`, k and v are paged
+    caches (npages, page, hk, d) and the q tokens (total_q, h, d) of each
+    sequence are its newest, at the end of its seqused_k (or cu_seqlens_k)
+    keys: chunked prefill against a paged cache."""
+    del deterministic, dropout_seed, q_descale, k_descale, v_descale
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if qv is not None:
+        if q.dtype in FP8_DTYPES:
+            raise NotImplementedError("qv is not supported with fp8 inputs")
+        if softmax_scale is None:
+            softmax_scale = 1.0 / math.sqrt(q.shape[-1] + qv.shape[-1])
+        q = torch.cat([q, qv.to(q.dtype)], dim=-1)
+        k = torch.cat([k, v.to(k.dtype)], dim=-1)
+    if block_table is None or q.dtype in FP8_DTYPES:
+        raise NotImplementedError(
+            "flash_attn_varlen_func is ported for block_table= only; the "
+            "packed, padded and fp8 paths are ROADMAP Queue 1.2")
+    if dropout_p > 0.0:
+        raise NotImplementedError(
+            "paged varlen prefill supports dropout_p=0 (inference path)")
+    return _varlen_paged_prefill(
+        q, k, v, cu_seqlens_q, max_seqlen_q, block_table,
+        seqused_k=seqused_k, cu_seqlens_k=cu_seqlens_k,
+        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
+        softcap=softcap, alibi_slopes=alibi_slopes,
+        return_lse=return_attn_probs)
+
+
+def _varlen_paged_prefill(q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q,
+                          block_table, *, seqused_k, cu_seqlens_k,
+                          softmax_scale, causal, window_size, alibi_slopes,
+                          softcap=0.0, return_lse=False):
+    """Chunked prefill against a paged KV cache (`interface.py:548`): each
+    sequence's queries are left-padded to max_seqlen_q, so its real rows sit
+    at the bottom, where the bottom-right causal offset is exact, and go
+    through `decode_attn_ref_layout`; the padding rows are dropped on the
+    scatter back.  With `return_lse` the LSE (b, h, max_seqlen_q) holds
+    token t of sequence i at row t and +inf on padding rows."""
+    total_q, h, d = q.shape
+    dev = q.device
+    max_sq = int(max_seqlen_q)
+    cu = torch.as_tensor(cu_seqlens_q, device=dev).long()
+    b = cu.shape[0] - 1
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    lens_q = cu[1:] - cu[:-1]
+    if seqused_k is not None:
+        lens_k = torch.as_tensor(seqused_k, device=dev).int()
+    else:
+        cu_k = torch.as_tensor(cu_seqlens_k, device=dev).int()
+        lens_k = cu_k[1:] - cu_k[:-1]
+
+    # left-pad gather: padded row r holds token r - (max_sq - len_q)
+    r = torch.arange(max_sq, device=dev)[None, :]
+    src = cu[:-1, None] + r - (max_sq - lens_q[:, None])
+    valid = src >= cu[:-1, None]
+    qp = q[src.clamp(0, total_q - 1)]  # (b, max_sq, h, d)
+    o, lse = decode_attn_ref_layout(
+        qp, k_cache, v_cache, lens_k, softmax_scale=float(softmax_scale),
+        causal=causal, window_size=window_size, softcap=softcap,
+        alibi_slopes=alibi_slopes, block_table=block_table)
+    o = torch.where(valid[:, :, None, None], o, 0)
+    # scatter back: token t of sequence i is padded row
+    # (max_sq - len_q[i]) + (t - cu[i])
+    t = torch.arange(total_q, device=dev)
+    seg = (torch.searchsorted(cu, t, right=True) - 1).clamp(0, b - 1)
+    pos = t - cu[seg] + max_sq - lens_q[seg]
+    out = o[seg, pos.clamp(0, max_sq - 1)]
+    if not return_lse:
+        return out
+    src_row = (r + (max_sq - lens_q[:, None])).clamp(0, max_sq - 1)
+    lse_r = torch.gather(lse, 2, src_row[:, None, :].expand(b, h, max_sq))
+    lse_r = torch.where((r < lens_q[:, None])[:, None, :], lse_r, torch.inf)
+    return out, lse_r, None
+
+
+def flash_attn_combine(out_partial, lse_partial, out=None, out_dtype=None):
+    """Combine split-attention partials (`interface.py:682`).
+    out_partial: (num_splits, b, s, h, d) per-split normalised outputs;
+    lse_partial: (num_splits, b, h, s), +inf for an empty split.  Returns
+    (out (b, s, h, d), lse (b, h, s)); with `out` given, the result is also
+    copied into it."""
+    o, lse = combine_attn_partials(out_partial.transpose(2, 3), lse_partial,
+                                   axis=0)
+    o = o.transpose(1, 2)
+    if out_dtype is not None:
+        o = o.to(out_dtype)
+    if out is not None:
+        out.copy_(o)
+        o = out
+    return o, lse
+
+
+def get_scheduler_metadata(batch_size, max_seqlen_q, max_seqlen_k,
+                           num_heads_q, num_heads_kv, headdim,
+                           cache_seqlens=None, qkv_dtype=torch.bfloat16,
+                           headdim_v=None, cu_seqlens_q=None,
+                           cu_seqlens_k_new=None, cache_leftpad=None,
+                           page_size=None, max_seqlen_k_new=0, causal=False,
+                           window_size=(-1, -1), attention_chunk=0,
+                           has_softcap=False, num_splits=0, pack_gqa=None,
+                           sm_margin=0):
+    """Decode-scheduling metadata (`interface.py:701`): the JAX package's
+    host-side split and GQA-packing heuristic, returned as the same dict
+    (`num_splits` is what `flash_attn_with_kvcache` reads from it)."""
+    g = num_heads_q // max(num_heads_kv, 1)
+    if pack_gqa is None:
+        pack_gqa = max_seqlen_q * g <= 512 and g > 1
+    bs = fwd_block_sizes(max(max_seqlen_q, 1), max_seqlen_k, headdim,
+                         boundary_heavy=causal)
+    if num_splits <= 0:
+        eff_k = max_seqlen_k
+        if cache_seqlens is not None:
+            eff_k = int(torch.as_tensor(cache_seqlens).max())
+        if batch_size * num_heads_kv >= 8 or eff_k <= 4096:
+            num_splits = 1
+        else:
+            num_splits = min(8, max(1, eff_k // 4096))
+    return dict(num_splits=int(num_splits), pack_gqa=bool(pack_gqa),
+                block_q=bs.block_q, block_k=bs.block_k,
+                block_k_sub=bs.block_k_sub, page_size=page_size)

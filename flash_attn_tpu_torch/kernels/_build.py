@@ -20,7 +20,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("flash_fwd", "flash_decode", "flash_bwd")
+KERNELS = ("flash_fwd", "flash_decode_ref", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,12 +49,18 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def sources(name: str) -> list[Path]:
+    """What kernel `name` is built from: `csrc/<name>.cu` and the shared
+    `csrc/*.cuh` headers (not every `csrc/<name>*`, which would take
+    `csrc/<name>_other.cu` as a source too)."""
+    return [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+
+
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
     if not lib.exists():
         return True
-    sources = [*CSRC_DIR.glob(f"{name}*"), *CSRC_DIR.glob("*.cuh")]
-    src_mtime = max(p.stat().st_mtime for p in sources)
+    src_mtime = max(p.stat().st_mtime for p in sources(name))
     return lib.stat().st_mtime < src_mtime
 
 

@@ -145,3 +145,20 @@ def check_close(out, out_ref, out_pt, mult=2.0, atol_floor=1e-5, label="out"):
             f"{label}: err {err:.3e} > {mult} * low-precision err "
             f"{err_pt:.3e} + {atol_floor}")
     return err, err_pt
+
+
+def dequantise_cache(cache, descale, block_table=None, cache_batch_idx=None):
+    """float32 copy of an int8 / fp8 reference-layout KV cache with each
+    sequence's rows multiplied by its per-(batch, kv head) descale (b, hk):
+    contiguous (bc, smax, hk, d) through cache_batch_idx, or paged (npages,
+    page, hk, d) / fused (npages, 2, page, hk, d) through block_table, whose
+    sequences own disjoint pages.  The fp32 oracle of a quantised cache."""
+    out = cache.float()
+    b, hk = descale.shape
+    for i in range(b):
+        if block_table is not None:
+            idx = block_table[i].long()
+        else:
+            idx = i if cache_batch_idx is None else int(cache_batch_idx[i])
+        out[idx] = cache[idx].float() * descale[i].float().view(hk, 1)
+    return out

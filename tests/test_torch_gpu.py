@@ -68,6 +68,7 @@ def test_fwd_kernel_matches_plain(cuda, dtype, d, h, hk, causal, window,
     (64, 8, 4, 4, 1, (-1, -1), 0.0, False),
     (64, 12, 12, 1, 3, (-1, -1), 0.0, False),
     (128, 8, 1, 16, 2, (-1, -1), 0.0, False),
+    (64, 16, 2, 20, 1, (-1, -1), 0.0, False),  # 160 packed rows: 3 tiles
     (64, 8, 2, 4, 3, (100, 0), 30.0, True),
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, d, h, hk, sq, num_splits,
@@ -208,3 +209,133 @@ def test_cuda_train_step_matches_cpu_plain_path(cuda, tmp_path):
     assert torch.isfinite(loss) and torch.isfinite(gnorm)
     assert (flash_fwd.launches - counts[0], flash_bwd.launches_dq - counts[1],
             flash_bwd.launches_dkv - counts[2]) == (2, 2, 2)
+
+
+def _ref_layout_inputs(case, dtype, gen, dev):
+    """q, caches and keyword arguments of one decode_attn_ref_layout call,
+    and the dequantised float32 caches of its oracle."""
+    b, h, hk, d, sq, page, pps = 3, 8, 2, 128, 1, 64, 6
+    if case == "d64_window_chunk_alibi":
+        d, sq = 64, 4
+    if case == "rows_gt_64":
+        sq = 40  # 160 packed rows: three row tiles
+    paged = case in ("paged", "fused", "int8_paged", "int8_fused",
+                     "rows_gt_64")
+    quant = {"int8_paged": torch.int8, "int8_fused": torch.int8,
+             "fp8_contiguous": torch.float8_e4m3fn}.get(case)
+    if paged:
+        npages = b * pps + 5
+        table = torch.randperm(npages, generator=gen, device=dev)[
+            :b * pps].view(b, pps).int()
+        shape = (npages, page, hk, d)
+        cap = page * pps
+    else:
+        table, shape, cap = None, (b + 1, 500, hk, d), 500
+    kc = torch.randn(shape, generator=gen, device=dev)
+    vc = torch.randn(shape, generator=gen, device=dev)
+    kw = dict(causal=True, block_table=table)
+    kd = vd = None
+    if quant == torch.int8:
+        kc = (kc * 40).round().clamp(-127, 127).to(torch.int8)
+        vc = (vc * 40).round().clamp(-127, 127).to(torch.int8)
+    elif quant is not None:
+        kc, vc = (kc * 60).to(quant), (vc * 60).to(quant)
+    else:
+        kc, vc = kc.to(dtype), vc.to(dtype)
+    if quant is not None:
+        kd = torch.rand(b, hk, generator=gen, device=dev) * 0.02 + 0.01
+        vd = torch.rand(b, hk, generator=gen, device=dev) * 0.02 + 0.01
+        kw.update(k_descale=kd, v_descale=vd)
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    lens = torch.tensor([cap, 77, 0], dtype=torch.int32, device=dev)
+    if case == "fp8_contiguous":
+        kw.update(cache_batch_idx=torch.tensor([3, 0, 2], device=dev),
+                  cache_leftpad=torch.tensor([0, 9, 0], device=dev),
+                  num_splits=4, block_k=128)
+        lens = torch.tensor([cap, 301, 0], dtype=torch.int32, device=dev)
+    if case == "d64_window_chunk_alibi":
+        kw.update(window_size=(100, 0), attention_chunk=128, softcap=20.0,
+                  alibi_slopes=torch.rand(b, h, generator=gen, device=dev))
+    if case == "rows_gt_64":
+        lens = torch.tensor([cap, 200, 39], dtype=torch.int32, device=dev)
+    deq = {}
+    if quant is not None:
+        deq = dict(block_table=table, cache_batch_idx=kw.get("cache_batch_idx"))
+    fused = case in ("fused", "int8_fused")
+    if fused:
+        kc, vc = torch.stack([kc, vc], dim=1), None
+    return q, kc, vc, lens, kw, deq, fused
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["paged", "fused", "int8_paged", "int8_fused",
+                                  "fp8_contiguous", "rows_gt_64",
+                                  "d64_window_chunk_alibi"])
+def test_decode_ref_layout_kernel_matches_plain(cuda, dtype, case):
+    """The reference-layout kernel against its plain version: the fp32
+    oracle on the dequantised cache, the plain version in the cache's own
+    precision as the low-precision yardstick."""
+    from flash_attn_tpu_torch.utils.testing import dequantise_cache
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, kc, vc, lens, kw, deq, fused = _ref_layout_inputs(case, dtype, gen,
+                                                         cuda)
+    d = q.shape[-1]
+    kw["softmax_scale"] = d ** -0.5
+    before = flash_decode.launches
+    o, lse = flash_decode.decode_attn_ref_layout(q, kc, vc, lens, **kw)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 1
+    o_pt, lse_pt = flash_decode.decode_attn_ref_layout_ref(q, kc, vc, lens,
+                                                           **kw)
+    ref_kw = {k: v for k, v in kw.items()
+              if k not in ("k_descale", "v_descale")}
+    if deq:
+        if fused:
+            kf = dequantise_cache(kc[:, 0], kw["k_descale"], **deq)
+            vf = dequantise_cache(kc[:, 1], kw["v_descale"], **deq)
+            kf, vf = torch.stack([kf, vf], dim=1), None
+        else:
+            kf = dequantise_cache(kc, kw["k_descale"], **deq)
+            vf = dequantise_cache(vc, kw["v_descale"], **deq)
+    else:
+        kf, vf = kc.float(), None if fused else vc.float()
+    o_ref, lse_ref = flash_decode.decode_attn_ref_layout_ref(
+        q.float(), kf, vf, lens, **ref_kw)
+    check_close(o, o_ref, o_pt)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    check_close(lse[fin], lse_ref[fin], lse_pt[fin])
+    assert torch.all(o[2] == 0) or case == "rows_gt_64"
+
+
+@pytest.mark.parametrize("option,match", [("head_dim_96", "head dim"),
+                                          ("qv", "qv"),
+                                          ("float32_q", "q dtype")])
+def test_decode_ref_layout_unsupported_raises_on_cuda(cuda, option, match):
+    """Options the kernel does not take raise on a CUDA tensor instead of
+    running the plain version: head dim 96, qv (dv != d), a float32 q.
+    `flash_attn_with_kvcache` raises before it appends, so the caches are
+    as they were and a retry appends once."""
+    from flash_attn_tpu_torch.interface import flash_attn_with_kvcache
+
+    d = 96 if option == "head_dim_96" else 64
+    dtype = torch.float32 if option == "float32_q" else torch.bfloat16
+    q = torch.randn(2, 1, 4, d, device=cuda).to(dtype)
+    kc = torch.randn(2, 64, 2, d, device=cuda).to(dtype)
+    vc = torch.randn(2, 64, 2, d, device=cuda).to(dtype)
+    k = torch.randn(2, 1, 2, d, device=cuda).to(dtype)
+    v = torch.randn(2, 1, 2, d, device=cuda).to(dtype)
+    lens = torch.tensor([10, 40], dtype=torch.int32, device=cuda)
+    kc0, vc0 = kc.clone(), vc.clone()
+    qv = torch.randn_like(q) if option == "qv" else None
+    before = flash_decode.launches
+    if qv is None:
+        with pytest.raises(NotImplementedError, match=match):
+            flash_decode.decode_attn_ref_layout(q, kc, vc, lens,
+                                                softmax_scale=0.1)
+    with pytest.raises(NotImplementedError, match=match):
+        flash_attn_with_kvcache(q, kc, vc, k=k, v=v, cache_seqlens=lens,
+                                qv=qv)
+    assert torch.equal(kc, kc0) and torch.equal(vc, vc0)
+    assert flash_decode.launches == before

@@ -74,6 +74,7 @@ def test_model_raises_without_cuda(no_cuda):
 
 
 def _entry_points():
+    from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
     from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTModel
     from flash_attn_tpu_torch.modules.block import Block, _Norm
     from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
@@ -98,12 +99,14 @@ def _entry_points():
         "GPT2Embeddings": lambda: GPT2Embeddings(64, 17, 32),
         "allocate_inference_cache": lambda: allocate_inference_cache(2, 32),
         "Trainer": lambda: Trainer(tiny),
+        "RotaryEmbedding": lambda: RotaryEmbedding(128, base=500000.0),
     }
 
 
 @pytest.mark.parametrize("name", ["GPTModel", "MHA", "Mlp", "GatedMlp",
                                   "_Norm", "Block", "GPT2Embeddings",
-                                  "allocate_inference_cache", "Trainer"])
+                                  "allocate_inference_cache", "Trainer",
+                                  "RotaryEmbedding"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     """Every public constructor resolves device=None to CUDA, so none of
     them builds on the CPU unless asked to."""
@@ -113,7 +116,9 @@ def test_entry_point_raises_without_cuda(no_cuda, name):
 
 
 @pytest.mark.parametrize("fn", ["flash_attn_fwd_bhsd", "decode_attn_bhsd",
-                                "flash_attn_bwd_bhsd", "flash_attn_func"])
+                                "flash_attn_bwd_bhsd", "flash_attn_func",
+                                "decode_attn_ref_layout",
+                                "flash_attn_with_kvcache"])
 def test_wrappers_run_no_plain_version_off_cpu(fn):
     """A tensor that is not on the CPU never reaches the plain version."""
     from flash_attn_tpu_torch.interface import flash_attn_func
@@ -132,6 +137,11 @@ def test_wrappers_run_no_plain_version_off_cpu(fn):
             lse = torch.empty(1, 2, 4, device="meta")
             flash_bwd.flash_attn_bwd_bhsd(q, q, k, k, q, lse, lens, lens,
                                           softmax_scale=0.125)
+        elif fn == "decode_attn_ref_layout":
+            flash_decode.decode_attn_ref_layout(q, k, k, lens,
+                                                softmax_scale=0.125)
+        elif fn == "flash_attn_with_kvcache":
+            flash_decode.flash_attn_with_kvcache(q, k, k, cache_seqlens=lens)
         else:
             flash_attn_func(q, k, k, causal=True)
 
@@ -145,3 +155,18 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_kernel_depends_on_its_source_and_headers_only(monkeypatch,
+                                                       tmp_path):
+    """A kernel is rebuilt when `csrc/<name>.cu` or a shared header changes,
+    not when another source sharing its prefix does."""
+    from flash_attn_tpu_torch.kernels import _build
+
+    names = {p.name for p in _build.sources("flash_decode_ref")}
+    assert names == {"flash_decode_ref.cu", "fa_common.cuh"}
+    assert all((_build.CSRC_DIR / f"{n}.cu").exists() for n in _build.KERNELS)
+    for f in ("k.cu", "k_other.cu", "shared.cuh"):
+        (tmp_path / f).write_text("")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    assert {p.name for p in _build.sources("k")} == {"k.cu", "shared.cuh"}
