@@ -21,7 +21,13 @@ pages of 256 rows a layer), with bf16 and then int8 caches; the
 `kernel_kvcache` cases before it hold the decode kernel against its plain
 version on paged, fused, int8, fp8 and contiguous caches and a paged
 chunked prefill (int8 also against the plain int8 version on the kernel's
-own 64-key tiles).  The kernel launch counts of each path are
+own 64-key tiles).  The packed varlen kernels (the varlen modes of
+`flash_fwd.cu` and `flash_bwd.cu`) are held against their plain versions
+in `kernel_varlen` (cases (a)-(e)) and `kernel_varlen_bwd` (bitwise
+deterministic), and the last path is BERT-base's encoder at full width and
+depth (`bert`): 10 unpadded forwards of 64 sequences of 16-512 tokens
+through `BertModel(unpad_varlen=True)`, against the padded path and fp32
+on the CPU, and one gradient.  The kernel launch counts of each path are
 set to 0 just before it and read just after.  Prints one JSON line per
 phase, the kernel summary, the card's name and power limit, and as its
 last line
@@ -610,23 +616,15 @@ def train_phase():
     return res
 
 
-def profile_train_steps(t, steps, step_s):
-    """`steps` more train_steps under torch.profiler (after the main path's
-    launch counts are read): device busy time per step (the union of the
-    kernel intervals), the device's idle share against the unprofiled step
-    time `step_s`, the attention kernels' share of kernel time, and device
-    ms per step by kernel name, largest first."""
+def profile_summary(prof, n, step_s, unit, share, match, top=10):
+    """What a `torch.profiler` window over `n` steps (forwards) tells:
+    device kernels and busy ms per step (the union of the kernel
+    intervals), the device's idle share against the unprofiled step time
+    `step_s`, the share of kernel time of kernels whose name contains
+    `match`, and device ms per step by kernel name, largest first."""
     import torch
     from flash_attn_tpu_torch.serve_profile import busy_seconds
 
-    batches = [next(t.loader) for _ in range(steps)]
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for batch in batches:
-            t.train_step(batch)
-        torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -636,14 +634,34 @@ def profile_train_steps(t, steps, step_s):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = busy_seconds(kernels)
     total = sum(by_name.values())
-    attention = sum(v for k, v in by_name.items() if "flash_" in k)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return dict(steps=steps, device_kernels_per_step=len(kernels) / steps,
-                device_busy_ms_per_step=busy / steps * 1e3,
-                device_idle_share=1.0 - busy / (steps * step_s),
-                attention_share_of_kernel_time=attention / total,
-                kernel_ms_per_step_by_name={
-                    k[:80]: v / steps * 1e-3 for k, v in top})
+    matched = sum(v for k, v in by_name.items() if match in k)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {f"device_kernels_per_{unit}": len(kernels) / n,
+            f"device_busy_ms_per_{unit}": busy / n * 1e3,
+            "device_idle_share": 1.0 - busy / (n * step_s),
+            f"{share}_share_of_kernel_time": matched / total,
+            f"kernel_ms_per_{unit}_by_name": {
+                k[:80]: v / n * 1e-3 for k, v in ranked}}
+
+
+def profile_train_steps(t, steps, step_s):
+    """`steps` more train_steps under torch.profiler (after the main path's
+    launch counts are read): device busy time per step (the union of the
+    kernel intervals), the device's idle share against the unprofiled step
+    time `step_s`, the attention kernels' share of kernel time, and device
+    ms per step by kernel name, largest first."""
+    import torch
+
+    batches = [next(t.loader) for _ in range(steps)]
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for batch in batches:
+            t.train_step(batch)
+        torch.cuda.synchronize()
+    return dict(steps=steps, **profile_summary(
+        prof, steps, step_s, "step", "attention", "flash_"))
 
 
 def cosine(a, b):
@@ -1237,7 +1255,6 @@ def profile_kvcache_step(caches, q, k, v, cos, sin, lens, table, descales,
     of kernel time, and device ms by kernel name, largest first."""
     import torch
     from flash_attn_tpu_torch import interface
-    from flash_attn_tpu_torch.serve_profile import busy_seconds
 
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1249,23 +1266,8 @@ def profile_kvcache_step(caches, q, k, v, cos, sin, lens, table, descales,
                 rotary_sin=sin, cache_seqlens=lens, block_table=table,
                 causal=True, **descales[layer])
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device kernels")
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = busy_seconds(kernels)
-    total = sum(by_name.values())
-    ref = sum(v for n, v in by_name.items() if "flash_decode_ref" in n)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(device_kernels_per_step=len(kernels),
-                device_busy_ms_per_step=busy * 1e3,
-                device_idle_share=1.0 - busy / step_s,
-                flash_decode_ref_share_of_kernel_time=ref / total,
-                kernel_ms_per_step_by_name={n[:80]: v * 1e-3
-                                            for n, v in top})
+    return profile_summary(prof, 1, step_s, "step", "flash_decode_ref",
+                           "flash_decode_ref", top=6)
 
 
 def kvcache_step_check(label, o, q, k, v, kc, vc, lens, table, cos, sin,
@@ -1313,6 +1315,537 @@ def kvcache_step_check(label, o, q, k, v, kc, vc, lens, table, cos, sin,
         res["int8_tiled"] = int8_tiled_check(label, q_rot, kc, vc, new_len,
                                              **kw, **descales)
         fd.launches = before
+    return res
+
+
+# The packed varlen path: BERT-base (bert-base-uncased config.json: hidden
+# 768, 12 layers, 12 heads, intermediate 3072, vocab 30522, 512 positions, 2
+# token types) on a batch of BERT_BATCH sequences of seeded lengths 16-512.
+BERT_BATCH = 64
+BERT_SEQ = 512
+BERT_ITERS = 10
+BERT_GRAD_SEQS = 16
+# Unpadded against padded on the card, both bf16 through 12 post-norm
+# layers: the hidden states (entries of order 1) differ by bf16 rounding in
+# two attention kernels that sum in other orders, so their cosine over all
+# valid rows is >= BERT_COSINE and the mean |difference| <= BERT_MEAN_ATOL
+# (about two bf16 steps at 1).  The fp32 CPU comparison takes the repo's
+# rule: the unpadded error <= 2 x the padded error + 1e-2.
+BERT_COSINE = 0.9999
+BERT_MEAN_ATOL = 1e-2
+BERT_POOLED_ATOL = 5e-2
+GRAD_COSINE = 0.999
+DEV = "cuda"
+
+
+def varlen_lengths(gen, n, lo, hi):
+    """n seeded lengths in [lo, hi] (a CPU generator: the same on every
+    device)."""
+    import torch
+
+    return torch.randint(lo, hi + 1, (n,), generator=gen).tolist()
+
+
+def varlen_live_pairs(lens_q, lens_k, causal, window, max_sk):
+    """Live (row, key) pairs of each sequence under the varlen kernels' own
+    mask arithmetic (bottom-right, one-sided windows normalised to
+    max_seqlen_k).  Returns (list of pair counts, list of live-key counts)."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+
+    wl, wr = ff.normalize_window(window, causal, max_sk)
+    has_upper, wr, has_lower, wl = ff.mask_params(causal, wl, wr)
+    pairs, keys = [], []
+    for lq, lk in zip(lens_q, lens_k):
+        rows = torch.arange(lq).view(lq, 1)
+        cols = torch.arange(lk).view(1, lk)
+        live = torch.ones(lq, lk, dtype=torch.bool)
+        if has_upper:
+            live &= cols <= rows + (lk - lq) + wr
+        if has_lower:
+            live &= cols >= rows + (lk - lq) - wl
+        pairs.append(int(live.sum()))
+        keys.append(int(live.any(dim=0).sum()))
+    return pairs, keys
+
+
+def varlen_inputs(lens_q, lens_k, h, hk, d, gen, dtype):
+    import torch
+
+    def stream(lens, heads):
+        return torch.randn(sum(lens), heads, d, generator=gen,
+                           device=DEV).to(dtype)
+
+    def cu(lens):
+        return torch.tensor([0] + list(lens), device=DEV).cumsum(0).int()
+
+    return (stream(lens_q, h), stream(lens_k, hk), stream(lens_k, hk),
+            cu(lens_q), cu(lens_k))
+
+
+def sdpa_varlen_library(q, k, v, cu_q, cu_k, lens_q, lens_k, causal,
+                        backward=False, do=None):
+    """The time of one PyTorch call computing the same packed attention
+    (a yardstick only: the port never calls it), and which call: SDPA on
+    `torch.nested` jagged tensors where this torch runs it on these inputs
+    (equal q and k lengths, no empty sequence), else SDPA on the padded
+    layout with a boolean mask of the live pairs.  With `backward`, the
+    time of `torch.autograd.grad` through that call."""
+    import torch
+    import torch.nn.functional as F
+
+    h, hk = q.shape[1], k.shape[1]
+    gqa = dict(enable_gqa=True) if hk != h else {}
+
+    def njt(x, cu, lens):
+        # the lengths' bounds given, so that building it reads no device
+        # value on the host
+        return torch.nested.nested_tensor_from_jagged(
+            x, cu.long(), min_seqlen=min(lens),
+            max_seqlen=max(lens)).transpose(1, 2)
+
+    def run_njt(q_, k_, v_):
+        return F.scaled_dot_product_attention(
+            njt(q_, cu_q, lens_q), njt(k_, cu_k, lens_k),
+            njt(v_, cu_k, lens_k), is_causal=causal, **gqa)
+
+    which, fn = None, None
+    if list(lens_q) == list(lens_k) and min(lens_q) > 0:
+        try:  # chooses the yardstick only; no check depends on it
+            ins = [x.detach().requires_grad_(backward) for x in (q, k, v)]
+            out = run_njt(*ins)
+            if backward:
+                torch.autograd.grad(out, ins, torch.ones_like(out))
+            torch.cuda.synchronize()
+            which, fn = "sdpa_nested_jagged", run_njt
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            which = f"nested jagged SDPA refused ({type(e).__name__})"
+    if fn is None:
+        b, mq, mk = len(lens_q), max(lens_q), max(lens_k)
+        lq = torch.tensor(lens_q, device=q.device)
+        lk = torch.tensor(lens_k, device=q.device)
+        rows = torch.arange(mq, device=q.device).view(1, mq, 1)
+        cols = torch.arange(mk, device=q.device).view(1, 1, mk)
+        live = (rows < lq.view(b, 1, 1)) & (cols < lk.view(b, 1, 1))
+        if causal:
+            live &= cols <= rows + (lk - lq).view(b, 1, 1)
+        mask = live[:, None]
+        idx_q = (cu_q[:-1, None].long() + torch.arange(mq, device=q.device)
+                 ).clamp(max=q.shape[0] - 1)
+        idx_k = (cu_k[:-1, None].long() + torch.arange(mk, device=q.device)
+                 ).clamp(max=k.shape[0] - 1)
+
+        def run_padded(q_, k_, v_):
+            return F.scaled_dot_product_attention(
+                q_[idx_q].transpose(1, 2), k_[idx_k].transpose(1, 2),
+                v_[idx_k].transpose(1, 2), attn_mask=mask, **gqa)
+
+        which = (which + "; " if which else "") + "sdpa_padded_bool_mask"
+        fn = run_padded
+    if backward:
+        graphs = []
+        for qc, kc, vc in input_copies(q, k, v):
+            qc, kc, vc = (t.detach().requires_grad_() for t in (qc, kc, vc))
+            out = fn(qc, kc, vc)
+            graphs.append((out, (qc, kc, vc), torch.ones_like(out)))
+        fn, args = (lambda out, ins, g: torch.autograd.grad(
+            out, ins, g, retain_graph=True)), graphs
+    else:
+        args = input_copies(q, k, v)
+    try:
+        return time_ms(fn, args), which
+    except RuntimeError as e:  # a call that reads a device value on the host
+        if "could not queue" not in str(e):
+            raise
+        return call_ms(fn, args), which + " (call_ms: it syncs the host)"
+
+
+def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
+                    causal=False, window=(-1, -1), softcap=0.0, alibi=False,
+                    with_library=True):
+    """The packed varlen forward (`varlen_attn_fwd`, flash_fwd.cu's varlen
+    mode) against its plain version: the fp32 oracle and the plain version
+    in the inputs' precision under the 2x rule, on every token (rows with
+    no key: o = 0, lse = +inf as the oracle).  Kernel, plain version and
+    library timed beside the bound."""
+    import torch
+    from flash_attn_tpu_torch.kernels import varlen as vl
+
+    dt = getattr(torch, dtype)
+    q, k, v, cu_q, cu_k = varlen_inputs(lens_q, lens_k, h, hk, d, gen, dt)
+    mq, mk = max(lens_q), max(lens_k)
+    slopes = (torch.rand(h, generator=gen, device=DEV) * 0.3
+              if alibi else None)
+    kw = dict(softmax_scale=d ** -0.5, causal=causal, window_size=window,
+              softcap=softcap, alibi_slopes=slopes)
+    args = (cu_q, cu_k, mq, mk)
+    o, lse = vl.varlen_attn_fwd(q, k, v, *args, **kw)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = vl.varlen_attn_fwd_ref(q.float(), k.float(), v.float(),
+                                            *args, **kw)
+    o_pt, lse_pt = vl.varlen_attn_fwd_ref(q, k, v, *args, **kw)
+    rows_ok = torch.ones(h, q.shape[0], dtype=torch.bool, device=DEV)
+    err_o, err_o_pt, err_l, err_l_pt = check_attention(
+        label, o.transpose(0, 1), lse, o_ref.transpose(0, 1), lse_ref,
+        o_pt.transpose(0, 1), lse_pt, rows_ok)
+    if not torch.isfinite(o).all():
+        raise AssertionError(f"{label}: non-finite output")
+    del o_ref, lse_ref, o_pt, lse_pt
+
+    pairs, keys = varlen_live_pairs(lens_q, lens_k, causal, window, mk)
+    live_pairs_h = sum(pairs) * h
+    elt = q.element_size()
+    bytes_ = (2 * q.numel() + k.numel() + v.numel()) * elt  # q, k, v, o
+    bound_ms, bound_by = bound(4 * d * live_pairs_h, bytes_)
+    copies = input_copies(q, k, v)
+    fn = lambda *a: vl.varlen_attn_fwd(*a, *args, **kw)  # noqa: E731
+    before = vl.launches_fwd
+    kernel_ms = time_ms(fn, copies)
+    kernel_call_ms = call_ms(fn, copies)
+    # the plain version reads the lengths on the host (one sync a call)
+    plain_ms = call_ms(lambda *a: vl.varlen_attn_fwd_ref(*a, *args, **kw),
+                       copies, iters=3, warmup=1)
+    vl.launches_fwd = before  # timing launches are not the main path's
+    library_ms, library = None, None
+    if with_library and softcap == 0.0 and not alibi and \
+            window == (-1, -1):
+        library_ms, library = sdpa_varlen_library(q, k, v, cu_q, cu_k,
+                                                  lens_q, lens_k, causal)
+    tiles = sum(-(-n // 64) for n in lens_q) * h
+    res = dict(phase="kernel_varlen", case=label, dtype=dtype, h=h, hk=hk,
+               d=d, sequences=len(lens_q), total_q=sum(lens_q),
+               total_k=sum(lens_k), max_seqlen_q=mq, max_seqlen_k=mk,
+               causal=causal, window=list(window), softcap=softcap,
+               alibi=alibi, max_abs_err_o=err_o, plain_lowp_err_o=err_o_pt,
+               max_abs_err_lse=err_l, plain_lowp_err_lse=err_l_pt,
+               kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, library=library,
+               flops=4 * d * live_pairs_h, bytes=bytes_,
+               share_of_bound=bound_ms / kernel_ms,
+               blocks_live=tiles, blocks_launched=-(-mq // 64) * h
+               * len(lens_q))
+    emit(res)
+    return res
+
+
+def varlen_bwd_case(label, lens_q, lens_k, h, hk, d, gen, causal=False,
+                    window=(-1, -1), softcap=0.0, alibi=False,
+                    with_library=True):
+    """The packed varlen backward (`varlen_attn_bwd`, flash_bwd.cu's varlen
+    mode) against the plain backward (fp32 oracle, bf16 yardstick) on dq,
+    dk and dv; two runs bitwise equal; keys no query sees get 0.  Whole
+    backward, each kernel (profiler), plain version and library timed."""
+    import torch
+    from flash_attn_tpu_torch.kernels import varlen as vl
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    q, k, v, cu_q, cu_k = varlen_inputs(lens_q, lens_k, h, hk, d, gen,
+                                        torch.bfloat16)
+    mq, mk = max(lens_q), max(lens_k)
+    slopes = (torch.rand(h, generator=gen, device=DEV) * 0.3
+              if alibi else None)
+    kw = dict(softmax_scale=d ** -0.5, causal=causal, window_size=window,
+              softcap=softcap, alibi_slopes=slopes)
+    args = (cu_q, cu_k, mq, mk)
+    before = vl.launches_fwd, vl.launches_dq, vl.launches_dkv
+    o, lse = vl.varlen_attn_fwd(q, k, v, *args, **kw)
+    do = torch.randn(q.shape, generator=gen, device=DEV).bfloat16()
+    dq, dk, dv = vl.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+    torch.cuda.synchronize()
+    ref = vl.varlen_attn_bwd_ref(do.float(), q.float(), k.float(), v.float(),
+                                 o.float(), lse, *args, **kw)
+    pt = vl.varlen_attn_bwd_ref(do, q, k, v, o, lse, *args, **kw)
+    errs = {}
+    for name, x, r, y in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, pt):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+        errs[name] = check_close(x, r, y, label=f"{label} {name}")
+    del ref, pt
+    again = vl.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+    bitwise_repeat = all(torch.equal(x, y) for x, y in zip((dq, dk, dv),
+                                                           again))
+    if not bitwise_repeat:
+        raise AssertionError(f"{label}: two runs differ")
+    pairs, _ = varlen_live_pairs(lens_q, lens_k, causal, window, mk)
+    starts = cu_k.tolist()
+    for i, (lq, n) in enumerate(zip(lens_q, lens_k)):
+        if lq == 0 and (dk[starts[i]:starts[i] + n].any()
+                        or dv[starts[i]:starts[i] + n].any()):
+            raise AssertionError(f"{label}: dk/dv of keys no query sees")
+
+    live = sum(pairs) * h
+    elt = 2
+    q_side = q.numel() * elt   # q, o, do, dq each
+    kv_side = k.numel() * elt  # k, v, dk, dv each
+    stats = 2 * h * q.shape[0] * 4  # lse, delta
+    bound_ms, bound_by = bound(10 * d * live, 4 * q_side + 4 * kv_side
+                               + stats)
+    dq_bound = bound(6 * d * live, 3 * q_side + 2 * kv_side + stats)
+    dkv_bound = bound(8 * d * live, 2 * q_side + 4 * kv_side + stats)
+    copies = input_copies(do, q, k, v, o, lse)
+    fn = lambda *a: vl.varlen_attn_bwd(*a, *args, **kw)  # noqa: E731
+    kernel_ms = time_ms(fn, copies)
+    dev_ms = kernel_device_ms(fn, copies, ("flash_bwd_dq_kernel",
+                                           "flash_bwd_dkv_kernel"))
+    plain_ms = call_ms(lambda *a: vl.varlen_attn_bwd_ref(*a, *args, **kw),
+                       copies, iters=3, warmup=1)
+    vl.launches_fwd, vl.launches_dq, vl.launches_dkv = before
+    library_ms, library = None, None
+    if with_library and softcap == 0.0 and not alibi and \
+            window == (-1, -1):
+        library_ms, library = sdpa_varlen_library(
+            q, k, v, cu_q, cu_k, lens_q, lens_k, causal, backward=True)
+    res = dict(phase="kernel_varlen_bwd", case=label, h=h, hk=hk, d=d,
+               sequences=len(lens_q), total_q=sum(lens_q),
+               total_k=sum(lens_k), causal=causal, window=list(window),
+               softcap=softcap, alibi=alibi,
+               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
+               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
+               bitwise_repeat=bitwise_repeat, kernel_ms=kernel_ms,
+               dq_kernel_ms=dev_ms["flash_bwd_dq_kernel"],
+               dkv_kernel_ms=dev_ms["flash_bwd_dkv_kernel"],
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+               dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+               library_ms=library_ms, library=library, flops=10 * d * live,
+               share_of_bound=bound_ms / kernel_ms)
+    emit(res)
+    return res
+
+
+def kernel_varlen_phases():
+    """Cases (a)-(e) of the packed varlen forward and (a), (b), (d) and an
+    empty-k-sequence case of the backward."""
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    lens = torch.Generator().manual_seed(4)
+    bert_lens = bert_batch_lengths()
+    docs = varlen_lengths(lens, 8, 128, 4096)
+    cross_q = varlen_lengths(lens, 16, 1, 1024)
+    cross_k = varlen_lengths(lens, 16, 1, 2048)
+    cross_q[3], cross_k[7] = 0, 0  # an empty q and an empty k sequence
+    win = varlen_lengths(lens, 16, 64, 2048)
+    half = varlen_lengths(lens, 32, 16, 1024)
+    fwd, bwd = {}, {}
+    fwd["a"] = varlen_fwd_case("a: BERT-base shape", bert_lens, bert_lens,
+                               12, 12, 64, gen)
+    fwd["b"] = varlen_fwd_case("b: packed causal GQA", docs, docs, 32, 8,
+                               128, gen, causal=True)
+    fwd["c"] = varlen_fwd_case("c: cross lengths, empty q and k sequences",
+                               cross_q, cross_k, 16, 4, 128, gen,
+                               causal=True)
+    fwd["d"] = varlen_fwd_case("d: window (256, 0) + softcap 30 + ALiBi",
+                               win, win, 12, 12, 64, gen, window=(256, 0),
+                               softcap=30.0, alibi=True)
+    fwd["e"] = varlen_fwd_case("e: fp16 causal", half, half, 16, 16, 128,
+                               gen, dtype="float16", causal=True)
+    bwd["a"] = varlen_bwd_case("a: BERT-base shape", bert_lens, bert_lens,
+                               12, 12, 64, gen)
+    bwd["b"] = varlen_bwd_case("b: packed causal GQA", docs, docs, 32, 8,
+                               128, gen, causal=True)
+    bwd["d"] = varlen_bwd_case("d: window (256, 0) + softcap 30 + ALiBi",
+                               win, win, 12, 12, 64, gen, window=(256, 0),
+                               softcap=30.0, alibi=True)
+    bwd["c"] = varlen_bwd_case("c: cross lengths, empty q and k sequences",
+                               cross_q, cross_k, 16, 4, 128, gen,
+                               causal=True)
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def bert_batch_lengths():
+    """The BERT batch's seeded lengths (16-512), shared by the model phase
+    and kernel case (a)."""
+    import torch
+
+    return varlen_lengths(torch.Generator().manual_seed(0), BERT_BATCH, 16,
+                          BERT_SEQ)
+
+
+def bert_batch(dev, vocab):
+    """input_ids, token_type_ids (segment A then B at a seeded split) and
+    the attention mask of BERT_BATCH sequences padded to BERT_SEQ."""
+    import torch
+
+    gen = torch.Generator().manual_seed(1)
+    lens = torch.tensor(bert_batch_lengths())
+    ids = torch.randint(0, vocab, (BERT_BATCH, BERT_SEQ), generator=gen)
+    pos = torch.arange(BERT_SEQ)[None, :]
+    mask = pos < lens[:, None]
+    split = (torch.rand(BERT_BATCH, generator=gen) * lens).long()
+    types = ((pos >= split[:, None]) & mask).long()
+    return ids.to(dev), types.to(dev), mask.to(dev)
+
+
+def bert_counts():
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.kernels import varlen as vl
+
+    return dict(varlen_fwd=vl.launches_fwd, varlen_dq=vl.launches_dq,
+                varlen_dkv=vl.launches_dkv, flash_fwd=ff.launches,
+                flash_bwd_dq=fb.launches_dq, flash_bwd_dkv=fb.launches_dkv)
+
+
+def reset_bert_counts():
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.kernels import varlen as vl
+
+    vl.launches_fwd = vl.launches_dq = vl.launches_dkv = 0
+    ff.launches = fb.launches_dq = fb.launches_dkv = 0
+
+
+def bert_grads(model, ids, types, mask, proj, unpad):
+    """Parameter gradients of sum(hidden * proj) on the valid rows, as one
+    float32 vector on the CPU (in named_parameters order)."""
+    import torch
+
+    h, _ = model(ids, mask, types, unpad_varlen=unpad)
+    loss = (h.float() * proj * mask[..., None]).sum()
+    params = [p for n, p in model.named_parameters()
+              if not n.startswith("pooler")]
+    grads = torch.autograd.grad(loss, params)
+    return torch.cat([g.float().flatten().cpu() for g in grads])
+
+
+def profile_bert_forwards(model, ids, mask, types, n, step_s):
+    """`n` more unpadded forwards under `torch.profiler` (after the path's
+    counts are read): device busy time per forward (the union of the
+    kernel intervals), the device's idle share against the unprofiled
+    forward time `step_s`, the varlen kernel's share of kernel time, and
+    device ms per forward by kernel name, largest first."""
+    import torch
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            model(ids, mask, types, unpad_varlen=True)
+        torch.cuda.synchronize()
+    return dict(forwards=n, **profile_summary(
+        prof, n, step_s, "forward", "attention", "flash_fwd"))
+
+
+def bert_phase():
+    """BertModel at BERT-base's full width and depth, bf16 weights from seed
+    0, unpad_varlen=True: BERT_ITERS timed forwards of one batch (exactly 12
+    varlen forward launches and no dense launch each), against the padded
+    path (12 dense launches with seqused) and fp32 on the CPU; then one
+    gradient on BERT_GRAD_SEQS sequences (12 + 12 + 12 varlen launches)
+    against the padded path's and fp32 on the CPU."""
+    import torch
+    from flash_attn_tpu_torch.models.bert import BertConfig, BertModel
+
+    cfg = BertConfig()  # bert-base-uncased
+    L = cfg.num_hidden_layers
+    model = BertModel(cfg, device=DEV, dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+    ids, types, mask = bert_batch(DEV, cfg.vocab_size)
+    tokens = int(mask.sum())
+    with torch.no_grad():
+        for _ in range(2):
+            model(ids, mask, types, unpad_varlen=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_bert_counts()
+        t0 = time.perf_counter()
+        for _ in range(BERT_ITERS):
+            h, pooled = model(ids, mask, types, unpad_varlen=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = bert_counts()
+        peak = torch.cuda.max_memory_allocated()
+        profile = profile_bert_forwards(model, ids, mask, types, 3,
+                                        wall / BERT_ITERS)
+        reset_bert_counts()
+        t0 = time.perf_counter()
+        h_pad, pooled_pad = model(ids, mask, types)
+        torch.cuda.synchronize()
+        padded_ms = (time.perf_counter() - t0) * 1e3
+        pad_counts = bert_counts()
+    want = dict(varlen_fwd=L * BERT_ITERS, varlen_dq=0, varlen_dkv=0,
+                flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+    if counts != want:
+        raise AssertionError(f"bert: launches {counts}, expected {want}")
+    if pad_counts != dict(want, varlen_fwd=0, flash_fwd=L):
+        raise AssertionError(f"bert padded: launches {pad_counts}")
+    if not torch.isfinite(h).all() or not torch.isfinite(pooled).all():
+        raise AssertionError("bert: non-finite output")
+    if h[~mask].any():
+        raise AssertionError("bert: padded rows of the unpadded output "
+                             "are not 0")
+    a, b = h[mask].double(), h_pad[mask].double()
+    vs_padded = dict(
+        cosine=float(a.flatten() @ b.flatten() / (a.norm() * b.norm())),
+        mean_abs_diff=float((a - b).abs().mean()),
+        max_abs_diff=float((a - b).abs().max()),
+        pooled_max_abs_diff=float((pooled - pooled_pad).abs().max()))
+
+    # fp32 on the CPU, first 4 sequences (the plain path)
+    ref = BertModel(cfg, device="cpu").eval()
+    ref.load_state_dict({k: v.float().cpu()
+                         for k, v in model.state_dict().items()})
+    n = 4
+    sel = mask[:n].cpu()
+    with torch.no_grad():
+        h_ref, _ = ref(ids[:n].cpu(), sel, types[:n].cpu(),
+                       unpad_varlen=True)
+    err_unp = float((h[:n].cpu()[sel].float() - h_ref[sel]).abs().max())
+    err_pad = float((h_pad[:n].cpu()[sel].float() - h_ref[sel]).abs().max())
+
+    # one gradient, on BERT_GRAD_SEQS sequences
+    g = BERT_GRAD_SEQS
+    proj = torch.randn(g, BERT_SEQ, cfg.hidden_size,
+                       generator=torch.Generator().manual_seed(2))
+    gi, gt, gm = ids[:g], types[:g], mask[:g]
+    reset_bert_counts()
+    g_unp = bert_grads(model, gi, gt, gm, proj.to(DEV), True)
+    torch.cuda.synchronize()
+    grad_counts = bert_counts()
+    g_pad = bert_grads(model, gi, gt, gm, proj.to(DEV), False)
+    g_cpu = bert_grads(ref, gi.cpu(), gt.cpu(), gm.cpu(), proj, True)
+    del ref
+    want_g = dict(varlen_fwd=L, varlen_dq=L, varlen_dkv=L, flash_fwd=0,
+                  flash_bwd_dq=0, flash_bwd_dkv=0)
+    res = dict(phase="bert",
+               model="BERT-base (bert-base-uncased widths, 12 layers, "
+               "random weights, seed 0)", dtype="bfloat16",
+               sequences=BERT_BATCH, padded_to=BERT_SEQ, tokens=tokens,
+               lengths_min=int(mask.sum(1).min()),
+               lengths_max=int(mask.sum(1).max()), forwards=BERT_ITERS,
+               wall_s=wall, forward_ms=wall / BERT_ITERS * 1e3,
+               sequences_per_s=BERT_BATCH * BERT_ITERS / wall,
+               tokens_per_s=tokens * BERT_ITERS / wall,
+               padded_forward_ms=padded_ms, max_memory_allocated=peak,
+               profile=profile,
+               launches=counts, padded_launches=pad_counts,
+               vs_padded=vs_padded, cpu_fp32_max_abs_err_unpadded=err_unp,
+               cpu_fp32_max_abs_err_padded=err_pad,
+               grad_sequences=g, grad_launches=grad_counts,
+               grad_cosine_vs_padded=cosine(g_unp, g_pad),
+               grad_cosine_vs_cpu_fp32=cosine(g_unp, g_cpu),
+               grad_cosine_padded_vs_cpu_fp32=cosine(g_pad, g_cpu))
+    emit(res)
+    if not (vs_padded["cosine"] >= BERT_COSINE
+            and vs_padded["mean_abs_diff"] <= BERT_MEAN_ATOL
+            and vs_padded["pooled_max_abs_diff"] <= BERT_POOLED_ATOL):
+        raise AssertionError(f"bert: unpadded and padded disagree "
+                             f"{vs_padded}")
+    if not err_unp <= 2 * err_pad + 1e-2:
+        raise AssertionError(f"bert: fp32 CPU error {err_unp} > 2 x padded "
+                             f"{err_pad} + 1e-2")
+    if grad_counts != want_g:
+        raise AssertionError(f"bert grad: launches {grad_counts}, expected "
+                             f"{want_g}")
+    if not (res["grad_cosine_vs_padded"] >= GRAD_COSINE
+            and res["grad_cosine_vs_cpu_fp32"] >= GRAD_COSINE):
+        raise AssertionError("bert: gradients disagree")
+    del model, h, h_pad
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1377,6 +1910,7 @@ def main():
                         64, [1024, 700, 1024], [1024, 500, 0], gen)
 
     kvc = kernel_kvcache_phase(gen)
+    vfwd, vbwd = kernel_varlen_phases()
 
     serve = serve_phase()
     train = train_phase()
@@ -1385,6 +1919,7 @@ def main():
     kv_launches = sum(r["flash_decode_ref_launches"] for r in kvpath.values())
     kv_by_run = {run: r["flash_decode_ref_launches"]
                  for run, r in kvpath.items()}
+    bert = bert_phase()
 
     a = bwd["a"]
     kernels = [
@@ -1440,6 +1975,50 @@ def main():
                               bound_ms=r["bound_ms"],
                               max_abs_err=r["max_abs_err_o"])
                       for k, r in kvc.items()}),
+        dict(name="flash_fwd_varlen", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
+             kernel="flash_fwd_kernel in its varlen mode (flash_fwd_varlen)",
+             replaces="flash_attn_tpu/kernels/varlen_sched.py:211",
+             launches=bert["launches"]["varlen_fwd"]
+             + bert["grad_launches"]["varlen_fwd"],
+             launches_by_path=dict(
+                 bert_forward=bert["launches"]["varlen_fwd"],
+                 bert_grad=bert["grad_launches"]["varlen_fwd"]),
+             case=vfwd["a"]["case"], max_abs_err=vfwd["a"]["max_abs_err_o"],
+             ms=vfwd["a"]["kernel_ms"], plain_ms=vfwd["a"]["plain_ms"],
+             bound_ms=vfwd["a"]["bound_ms"], bound_by=vfwd["a"]["bound_by"],
+             library_ms=vfwd["a"]["library_ms"],
+             library=vfwd["a"]["library"],
+             by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["bound_ms"],
+                              library_ms=r["library_ms"],
+                              max_abs_err=r["max_abs_err_o"])
+                      for k, r in vfwd.items()}),
+        dict(name="flash_bwd_varlen", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
+             kernel="flash_bwd_dkv_kernel then flash_bwd_dq_kernel in their "
+             "varlen mode (flash_bwd_varlen)",
+             replaces="flash_attn_tpu/kernels/varlen_sched.py:643",
+             launches=bert["grad_launches"]["varlen_dq"],
+             launches_dkv=bert["grad_launches"]["varlen_dkv"],
+             launches_by_path=dict(bert_grad=bert["grad_launches"][
+                 "varlen_dq"]),
+             case=vbwd["a"]["case"],
+             max_abs_err=max(vbwd["a"][f"max_abs_err_{n}"]
+                             for n in ("dq", "dk", "dv")),
+             ms=vbwd["a"]["kernel_ms"], dq_ms=vbwd["a"]["dq_kernel_ms"],
+             dkv_ms=vbwd["a"]["dkv_kernel_ms"],
+             plain_ms=vbwd["a"]["plain_ms"], bound_ms=vbwd["a"]["bound_ms"],
+             bound_by=vbwd["a"]["bound_by"],
+             dq_bound_ms=vbwd["a"]["dq_bound_ms"],
+             dkv_bound_ms=vbwd["a"]["dkv_bound_ms"],
+             library_ms=vbwd["a"]["library_ms"],
+             library=vbwd["a"]["library"],
+             by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["bound_ms"],
+                              library_ms=r["library_ms"],
+                              bitwise_repeat=r["bitwise_repeat"])
+                      for k, r in vbwd.items()}),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -5,7 +5,11 @@ Ported so far: the GPT-2 serving path (`serving.ServingEngine` ->
 `csrc/flash_decode_ref.cu`), the GPT-2 training step
 (`training.trainer.Trainer` -> `interface.flash_attn_func` ->
 `csrc/flash_bwd.cu`), and the paged KV-cache API (`flash_attn_with_kvcache`,
-`flash_attn_varlen_func` with `block_table=` -> `csrc/flash_decode_ref.cu`).
+`flash_attn_varlen_func` with `block_table=` -> `csrc/flash_decode_ref.cu`),
+and packed varlen attention with the BERT encoder
+(`models.bert.BertModel(unpad_varlen=True)` -> `flash_attn_varlen_func` ->
+`kernels.varlen` -> the varlen modes of `csrc/flash_fwd.cu` and
+`csrc/flash_bwd.cu`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU present `device=None` raises `RuntimeError`.  On CPU tensors each kernel
@@ -15,10 +19,14 @@ kernel or raises.
 
 from flash_attn_tpu_torch.env import default_device
 from flash_attn_tpu_torch.interface import (
-    flash_attn_combine, flash_attn_func, flash_attn_varlen_func,
+    flash_attn_combine, flash_attn_func, flash_attn_kvpacked_func,
+    flash_attn_qkvpacked_func, flash_attn_varlen_func,
+    flash_attn_varlen_kvpacked_func, flash_attn_varlen_qkvpacked_func,
     flash_attn_with_kvcache, fuse_kv_cache, get_scheduler_metadata,
     split_kv_cache)
 
 __all__ = ["default_device", "flash_attn_combine", "flash_attn_func",
-           "flash_attn_varlen_func", "flash_attn_with_kvcache",
+           "flash_attn_kvpacked_func", "flash_attn_qkvpacked_func",
+           "flash_attn_varlen_func", "flash_attn_varlen_kvpacked_func",
+           "flash_attn_varlen_qkvpacked_func", "flash_attn_with_kvcache",
            "fuse_kv_cache", "get_scheduler_metadata", "split_kv_cache"]

@@ -1,6 +1,7 @@
 // Helpers shared by the flash-attention forward and backward kernels
 // (flash_fwd.cu, flash_bwd.cu): the mma.sync.m16n8k16 wrappers, fragment
-// loads, quad reductions, tile copies, and the score transform.
+// loads, quad reductions, tile copies, the dense and packed varlen layouts
+// (SeqLayout), and the score transform.
 //
 // ScoreMod is the one place where a raw Q K^T score becomes the exponent of
 // the softmax.  The backward recomputes p = exp2(score - lse * log2(e)) with
@@ -110,24 +111,88 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Copy kRows rows of D elements (row stride D in global) into shared rows of
-// stride D + 8, 16 bytes per thread per step; rows at or past `valid` are
-// zero-filled so stale or uninitialised memory never reaches the math.
+// Copy kRows rows of D elements (row stride `src_stride` elements in global)
+// into shared rows of stride D + 8, 16 bytes per thread per step; rows at or
+// past `valid` are zero-filled and never read, so stale memory, another
+// sequence's rows or the end of the tensor never reach the math.
 template <typename T, int D, int kRows, int kThreads>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int valid) {
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int valid,
+                                          int src_stride) {
   constexpr int kStride = D + 8;
   constexpr int kChunks = D / 8;
   for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = (idx % kChunks) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+    if (r < valid)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)r * src_stride + c);
     *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
   }
 }
 
+// Where the rows of one batch entry live, in one of two layouts:
+// * dense: (b, h, s, d) tensors; lens_q/k are the per-batch seqused_q/k;
+// * varlen: packed (total, h, d) streams; lens_q/k are cu_seqlens_q/k
+//   (b + 1,), sequence bb owning the rows
+//   [cu_q[bb], cu_q[bb+1]) of q, o, do, dq and [cu_k[bb], cu_k[bb+1]) of k,
+//   v, dk, dv.  Its lengths are those of the sequence, and tiles never cross
+//   into the next one.
+// Offsets and strides are in elements; lse and delta are (b, h, sq) dense
+// and (h, total_q) varlen.
+struct SeqLayout {
+  int sq_b, sk_b;          // query rows and keys that take part (the masks)
+  int q_rows, k_rows;      // rows present in memory: loads and stores stop
+  size_t q0, k0, l0;       // row 0 of head 0: q-like, kv-like, lse-like
+  size_t q_hs, k_hs, l_hs; // head strides
+  int q_rs, k_rs;          // row strides
+
+  __device__ __forceinline__ size_t q_head(int hq) const { return q0 + hq * q_hs; }
+  __device__ __forceinline__ size_t k_head(int hk) const { return k0 + hk * k_hs; }
+  __device__ __forceinline__ size_t l_head(int hq) const { return l0 + hq * l_hs; }
+};
+
+// sq, sk: the tensors' lengths (dense) or the calls' max lengths (varlen,
+// where they only size the grid).  The layout is a template argument, so
+// the dense kernels see their strides (d) as compile-time constants.
+template <bool kVarlen>
+__device__ __forceinline__ SeqLayout seq_layout(
+    const int* lens_q, const int* lens_k, int bb, int h, int hk, int sq,
+    int sk, int total_q, int d) {
+  SeqLayout L;
+  if constexpr (kVarlen) {
+    const int q_start = lens_q[bb], k_start = lens_k[bb];
+    L.sq_b = L.q_rows = lens_q[bb + 1] - q_start;
+    L.sk_b = L.k_rows = lens_k[bb + 1] - k_start;
+    L.q0 = (size_t)q_start * h * d;
+    L.k0 = (size_t)k_start * hk * d;
+    L.l0 = q_start;
+    L.q_hs = d;
+    L.k_hs = d;
+    L.l_hs = total_q;
+    L.q_rs = h * d;
+    L.k_rs = hk * d;
+  } else {
+    L.sq_b = lens_q[bb];
+    L.sk_b = min(lens_k[bb], sk);
+    L.q_rows = sq;
+    L.k_rows = sk;
+    L.q0 = (size_t)bb * h * sq * d;
+    L.k0 = (size_t)bb * hk * sk * d;
+    L.l0 = (size_t)bb * h * sq;
+    L.q_hs = (size_t)sq * d;
+    L.k_hs = (size_t)sk * d;
+    L.l_hs = sq;
+    L.q_rs = d;
+    L.k_rs = d;
+  }
+  return L;
+}
+
 // Scale, softcap, ALiBi and the bottom-right aligned masks of one
-// (batch, head): offset = seqused_k - seqused_q.
+// (batch, head): offset = sk_b - sq_b (seqused_k - seqused_q dense, len_k -
+// len_q of the sequence varlen).  |row + offset - col| is the distance of
+// the two tokens counted from their sequences' ends, the ALiBi distance of
+// the JAX packed kernel (|from_end_q - from_end_k|).
 struct ScoreMod {
   float scale, softcap, slope;
   bool alibi;

@@ -4,7 +4,10 @@
 // _bwd_dq_kernel (:121, launched at :1185) and _bwd_dkv_kernel (:232, launched
 // at :1230), and serves the calls the JAX package sends to the fused kernels
 // _bwd_fused_kernel (:507) and _bwd_fused_sched_kernel (:851): all four compute
-// (dq, dk, dv) from (do, q, k, v, lse, delta).
+// (dq, dk, dv) from (do, q, k, v, lse, delta).  Its varlen mode
+// (flash_bwd_varlen) replaces the packed varlen backward
+// flash_attn_tpu/kernels/varlen_sched.py::_varlen_bwd_kernel (:643, launched
+// at :874).
 //
 // Why two kernels and not one fused pass: the TPU's fused kernels keep a whole
 // head's dQ in VMEM across a grid that runs in order on one core.  On Hopper
@@ -44,6 +47,18 @@
 // and rows at or past seqused_q are masked out (the callers pass do = 0
 // there).  dS carries the softcap derivative 1 - tanh^2 and the softmax scale
 // is applied once to dQ and dK at the end.
+//
+// Varlen mode: the packed (total, h, d) streams are read and written in
+// place, as in flash_fwd.cu's varlen mode (fa_common.cuh's SeqLayout), with
+// lse and delta (h, total_q).  The dkv grid is (cdiv(max_seqlen_k, 64), hk,
+// b) and the dq grid (cdiv(max_seqlen_q, 64), h, b); blocks past their
+// sequence's length exit at once.  The TPU kernel is dK/dV-stationary over
+// a device-built tile table and sums dQ for the whole stream in VMEM
+// scratch, falling back to the padded dense backward when that scratch
+// outgrows VMEM (varlen_sched.py:983-1037); that limit is the TPU's memory,
+// not part of the function, and the two kernels here cover every size.
+// Keys that no query sees get dk = dv = 0; tokens outside every sequence are
+// not written.
 
 #include "fa_common.cuh"
 
@@ -67,13 +82,15 @@ struct BwdParams {
   void* dq;
   void* dk;
   void* dv;
-  const int* seqused_q;
-  const int* seqused_k;
+  // dense: seqused_q/k (b,); varlen: cu_seqlens_q/k (b + 1,)
+  const int* lens_q;
+  const int* lens_k;
   const float* alibi;  // (b, h) or null
-  int b, h, hk, g, sq, sk;
+  int b, h, hk, g, sq, sk;  // varlen: sq, sk are the max lengths
   float scale;
   int has_upper, wr, has_lower, wl;
   float softcap;
+  int total_q;  // varlen: the head stride of lse and delta
 };
 
 __device__ __forceinline__ ScoreMod score_mod(const BwdParams& p, int bb,
@@ -101,7 +118,7 @@ __device__ __forceinline__ void p_and_ds(const ScoreMod& sm, float s, float dp,
   *ds = d;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kVarlen>
 __global__ void __launch_bounds__(kDqThreads)
     flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int kStride = D + 8;
@@ -117,17 +134,21 @@ __global__ void __launch_bounds__(kDqThreads)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int hkv = hq / p.g;
-  const int sq_b = p.seqused_q[bb];
-  const int sk_b = min(p.seqused_k[bb], p.sk);
-  const int offset = sk_b - sq_b;
+  const SeqLayout L = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h, p.hk,
+                                          p.sq, p.sk, p.total_q, D);
   const int row0 = qblk * kBlockM;
+  if constexpr (kVarlen) {
+    if (row0 >= L.q_rows) return;  // past this sequence's rows
+  }
+  const int sq_b = L.sq_b, sk_b = L.sk_b;
+  const int offset = sk_b - sq_b;
   const ScoreMod sm = score_mod(p, bb, hq, offset, sk_b);
 
-  const size_t qoff = (size_t)(bb * p.h + hq) * p.sq;
-  const T* q = static_cast<const T*>(p.q) + qoff * D;
-  const T* dout = static_cast<const T*>(p.dout) + qoff * D;
-  const T* k = static_cast<const T*>(p.k) + ((size_t)(bb * p.hk + hkv) * p.sk) * D;
-  const T* v = static_cast<const T*>(p.v) + ((size_t)(bb * p.hk + hkv) * p.sk) * D;
+  const size_t qoff = L.q_head(hq), loff = L.l_head(hq);
+  const T* q = static_cast<const T*>(p.q) + qoff;
+  const T* dout = static_cast<const T*>(p.dout) + qoff;
+  const T* k = static_cast<const T*>(p.k) + L.k_head(hkv);
+  const T* v = static_cast<const T*>(p.v) + L.k_head(hkv);
 
   // Key tiles that any valid row (< seqused_q) of this q tile can see.
   const int row_max = min(row0 + kBlockM, sq_b) - 1;
@@ -137,17 +158,19 @@ __global__ void __launch_bounds__(kDqThreads)
   const int n_min = min_col / kBlockN;
   const int n_max = max_col >= 0 ? max_col / kBlockN : -1;
 
-  load_rows<T, D, kBlockM, kDqThreads>(sQ, q + (size_t)row0 * D, p.sq - row0);
-  load_rows<T, D, kBlockM, kDqThreads>(sdO, dout + (size_t)row0 * D, p.sq - row0);
+  load_rows<T, D, kBlockM, kDqThreads>(sQ, q + (size_t)row0 * L.q_rs,
+                                       L.q_rows - row0, L.q_rs);
+  load_rows<T, D, kBlockM, kDqThreads>(sdO, dout + (size_t)row0 * L.q_rs,
+                                       L.q_rows - row0, L.q_rs);
 
   const int r_lo = warp * 16 + gid;  // this thread's two rows in the tile
   const int rows[2] = {row0 + r_lo, row0 + r_lo + 8};
   float lse2[2], dlt[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const bool in = rows[i] < p.sq;
-    lse2[i] = in ? p.lse[qoff + rows[i]] * kLog2e : INFINITY;
-    dlt[i] = in ? p.delta[qoff + rows[i]] : 0.f;
+    const bool in = rows[i] < L.q_rows;
+    lse2[i] = in ? p.lse[loff + rows[i]] * kLog2e : INFINITY;
+    dlt[i] = in ? p.delta[loff + rows[i]] : 0.f;
   }
 
   float acc[kDTiles][4];
@@ -160,8 +183,10 @@ __global__ void __launch_bounds__(kDqThreads)
   for (int nb = n_min; nb <= n_max; ++nb) {
     const int col0 = nb * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<T, D, kBlockN, kDqThreads>(sK, k + (size_t)col0 * D, sk_b - col0);
-    load_rows<T, D, kBlockN, kDqThreads>(sV, v + (size_t)col0 * D, sk_b - col0);
+    load_rows<T, D, kBlockN, kDqThreads>(sK, k + (size_t)col0 * L.k_rs,
+                                         sk_b - col0, L.k_rs);
+    load_rows<T, D, kBlockN, kDqThreads>(sV, v + (size_t)col0 * L.k_rs,
+                                         sk_b - col0, L.k_rs);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T, each summed over k-steps in order, as the
@@ -215,11 +240,11 @@ __global__ void __launch_bounds__(kDqThreads)
     }
   }
 
-  T* dq = static_cast<T*>(p.dq) + qoff * D;
+  T* dq = static_cast<T*>(p.dq) + qoff;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= p.sq) continue;
-    T* drow = dq + (size_t)rows[i] * D + tig * 2;
+    if (rows[i] >= L.q_rows) continue;
+    T* drow = dq + (size_t)rows[i] * L.q_rs + tig * 2;
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n)
       *reinterpret_cast<uint32_t*>(drow + n * 8) =
@@ -227,7 +252,7 @@ __global__ void __launch_bounds__(kDqThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kVarlen>
 __global__ void __launch_bounds__(kDkvThreads)
     flash_bwd_dkv_kernel(const BwdParams p) {
   constexpr int kStride = D + 8;
@@ -246,16 +271,20 @@ __global__ void __launch_bounds__(kDkvThreads)
   const int nblk = blockIdx.x, hkv = blockIdx.y, bb = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int sq_b = p.seqused_q[bb];
-  const int sk_b = min(p.seqused_k[bb], p.sk);
-  const int offset = sk_b - sq_b;
+  const SeqLayout L = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h, p.hk,
+                                          p.sq, p.sk, p.total_q, D);
   const int col0 = nblk * kBlockN;
+  if constexpr (kVarlen) {
+    if (col0 >= L.k_rows) return;  // past this sequence's keys
+  }
+  const int sq_b = L.sq_b, sk_b = L.sk_b;
+  const int offset = sk_b - sq_b;
 
-  const size_t kvoff = (size_t)(bb * p.hk + hkv) * p.sk;
+  const size_t kvoff = L.k_head(hkv) + (size_t)col0 * L.k_rs;
   load_rows<T, D, kBlockN, kDkvThreads>(
-      sK, static_cast<const T*>(p.k) + (kvoff + col0) * D, sk_b - col0);
+      sK, static_cast<const T*>(p.k) + kvoff, sk_b - col0, L.k_rs);
   load_rows<T, D, kBlockN, kDkvThreads>(
-      sV, static_cast<const T*>(p.v) + (kvoff + col0) * D, sk_b - col0);
+      sV, static_cast<const T*>(p.v) + kvoff, sk_b - col0, L.k_rs);
 
   // q tiles holding a live (row, key) pair with this key tile.
   int qt_min = 0, qt_max = -1;
@@ -284,19 +313,20 @@ __global__ void __launch_bounds__(kDkvThreads)
   for (int gi = 0; gi < p.g; ++gi) {
     const int hq = hkv * p.g + gi;
     const ScoreMod sm = score_mod(p, bb, hq, offset, sk_b);
-    const size_t qoff = (size_t)(bb * p.h + hq) * p.sq;
-    const T* q = static_cast<const T*>(p.q) + qoff * D;
-    const T* dout = static_cast<const T*>(p.dout) + qoff * D;
+    const size_t qoff = L.q_head(hq), loff = L.l_head(hq);
+    const T* q = static_cast<const T*>(p.q) + qoff;
+    const T* dout = static_cast<const T*>(p.dout) + qoff;
     for (int qt = qt_min; qt <= qt_max; ++qt) {
       const int row0 = qt * kBlockM;
       __syncthreads();  // every warp is done with the previous Q/dO/P/dS
-      load_rows<T, D, kBlockM, kDkvThreads>(sQ, q + (size_t)row0 * D, p.sq - row0);
-      load_rows<T, D, kBlockM, kDkvThreads>(sdO, dout + (size_t)row0 * D,
-                                            p.sq - row0);
+      load_rows<T, D, kBlockM, kDkvThreads>(sQ, q + (size_t)row0 * L.q_rs,
+                                            L.q_rows - row0, L.q_rs);
+      load_rows<T, D, kBlockM, kDkvThreads>(sdO, dout + (size_t)row0 * L.q_rs,
+                                            L.q_rows - row0, L.q_rs);
       for (int r = threadIdx.x; r < kBlockM; r += kDkvThreads) {
-        const bool in = row0 + r < p.sq;
-        sLse2[r] = in ? p.lse[qoff + row0 + r] * kLog2e : INFINITY;
-        sDelta[r] = in ? p.delta[qoff + row0 + r] : 0.f;
+        const bool in = row0 + r < L.q_rows;
+        sLse2[r] = in ? p.lse[loff + row0 + r] * kLog2e : INFINITY;
+        sDelta[r] = in ? p.delta[loff + row0 + r] : 0.f;
       }
       __syncthreads();
 
@@ -361,13 +391,13 @@ __global__ void __launch_bounds__(kDkvThreads)
     }
   }
 
-  T* dk = static_cast<T*>(p.dk) + kvoff * D;
-  T* dv = static_cast<T*>(p.dv) + kvoff * D;
+  T* dk = static_cast<T*>(p.dk) + L.k_head(hkv);
+  T* dv = static_cast<T*>(p.dv) + L.k_head(hkv);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = col0 + kw + gid + 8 * i;
-    if (key >= p.sk) continue;
-    const size_t base = (size_t)key * D + dcol + tig * 2;
+    if (key >= L.k_rows) continue;
+    const size_t base = (size_t)key * L.k_rs + dcol + tig * 2;
 #pragma unroll
     for (int n = 0; n < kHTiles; ++n) {
       *reinterpret_cast<uint32_t*>(dk + base + n * 8) = Mma<T>::pack(
@@ -378,27 +408,40 @@ __global__ void __launch_bounds__(kDkvThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kVarlen>
 cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   constexpr int kStride = D + 8;
   const int dkv_smem = (4 * kBlockM * kStride + 2 * kBlockN * kPStride) *
                            (int)sizeof(T) + 2 * kBlockM * (int)sizeof(float);
   const int dq_smem = 4 * kBlockM * kStride * (int)sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkv_smem);
+      flash_bwd_dkv_kernel<T, D, kVarlen>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D, kVarlen>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dq_smem);
   if (err != cudaSuccess) return err;
   dim3 grid_dkv((p.sk + kBlockN - 1) / kBlockN, p.hk, p.b);
-  flash_bwd_dkv_kernel<T, D><<<grid_dkv, kDkvThreads, dkv_smem, stream>>>(p);
+  flash_bwd_dkv_kernel<T, D, kVarlen>
+      <<<grid_dkv, kDkvThreads, dkv_smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid_dq((p.sq + kBlockM - 1) / kBlockM, p.h, p.b);
-  flash_bwd_dq_kernel<T, D><<<grid_dq, kDqThreads, dq_smem, stream>>>(p);
+  flash_bwd_dq_kernel<T, D, kVarlen>
+      <<<grid_dq, kDqThreads, dq_smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kVarlen>
+int dispatch(const BwdParams& p, int d, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 64) return launch<__nv_bfloat16, 64, kVarlen>(p, s);
+  if (dtype == 0 && d == 128)
+    return launch<__nv_bfloat16, 128, kVarlen>(p, s);
+  if (dtype == 1 && d == 64) return launch<__half, 64, kVarlen>(p, s);
+  if (dtype == 1 && d == 128) return launch<__half, 128, kVarlen>(p, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -419,11 +462,26 @@ extern "C" int flash_bwd(const void* dout, const void* q, const void* k,
   if (b == 0 || h == 0 || sq == 0 || sk == 0) return 0;
   BwdParams p{q, k, v, dout, lse, delta, dq, dk, dv, seqused_q, seqused_k,
               alibi, b, h, hk, h / hk, sq, sk, scale, has_upper, wr,
-              has_lower, wl, softcap};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64) return launch<__nv_bfloat16, 64>(p, s);
-  if (dtype == 0 && d == 128) return launch<__nv_bfloat16, 128>(p, s);
-  if (dtype == 1 && d == 64) return launch<__half, 64>(p, s);
-  if (dtype == 1 && d == 128) return launch<__half, 128>(p, s);
-  return cudaErrorInvalidValue;
+              has_lower, wl, softcap, 0};
+  return dispatch<false>(p, d, dtype, stream);
+}
+
+// The packed varlen mode: do, q, dq (total_q, h, d), k, v, dk, dv (total_k,
+// hk, d), lse and delta (h, total_q); cu_q, cu_k (b + 1,) int32 offsets;
+// max_sq, max_sk the longest sequence (they size the grids).  Tokens outside
+// every sequence are not written.
+extern "C" int flash_bwd_varlen(const void* dout, const void* q, const void* k,
+                                const void* v, const float* lse,
+                                const float* delta, void* dq, void* dk,
+                                void* dv, const int* cu_q, const int* cu_k,
+                                const float* alibi, int b, int h, int hk,
+                                int max_sq, int max_sk, int total_q, int d,
+                                int dtype, float scale, int has_upper, int wr,
+                                int has_lower, int wl, float softcap,
+                                void* stream) {
+  if (b == 0 || h == 0 || max_sq == 0 || max_sk == 0) return 0;
+  BwdParams p{q, k, v, dout, lse, delta, dq, dk, dv, cu_q, cu_k, alibi, b,
+              h, hk, h / hk, max_sq, max_sk, scale, has_upper, wr, has_lower,
+              wl, softcap, total_q};
+  return dispatch<true>(p, d, dtype, stream);
 }

@@ -3,7 +3,10 @@
 // Replaces the Pallas TPU kernel flash_attn_tpu/kernels/flash_fwd.py::_fwd_kernel
 // (launched at flash_fwd.py:1517 by flash_attn_fwd_bhsd), and serves the
 // full-length causal/local calls that the JAX package sends to
-// _fwd_sched_kernel (flash_fwd.py:870).
+// _fwd_sched_kernel (flash_fwd.py:870).  Its varlen mode (flash_fwd_varlen)
+// replaces the packed varlen kernel
+// flash_attn_tpu/kernels/varlen_sched.py::_varlen_sched_kernel (:211,
+// launched at :440).
 //
 // What bounds it on the H100: operations.  Prefill at the serving shapes does
 // 4*sq*sk*d FLOPs per head (about half of it for causal) against 2*(sq+2*sk)*d
@@ -34,6 +37,21 @@
 // like any other row (the JAX kernel does not mask them either); rows past the
 // tensor's sq are not written.  A row with no valid key writes o = 0 and
 // lse = +inf.
+//
+// Varlen mode: q, o are packed (total_q, h, d) streams and k, v (total_k, hk,
+// d), read in place with token strides h*d and hk*d (no transpose copy); lse
+// is (h, total_q).  The TPU kernel walks a device-built table of (q tile, kv
+// tile) pairs over the whole stream and masks tiles that straddle two
+// sequences with per-token segment words.  Here the grid is (cdiv(max_seqlen_q,
+// 64), h, b): a block owns a 64-row tile of one sequence and head, and blocks
+// past that sequence's length exit at once.  A tile never crosses a sequence
+// boundary, so no segment compare is needed, the masks run on per-sequence
+// coordinates (offset len_k - len_q, bottom-right), and the KV loop visits the
+// sequence's own key tiles only, within the causal and window bounds.  The
+// grid was chosen over a compact (sequence, tile) work list for simplicity:
+// an idle block costs one load of cu_seqlens, and a batch whose lengths vary
+// by 32x (BERT's 16-512) leaves about half the blocks idle.  Bounded like
+// the dense mode, by operations: the live (row, key) pairs of each sequence.
 
 #include "fa_common.cuh"
 
@@ -51,16 +69,20 @@ struct FwdParams {
   const void* v;
   void* o;
   float* lse;
-  const int* seqused_q;
-  const int* seqused_k;
+  // dense: seqused_q/k (b,); varlen: cu_seqlens_q/k (b + 1,)
+  const int* lens_q;
+  const int* lens_k;
   const float* alibi;  // (b, h) or null
-  int b, h, hk, g, sq, sk;
+  // varlen: sq, sk are the max lengths and total_q the lse's head stride.
+  // The struct keeps the dense kernel's size (112 bytes): three more
+  // fields made the dense forward ~20 % slower on an H100.
+  int b, h, hk, total_q, sq, sk;
   float scale;
   int has_upper, wr, has_lower, wl;
   float softcap;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kVarlen>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const FwdParams p) {
   constexpr int kStride = D + 8;
@@ -74,27 +96,33 @@ __global__ void __launch_bounds__(kThreads)
   const int qblk = blockIdx.x, hq = blockIdx.y, bb = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int hkv = hq / p.g;
-  const int sq_b = p.seqused_q[bb];
-  const int sk_b = min(p.seqused_k[bb], p.sk);
-  const int offset = sk_b - sq_b;
+  const int hkv = hq / (p.h / p.hk);
+  const SeqLayout L = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h, p.hk,
+                                          p.sq, p.sk, p.total_q, D);
   const int row0 = qblk * kBlockM;
+  if constexpr (kVarlen) {
+    if (row0 >= L.q_rows) return;  // past this sequence's rows
+  }
+  const int sk_b = L.sk_b;
+  const int offset = sk_b - L.sq_b;
   const ScoreMod sm{p.scale, p.softcap, p.alibi ? p.alibi[bb * p.h + hq] : 0.f,
                     p.alibi != nullptr, offset, sk_b, p.has_upper, p.wr,
                     p.has_lower, p.wl};
 
-  const T* q = static_cast<const T*>(p.q) + ((size_t)(bb * p.h + hq) * p.sq) * D;
-  const T* k = static_cast<const T*>(p.k) + ((size_t)(bb * p.hk + hkv) * p.sk) * D;
-  const T* v = static_cast<const T*>(p.v) + ((size_t)(bb * p.hk + hkv) * p.sk) * D;
+  const T* q = static_cast<const T*>(p.q) + L.q_head(hq);
+  const T* k = static_cast<const T*>(p.k) + L.k_head(hkv);
+  const T* v = static_cast<const T*>(p.v) + L.k_head(hkv);
 
   // KV tiles that any row of this q tile can see.
+  const int row_max = min(row0 + kBlockM, L.q_rows) - 1;
   int max_col = sk_b - 1;
-  if (p.has_upper) max_col = min(max_col, row0 + kBlockM - 1 + offset + p.wr);
+  if (p.has_upper) max_col = min(max_col, row_max + offset + p.wr);
   const int min_col = p.has_lower ? max(0, row0 + offset - p.wl) : 0;
   const int n_min = min_col / kBlockN;
   const int n_max = max_col >= 0 ? max_col / kBlockN : -1;
 
-  load_rows<T, D, kBlockM, kThreads>(sQ, q + (size_t)row0 * D, p.sq - row0);
+  load_rows<T, D, kBlockM, kThreads>(sQ, q + (size_t)row0 * L.q_rs,
+                                     L.q_rows - row0, L.q_rs);
   __syncthreads();
 
   const int r_lo = warp * 16 + gid;  // this thread's two rows in the tile
@@ -114,8 +142,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int nb = n_min; nb <= n_max; ++nb) {
     const int col0 = nb * kBlockN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<T, D, kBlockN, kThreads>(sK, k + (size_t)col0 * D, sk_b - col0);
-    load_rows<T, D, kBlockN, kThreads>(sV, v + (size_t)col0 * D, sk_b - col0);
+    load_rows<T, D, kBlockN, kThreads>(sK, k + (size_t)col0 * L.k_rs,
+                                       sk_b - col0, L.k_rs);
+    load_rows<T, D, kBlockN, kThreads>(sV, v + (size_t)col0 * L.k_rs,
+                                       sk_b - col0, L.k_rs);
     __syncthreads();
 
     float s[kBlockN / 8][4];
@@ -190,15 +220,15 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  T* o = static_cast<T*>(p.o) + ((size_t)(bb * p.h + hq) * p.sq) * D;
-  float* lse = p.lse + (size_t)(bb * p.h + hq) * p.sq;
+  T* o = static_cast<T*>(p.o) + L.q_head(hq);
+  float* lse = p.lse + L.l_head(hq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float l = quad_sum(l_run[i]);
     const int row = rows[i];
-    if (row >= p.sq) continue;
+    if (row >= L.q_rows) continue;
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* orow = o + (size_t)row * D + tig * 2;
+    T* orow = o + (size_t)row * L.q_rs + tig * 2;
 #pragma unroll
     for (int n = 0; n < kOTiles; ++n) {
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
@@ -208,15 +238,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kVarlen>
 cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
   const int smem = 3 * kBlockM * (D + 8) * (int)sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<T, D, kVarlen>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.h, p.b);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, kVarlen><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kVarlen>
+int dispatch(const FwdParams& p, int d, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 64) return launch<__nv_bfloat16, 64, kVarlen>(p, s);
+  if (dtype == 0 && d == 128)
+    return launch<__nv_bfloat16, 128, kVarlen>(p, s);
+  if (dtype == 1 && d == 64) return launch<__half, 64, kVarlen>(p, s);
+  if (dtype == 1 && d == 128) return launch<__half, 128, kVarlen>(p, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -233,12 +275,24 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int wr, int has_lower, int wl, float softcap,
                          void* stream) {
   if (b == 0 || h == 0 || sq == 0) return 0;
-  FwdParams p{q, k, v, o, lse, seqused_q, seqused_k, alibi, b, h, hk, h / hk,
-              sq, sk, scale, has_upper, wr, has_lower, wl, softcap};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64) return launch<__nv_bfloat16, 64>(p, s);
-  if (dtype == 0 && d == 128) return launch<__nv_bfloat16, 128>(p, s);
-  if (dtype == 1 && d == 64) return launch<__half, 64>(p, s);
-  if (dtype == 1 && d == 128) return launch<__half, 128>(p, s);
-  return cudaErrorInvalidValue;
+  FwdParams p{q, k, v, o, lse, seqused_q, seqused_k, alibi, b, h, hk, 0, sq,
+              sk, scale, has_upper, wr, has_lower, wl, softcap};
+  return dispatch<false>(p, d, dtype, stream);
+}
+
+// The packed varlen mode: q, o (total_q, h, d), k, v (total_k, hk, d), lse
+// (h, total_q); cu_q, cu_k (b + 1,) int32 offsets; max_sq, max_sk the
+// longest sequence (they size the grid).  Tokens outside every sequence are
+// not written.
+extern "C" int flash_fwd_varlen(const void* q, const void* k, const void* v,
+                                void* o, float* lse, const int* cu_q,
+                                const int* cu_k, const float* alibi, int b,
+                                int h, int hk, int max_sq, int max_sk,
+                                int total_q, int d, int dtype, float scale,
+                                int has_upper, int wr, int has_lower, int wl,
+                                float softcap, void* stream) {
+  if (b == 0 || h == 0 || max_sq == 0) return 0;
+  FwdParams p{q, k, v, o, lse, cu_q, cu_k, alibi, b, h, hk, total_q, max_sq,
+              max_sk, scale, has_upper, wr, has_lower, wl, softcap};
+  return dispatch<true>(p, d, dtype, stream);
 }

@@ -1,25 +1,34 @@
 """Public flash-attention functions (counterpart of
 `flash_attn_tpu/interface.py`): with gradients, `_make_core:48-120`,
 `flash_attn_func:209`, `flash_attn_qkvpacked_func:310`,
-`flash_attn_kvpacked_func:329`; for inference, `flash_attn_with_kvcache`,
-`fuse_kv_cache`, `split_kv_cache` (`:660-679`, in `kernels/flash_decode`),
-`flash_attn_combine:682`, `get_scheduler_metadata:701`, and
-`flash_attn_varlen_func:382` against a paged KV cache (`block_table=`,
-`_varlen_paged_prefill:548`).
+`flash_attn_kvpacked_func:329`, `flash_attn_varlen_func:382` and its
+`qkvpacked` / `kvpacked` forms (`:613-657`); for inference,
+`flash_attn_with_kvcache`, `fuse_kv_cache`, `split_kv_cache` (`:660-679`,
+in `kernels/flash_decode`), `flash_attn_combine:682`,
+`get_scheduler_metadata:701`.
 
-Inputs are in the (batch, seqlen, nheads, head_dim) layout; the kernels run
-on (b, h, s, d).  `FlashAttnFunc` is the `torch.autograd.Function` that takes
-the place of the JAX `custom_vjp`: its forward is `flash_attn_fwd_bhsd`, which
-saves q, k, v, o and lse, and its backward is `flash_attn_bwd_bhsd`.
+Dense inputs are in the (batch, seqlen, nheads, head_dim) layout and the
+kernels run on (b, h, s, d).  `FlashAttnFunc` is the `torch.autograd.Function`
+that takes the place of the JAX `custom_vjp`: its forward is
+`flash_attn_fwd_bhsd`, which saves q, k, v, o and lse, and its backward is
+`flash_attn_bwd_bhsd`.  Varlen inputs are packed (total, nheads, head_dim)
+streams cut by `cu_seqlens`; `flash_attn_varlen_func` routes them as the JAX
+function does (`:496-517`): batches of more than one sequence, without
+`seqused_q/k` or `return_attn_probs` and with max lengths <= 65535, take the
+packed kernels (`kernels/varlen.py`); every other call is gathered to the
+padded layout and runs the dense kernels with per-sequence `seqused`; with
+`block_table` the q tokens attend a paged KV cache.  fp8 q/k/v are
+dequantised to bf16 outside the kernels (forward only).
 
 * `deterministic` is accepted and ignored: the backward is always
   deterministic (`interface.py:15`).
 * `return_attn_probs=True` returns (out, lse, None) and carries the lse's
   gradient (`dlse`) into the backward.
-* Not ported yet, and raising `NotImplementedError`: in `flash_attn_func`,
-  `dropout_p > 0`, `qv`, `sinks`, fp8 descale and `attention_chunk`; in
-  `flash_attn_varlen_func`, every branch but `block_table=` (the packed
-  scheduled kernel, the padded path, fp8; ROADMAP Queue 1.2).
+* Not ported yet, and raising `NotImplementedError`: `dropout_p > 0`
+  (dense and varlen); in `flash_attn_func`, `qv`, `sinks`, fp8 descale and
+  `attention_chunk`.  The CUDA kernels take bf16 and fp16 with head dims
+  64 and 128 and raise `NotImplementedError` on anything else (a float32 q
+  on CUDA included).
 """
 
 from __future__ import annotations
@@ -35,18 +44,25 @@ from flash_attn_tpu_torch.kernels.flash_decode import (  # noqa: F401
     FP8_DTYPES, decode_attn_ref_layout, flash_attn_with_kvcache,
     fuse_kv_cache, split_kv_cache)
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attn_fwd_bhsd
+from flash_attn_tpu_torch.kernels.varlen import (MAX_SEQLEN,
+                                                 flash_attn_varlen_sched_func)
 
 
 class FlashAttnFunc(torch.autograd.Function):
     """(q, k, v) in (b, h, s, d), contiguous -> (o, lse) with the backward
-    kernel as its gradient; full lengths (seqused = s for every row)."""
+    kernel as its gradient.  seqused_q/k (b,) int32 limit each batch row's
+    query rows and keys; None means the full lengths."""
 
     @staticmethod
     def forward(ctx, q, k, v, softmax_scale, causal, window_size, softcap,
-                alibi_slopes):
+                alibi_slopes, seqused_q=None, seqused_k=None):
         b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
-        seqused_q = torch.full((b,), sq, dtype=torch.int32, device=q.device)
-        seqused_k = torch.full((b,), sk, dtype=torch.int32, device=q.device)
+        if seqused_q is None:
+            seqused_q = torch.full((b,), sq, dtype=torch.int32,
+                                   device=q.device)
+        if seqused_k is None:
+            seqused_k = torch.full((b,), sk, dtype=torch.int32,
+                                   device=q.device)
         kw = dict(softmax_scale=softmax_scale, causal=causal,
                   window_size=window_size, softcap=softcap,
                   alibi_slopes=alibi_slopes)
@@ -62,7 +78,18 @@ class FlashAttnFunc(torch.autograd.Function):
         do = torch.zeros_like(o) if do is None else do.contiguous()
         dq, dk, dv = flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q,
                                          seqused_k, dlse=dlse, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def _attn_bhsd(q, k, v, *, softmax_scale, causal=False, window_size=(-1, -1),
+               softcap=0.0, alibi_slopes=None, seqused_q=None,
+               seqused_k=None):
+    """Differentiable attention on (b, h, s, d) operands with per-batch
+    seqused (`interface.py:123`).  Returns (o, lse (b, h, sq))."""
+    return FlashAttnFunc.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), float(softmax_scale),
+        bool(causal), (int(window_size[0]), int(window_size[1])),
+        float(softcap), alibi_slopes, seqused_q, seqused_k)
 
 
 def flash_attn_func(q, k, v, dropout_p=0.0, softmax_scale=None, causal=False,
@@ -90,11 +117,10 @@ def flash_attn_func(q, k, v, dropout_p=0.0, softmax_scale=None, causal=False,
         raise NotImplementedError("attention_chunk is not ported yet")
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
-    o, lse = FlashAttnFunc.apply(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), float(softmax_scale), bool(causal),
-        (int(window_size[0]), int(window_size[1])), float(softcap),
-        alibi_slopes)
+    o, lse = _attn_bhsd(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
+        softcap=softcap, alibi_slopes=alibi_slopes)
     o = o.transpose(1, 2)
     return (o, lse, None) if return_attn_probs else o
 
@@ -120,6 +146,30 @@ def flash_attn_kvpacked_func(q, kv, dropout_p=0.0, softmax_scale=None,
                            alibi_slopes, deterministic, return_attn_probs)
 
 
+def _varlen_to_padded(x, cu_seqlens, max_seqlen):
+    """(total, ...) packed -> (b, max_seqlen, ...); rows past a sequence's
+    end repeat other tokens, which the callers mask (`interface.py:361`)."""
+    total = x.shape[0]
+    cu = cu_seqlens.long()
+    idx = cu[:-1, None] + torch.arange(max_seqlen, device=x.device)[None, :]
+    return x[idx.clamp(max=total - 1)]
+
+
+def _segment_ids(cu_seqlens, total):
+    """Sequence index of each of `total` packed tokens, clipped to [0, b)."""
+    cu = cu_seqlens.long()
+    t = torch.arange(total, device=cu.device)
+    return (torch.searchsorted(cu, t, right=True) - 1).clamp(
+        0, cu.shape[0] - 2)
+
+
+def _padded_to_varlen(xp, cu_seqlens, total):
+    """(b, max_seqlen, ...) -> (total, ...) packed (`interface.py:369`)."""
+    seg = _segment_ids(cu_seqlens, total)
+    pos = torch.arange(total, device=xp.device) - cu_seqlens.long()[seg]
+    return xp[seg, pos.clamp(0, xp.shape[1] - 1)]
+
+
 def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                            max_seqlen_k, dropout_p=0.0, softmax_scale=None,
                            causal=False, window_size=(-1, -1), softcap=0.0,
@@ -128,12 +178,18 @@ def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                            seqused_k=None, block_table=None,
                            dropout_seed=None, q_descale=None, k_descale=None,
                            v_descale=None, qv=None):
-    """Varlen attention over packed tokens (`interface.py:382`).  Only the
-    paged-cache branch is ported: with `block_table`, k and v are paged
-    caches (npages, page, hk, d) and the q tokens (total_q, h, d) of each
-    sequence are its newest, at the end of its seqused_k (or cu_seqlens_k)
-    keys: chunked prefill against a paged cache."""
-    del deterministic, dropout_seed, q_descale, k_descale, v_descale
+    """Varlen attention over packed tokens (`interface.py:382`).
+
+    q: (total_q, h, d); k, v: (total_k, hk, d); cu_seqlens_q/k: (b + 1,)
+    int32 prefix sums; max_seqlen_q/k: Python ints.  Returns out
+    (total_q, h, d), or (out, lse (b, h, max_seqlen_q), None) with
+    `return_attn_probs`.  `seqused_q/k` (b,) limit the used tokens of each
+    sequence.  With `block_table`, k and v are paged caches (npages, page,
+    hk, d) and each sequence's q tokens are its newest, at the end of its
+    seqused_k (or cu_seqlens_k) keys: chunked prefill against a paged cache.
+    fp8 q/k/v take per-(sequence, kv head) descales and give a bf16 output
+    with no gradient.  Differentiable on the packed and padded routes."""
+    del deterministic, dropout_seed
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
     if qv is not None:
@@ -143,19 +199,117 @@ def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
             softmax_scale = 1.0 / math.sqrt(q.shape[-1] + qv.shape[-1])
         q = torch.cat([q, qv.to(q.dtype)], dim=-1)
         k = torch.cat([k, v.to(k.dtype)], dim=-1)
-    if block_table is None or q.dtype in FP8_DTYPES:
-        raise NotImplementedError(
-            "flash_attn_varlen_func is ported for block_table= only; the "
-            "packed, padded and fp8 paths are ROADMAP Queue 1.2")
+    if q.dtype in FP8_DTYPES and block_table is None:
+        if dropout_p > 0.0:
+            raise NotImplementedError(
+                "dropout_p > 0 is not supported with fp8 inputs")
+        return _varlen_fp8(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                           max_seqlen_k, softmax_scale, causal, window_size,
+                           softcap, alibi_slopes, return_attn_probs,
+                           seqused_q, seqused_k, q_descale, k_descale,
+                           v_descale)
+    if block_table is not None:
+        if dropout_p > 0.0:
+            raise NotImplementedError(
+                "paged varlen prefill supports dropout_p=0 (inference path)")
+        return _varlen_paged_prefill(
+            q, k, v, cu_seqlens_q, max_seqlen_q, block_table,
+            seqused_k=seqused_k, cu_seqlens_k=cu_seqlens_k,
+            softmax_scale=softmax_scale, causal=causal,
+            window_size=window_size, softcap=softcap,
+            alibi_slopes=alibi_slopes, return_lse=return_attn_probs)
     if dropout_p > 0.0:
-        raise NotImplementedError(
-            "paged varlen prefill supports dropout_p=0 (inference path)")
-    return _varlen_paged_prefill(
-        q, k, v, cu_seqlens_q, max_seqlen_q, block_table,
-        seqused_k=seqused_k, cu_seqlens_k=cu_seqlens_k,
-        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
-        softcap=softcap, alibi_slopes=alibi_slopes,
-        return_lse=return_attn_probs)
+        raise NotImplementedError("varlen attention dropout is not ported "
+                                  "yet (ROADMAP Queue 2b)")
+    d = q.shape[-1]
+    b = cu_seqlens_q.shape[0] - 1
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    # The JAX router (`interface.py:496-517`), unchanged: batches of more
+    # than one sequence take the packed kernels unless they need seqused,
+    # the lse, or longer sequences than the packed kernels' 16-bit
+    # positions hold.
+    routable = (seqused_q is None and seqused_k is None
+                and not return_attn_probs)
+    fits_packed = max(int(max_seqlen_q), int(max_seqlen_k)) <= MAX_SEQLEN
+    if routable and fits_packed and b > 1:
+        return flash_attn_varlen_sched_func(
+            q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+            softmax_scale=float(softmax_scale), causal=causal,
+            window_size=window_size, softcap=softcap,
+            alibi_slopes=alibi_slopes)
+    return _varlen_padded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                          max_seqlen_k, softmax_scale, causal, window_size,
+                          softcap, alibi_slopes, return_attn_probs, seqused_q,
+                          seqused_k)
+
+
+def _varlen_padded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                   max_seqlen_k, softmax_scale, causal, window_size, softcap,
+                   alibi_slopes, return_lse, seqused_q, seqused_k):
+    """The padded route (`interface.py:518-545`): gather the packed streams
+    to (b, max_seqlen), run the dense kernels with per-sequence seqused,
+    zero the rows past each sequence's used length and scatter back."""
+    dev = q.device
+    cu_q = torch.as_tensor(cu_seqlens_q, device=dev).int()
+    cu_k = torch.as_tensor(cu_seqlens_k, device=dev).int()
+    b = cu_q.shape[0] - 1
+    max_sq, max_sk = int(max_seqlen_q), int(max_seqlen_k)
+    used_q = (cu_q[1:] - cu_q[:-1] if seqused_q is None
+              else torch.as_tensor(seqused_q, device=dev).int())
+    used_k = (cu_k[1:] - cu_k[:-1] if seqused_k is None
+              else torch.as_tensor(seqused_k, device=dev).int())
+    slopes = None
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, device=dev).float()
+        slopes = slopes.reshape(-1, q.shape[1]).expand(b, -1)
+    qp = _varlen_to_padded(q, cu_q, max_sq).transpose(1, 2)
+    kp = _varlen_to_padded(k, cu_k, max_sk).transpose(1, 2)
+    vp = _varlen_to_padded(v, cu_k, max_sk).transpose(1, 2)
+    o, lse = _attn_bhsd(qp, kp, vp, softmax_scale=softmax_scale,
+                        causal=causal, window_size=window_size,
+                        softcap=softcap, alibi_slopes=slopes,
+                        seqused_q=used_q, seqused_k=used_k)
+    o = o.transpose(1, 2)  # (b, max_sq, h, d)
+    row_valid = torch.arange(max_sq, device=dev)[None, :] < used_q[:, None]
+    o = torch.where(row_valid[:, :, None, None], o, 0)
+    out = _padded_to_varlen(o, cu_q, q.shape[0])
+    return (out, lse, None) if return_lse else out
+
+
+def _varlen_fp8(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                max_seqlen_k, softmax_scale, causal, window_size, softcap,
+                alibi_slopes, return_attn_probs, seqused_q, seqused_k,
+                q_descale, k_descale, v_descale):
+    """fp8 q/k/v (`interface.py:435-470`): q is dequantised per token with
+    its own sequence's q and k descales, k and v are cast to bf16, and the
+    v descale scales each output row afterwards (every key a row attends
+    belongs to its sequence).  Rides the bf16 kernels; forward only."""
+    total_q, h, _ = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    b = cu_seqlens_q.shape[0] - 1
+    dev = q.device
+
+    def norm_ds(ds):
+        if ds is None:
+            return torch.ones(b, hk, device=dev)
+        return torch.as_tensor(ds, device=dev).float().reshape(-1, hk)\
+            .expand(b, hk)
+
+    qd, kd, vd = norm_ds(q_descale), norm_ds(k_descale), norm_ds(v_descale)
+    seg_q = _segment_ids(torch.as_tensor(cu_seqlens_q, device=dev), total_q)
+    deq = (qd * kd)[seg_q].repeat_interleave(g, dim=1)  # (total_q, h)
+    q_bf = (q.float() * deq[..., None]).to(torch.bfloat16)
+    out = flash_attn_varlen_func(
+        q_bf, k.to(torch.bfloat16), v.to(torch.bfloat16), cu_seqlens_q,
+        cu_seqlens_k, max_seqlen_q, max_seqlen_k, 0.0, softmax_scale, causal,
+        window_size, softcap, alibi_slopes, True, return_attn_probs,
+        seqused_q, seqused_k)
+    out, rest = (out[0], out[1:]) if return_attn_probs else (out, ())
+    vscale = vd[seg_q].repeat_interleave(g, dim=1)  # (total_q, h)
+    out = (out.float() * vscale[..., None]).to(torch.bfloat16).detach()
+    return (out, *rest) if rest else out
 
 
 def _varlen_paged_prefill(q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q,
@@ -194,9 +348,8 @@ def _varlen_paged_prefill(q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q,
     o = torch.where(valid[:, :, None, None], o, 0)
     # scatter back: token t of sequence i is padded row
     # (max_sq - len_q[i]) + (t - cu[i])
-    t = torch.arange(total_q, device=dev)
-    seg = (torch.searchsorted(cu, t, right=True) - 1).clamp(0, b - 1)
-    pos = t - cu[seg] + max_sq - lens_q[seg]
+    seg = _segment_ids(cu, total_q)
+    pos = torch.arange(total_q, device=dev) - cu[seg] + max_sq - lens_q[seg]
     out = o[seg, pos.clamp(0, max_sq - 1)]
     if not return_lse:
         return out
@@ -204,6 +357,32 @@ def _varlen_paged_prefill(q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q,
     lse_r = torch.gather(lse, 2, src_row[:, None, :].expand(b, h, max_sq))
     lse_r = torch.where((r < lens_q[:, None])[:, None, :], lse_r, torch.inf)
     return out, lse_r, None
+
+
+def flash_attn_varlen_qkvpacked_func(qkv, cu_seqlens, max_seqlen,
+                                     dropout_p=0.0, softmax_scale=None,
+                                     causal=False, window_size=(-1, -1),
+                                     softcap=0.0, alibi_slopes=None,
+                                     deterministic=False,
+                                     return_attn_probs=False):
+    """qkv: (total, 3, h, d) (`interface.py:613`)."""
+    return flash_attn_varlen_func(
+        qkv[:, 0], qkv[:, 1], qkv[:, 2], cu_seqlens, cu_seqlens, max_seqlen,
+        max_seqlen, dropout_p, softmax_scale, causal, window_size, softcap,
+        alibi_slopes, deterministic, return_attn_probs)
+
+
+def flash_attn_varlen_kvpacked_func(q, kv, cu_seqlens_q, cu_seqlens_k,
+                                    max_seqlen_q, max_seqlen_k, dropout_p=0.0,
+                                    softmax_scale=None, causal=False,
+                                    window_size=(-1, -1), softcap=0.0,
+                                    alibi_slopes=None, deterministic=False,
+                                    return_attn_probs=False):
+    """kv: (total_k, 2, hk, d) (`interface.py:634`)."""
+    return flash_attn_varlen_func(
+        q, kv[:, 0], kv[:, 1], cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+        max_seqlen_k, dropout_p, softmax_scale, causal, window_size, softcap,
+        alibi_slopes, deterministic, return_attn_probs)
 
 
 def flash_attn_combine(out_partial, lse_partial, out=None, out_dtype=None):

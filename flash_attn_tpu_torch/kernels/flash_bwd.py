@@ -8,7 +8,8 @@ Pallas kernels are `_bwd_dq_kernel:121`, `_bwd_dkv_kernel:232`,
 for CUDA tensors and runs `flash_attn_bwd_bhsd_ref`, the plain PyTorch
 version with the same signature, for CPU tensors.  The two-kernel split
 serves every call the JAX package sends to any of its four kernels, and is
-deterministic bit for bit (no atomics; see the note in the source).
+deterministic bit for bit (no atomics; see the note in the source).  Its
+packed varlen mode (`flash_bwd_varlen`) is launched by `kernels/varlen.py`.
 
 The dO.O preprocess stays plain torch, as the JAX package leaves it to XLA
 (`:1063-1067`): delta = rowsum(dO * O) - dlse, in float32.  Masks, windows,

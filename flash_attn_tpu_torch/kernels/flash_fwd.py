@@ -7,7 +7,8 @@ general path runs the Pallas `_fwd_kernel:200`, launched at `:1517`).
 plain PyTorch version with the same signature, for CPU tensors.  The same
 kernel also serves the JAX package's full-length causal/local forward
 (`_fwd_sched_kernel:870`): its per-q-tile loop bounds skip the KV tiles a
-mask removes, which is what the TPU's tile tables do.
+mask removes, which is what the TPU's tile tables do.  Its packed varlen mode
+(`flash_fwd_varlen`) is launched by `kernels/varlen.py`.
 
 Semantics carried over from the JAX kernel:
 * per-batch `seqused_q` / `seqused_k`; masks are bottom-right aligned with

@@ -5,7 +5,8 @@
 `GPTConfig` carries the `transformers.GPT2Config` attribute names that the
 JAX model reads, so a GPT-2 config maps over field by field.  Features this
 slice does not cover raise `NotImplementedError`: rotary, grouped KV heads
-at model level, parallel blocks, RMSNorm, muP and tensor parallelism.
+at model level, parallel blocks, post-norm, RMSNorm, muP and tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -13,11 +14,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
 from flash_attn_tpu_torch.env import default_device
+from flash_attn_tpu_torch.models.common import JaxParams, init_weights
 from flash_attn_tpu_torch.modules.block import Block, _Norm
 from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
 from flash_attn_tpu_torch.modules.mha import MHA, InferenceParams
@@ -80,6 +81,7 @@ class GPTConfig:
             "rms_norm": self.rms_norm,
             "use_mup": self.use_mup,
             "tensor_parallel": self.tensor_parallel,
+            "prenorm": not self.prenorm,  # GPTModel's post-norm path
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -181,22 +183,12 @@ class GPTLMHeadModel(nn.Module):
     def device(self):
         return self.transformer.embeddings.wte.weight.device
 
-    @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None,
                      std: float = 0.02):
         """Matrices and embeddings ~ N(0, std) drawn from `generator` (on the
         CPU, so a seed gives the same weights on every device); biases 0,
         norm weights 1."""
-        for name, p in self.named_parameters():
-            if p.ndim == 2:
-                w = torch.empty(p.shape, dtype=torch.float32)
-                w.normal_(0.0, std, generator=generator)
-                p.copy_(w)
-            elif name.endswith("weight"):  # the only 1-D weights are norms'
-                p.fill_(1.0)
-            else:
-                p.zero_()
-        return self
+        return init_weights(self, generator, std)
 
     def forward(self, input_ids, position_ids=None, inference_params=None,
                 num_last_tokens: int = 0):
@@ -218,50 +210,22 @@ def state_dict_from_jax_params(params, config: GPTConfig):
     Dense kernels (in, out) are transposed to `nn.Linear.weight` (out, in).
     Raises KeyError if an expected array is missing and ValueError if any
     array of the tree is left unused."""
-    tree = params.get("params", params)
-    flat = {}
-
-    def walk(node, prefix):
-        for key, val in node.items():
-            path = f"{prefix}/{key}" if prefix else key
-            if isinstance(val, dict):
-                walk(val, path)
-            else:
-                flat[path] = np.asarray(val)
-
-    walk(tree, "")
-    sd = {}
-
-    def take(jax_path, name, transpose=False):
-        arr = flat.pop(jax_path)
-        sd[name] = torch.from_numpy(np.array(arr.T if transpose else arr))
-
-    def dense(jax_prefix, name):
-        take(f"{jax_prefix}/kernel", f"{name}.weight", transpose=True)
-        if f"{jax_prefix}/bias" in flat:
-            take(f"{jax_prefix}/bias", f"{name}.bias")
-
-    def norm(jax_prefix, name):
-        take(f"{jax_prefix}/weight", f"{name}.weight")
-        if f"{jax_prefix}/bias" in flat:
-            take(f"{jax_prefix}/bias", f"{name}.bias")
-
+    p = JaxParams(params)
     tr = "transformer"
-    take(f"{tr}/embeddings/wte/embedding", "transformer.embeddings.wte.weight")
-    if f"{tr}/embeddings/wpe/embedding" in flat:
-        take(f"{tr}/embeddings/wpe/embedding",
-             "transformer.embeddings.wpe.weight")
+    p.take(f"{tr}/embeddings/wte/embedding",
+           "transformer.embeddings.wte.weight")
+    if p.has(f"{tr}/embeddings/wpe/embedding"):
+        p.take(f"{tr}/embeddings/wpe/embedding",
+               "transformer.embeddings.wpe.weight")
     for i in range(config.n_layer):
         jp, tp = f"{tr}/layers_{i}", f"transformer.layers.{i}"
-        norm(f"{jp}/norm1", f"{tp}.norm1")
-        norm(f"{jp}/norm2", f"{tp}.norm2")
-        dense(f"{jp}/mixer/Wqkv", f"{tp}.mixer.Wqkv")
-        dense(f"{jp}/mixer/out_proj", f"{tp}.mixer.out_proj")
-        dense(f"{jp}/mlp/fc1", f"{tp}.mlp.fc1")
-        dense(f"{jp}/mlp/fc2", f"{tp}.mlp.fc2")
-    norm(f"{tr}/ln_f", "transformer.ln_f")
+        p.norm(f"{jp}/norm1", f"{tp}.norm1")
+        p.norm(f"{jp}/norm2", f"{tp}.norm2")
+        p.dense(f"{jp}/mixer/Wqkv", f"{tp}.mixer.Wqkv")
+        p.dense(f"{jp}/mixer/out_proj", f"{tp}.mixer.out_proj")
+        p.dense(f"{jp}/mlp/fc1", f"{tp}.mlp.fc1")
+        p.dense(f"{jp}/mlp/fc2", f"{tp}.mlp.fc2")
+    p.norm(f"{tr}/ln_f", "transformer.ln_f")
     if not config.tie_word_embeddings:
-        dense("lm_head", "lm_head")
-    if flat:
-        raise ValueError(f"unused JAX parameters: {sorted(flat)}")
-    return sd
+        p.dense("lm_head", "lm_head")
+    return p.state_dict()

@@ -1,10 +1,12 @@
 """Transformer block (counterpart of `flash_attn_tpu/modules/block.py`:
-`_Norm:19`, pre-norm `Block:39`).
+`_Norm:19`, `Block:39`, pre-norm at `:85-112`, post-norm at `:113-127`).
 
-Dropout and stochastic depth are not ported: the trainer's GPT-2 runs with
-every dropout at 0, as the JAX `ModelConfig.to_gpt2_config` sets it.
-Post-norm blocks and `ParallelBlock` raise `NotImplementedError` and are
-queued.
+Both kinds pass their mixer keyword arguments (`key_padding_mask`,
+`cu_seqlens`, `max_seqlen`) through to the mixer, as JAX's `**mixer_kwargs`
+does.  Dropout and stochastic depth are not ported: the blocks compute the
+JAX `deterministic=True` path (the trainer's GPT-2 runs with every dropout
+at 0, as the JAX `ModelConfig.to_gpt2_config` sets it, and BERT is driven
+in evaluation mode).  `ParallelBlock` is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,15 +39,15 @@ class _Norm(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm block: (hidden, residual) -> (hidden, residual); pass
-    residual=None to the first block."""
+    residual=None to the first block.  Post-norm block (`prenorm=False`,
+    BERT's): h -> (norm1(mixer(h) + h) then norm2(mlp(.) + .), None)."""
 
     def __init__(self, dim: int, mixer: nn.Module, mlp: nn.Module, *,
                  prenorm: bool = True, residual_in_fp32: bool = False,
                  norm_eps: float = 1e-5, device=None, dtype=torch.float32):
         super().__init__()
-        if not prenorm:
-            raise NotImplementedError("post-norm blocks are not ported yet")
         device = default_device(device)
+        self.prenorm = prenorm
         self.dtype = dtype
         self.residual_in_fp32 = residual_in_fp32
         self.norm1 = _Norm(dim, norm_eps, device=device, dtype=dtype)
@@ -53,13 +55,19 @@ class Block(nn.Module):
         self.mixer = mixer
         self.mlp = mlp
 
-    def forward(self, hidden_states, residual=None, inference_params=None):
+    def forward(self, hidden_states, residual=None, inference_params=None,
+                **mixer_kwargs):
+        if not self.prenorm:
+            m = self.mixer(hidden_states, inference_params=inference_params,
+                           **mixer_kwargs)
+            h = self.norm1(m + hidden_states)
+            return self.norm2(self.mlp(h) + h), None
         res_dtype = (torch.float32 if self.residual_in_fp32
                      else hidden_states.dtype)
         h = hidden_states.to(res_dtype)
         residual = h if residual is None else h + residual
         h = self.mixer(self.norm1(residual.to(self.dtype)),
-                       inference_params=inference_params)
+                       inference_params=inference_params, **mixer_kwargs)
         residual = h.to(res_dtype) + residual
         h = self.mlp(self.norm2(residual.to(self.dtype)))
         return h, residual

@@ -1,10 +1,14 @@
 """Multi-head self-attention (counterpart of `flash_attn_tpu/modules/mha.py`:
-`InferenceParams:39`, `MHA:126`, the no-cache branch at `:299`,
+`InferenceParams:39`, `MHA:126`, the no-cache branches at `:233-299`,
 `MHA._cached_attention:329-388`).
 
-Without a cache, attention runs through `interface.flash_attn_func` (the
-autograd `Function` over the forward and backward kernels), as training
-needs; with one, through the forward-only prefill and decode kernels.
+Without a cache, attention runs through the differentiable functions of
+`interface`: with `cu_seqlens`, x is a packed (1, total, d) stream and
+attention is `flash_attn_varlen_func` (`:233-250`); otherwise the dense
+kernels' autograd `Function`, where a prefix `key_padding_mask` gives
+per-batch `seqused` lengths and its padded rows are zeroed (`:251-266`).
+With a cache, attention runs through the forward-only prefill and decode
+kernels.
 
 Only the self-attention, single-device case is ported; cross attention,
 rotary, tensor parallelism and the sharded / ring paths are queued.
@@ -22,7 +26,7 @@ import torch
 from torch import nn
 
 from flash_attn_tpu_torch.env import default_device
-from flash_attn_tpu_torch.interface import flash_attn_func
+from flash_attn_tpu_torch.interface import _attn_bhsd, flash_attn_varlen_func
 from flash_attn_tpu_torch.kernels.flash_decode import decode_attn_bhsd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attn_fwd_bhsd
 
@@ -92,16 +96,35 @@ class MHA(nn.Module):
                     alibi_slopes=(None if self.alibi is None
                                   else self.alibi.expand(b, -1)))
 
-    def forward(self, x, inference_params: Optional[InferenceParams] = None):
+    def forward(self, x, inference_params: Optional[InferenceParams] = None,
+                key_padding_mask=None, cu_seqlens=None, max_seqlen=None):
+        """x: (b, s, embed_dim), or (1, total, embed_dim) packed with
+        `cu_seqlens` (b + 1,) int32 and `max_seqlen`; key_padding_mask:
+        (b, s) bool prefix mask, True = valid token.  A cache ignores both,
+        as in JAX."""
         b, s, _ = x.shape
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
         qkv = self.Wqkv(x)
         q = qkv[..., : h * d].reshape(b, s, h, d)
         k = qkv[..., h * d: (h + hk) * d].reshape(b, s, hk, d)
         v = qkv[..., (h + hk) * d:].reshape(b, s, hk, d)
-        if inference_params is None:
-            ctx = flash_attn_func(q, k, v, causal=self.causal,
-                                  **self._kernel_kwargs(b))
+        if inference_params is None and cu_seqlens is not None:
+            ctx = flash_attn_varlen_func(
+                q.reshape(b * s, h, d), k.reshape(b * s, hk, d),
+                v.reshape(b * s, hk, d), cu_seqlens, cu_seqlens, max_seqlen,
+                max_seqlen, causal=self.causal,
+                **self._kernel_kwargs(1)).reshape(b, s, h, d)
+        elif inference_params is None:
+            lengths = (None if key_padding_mask is None
+                       else key_padding_mask.sum(-1, dtype=torch.int32))
+            o, _ = _attn_bhsd(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=self.causal,
+                              seqused_q=lengths, seqused_k=lengths,
+                              **self._kernel_kwargs(b))
+            ctx = o.transpose(1, 2)
+            if key_padding_mask is not None:
+                ctx = torch.where(key_padding_mask[:, :, None, None].bool(),
+                                  ctx, 0)
         else:
             ctx = self._cached_attention(q, k, v,
                                          inference_params).transpose(1, 2)

@@ -339,3 +339,121 @@ def test_decode_ref_layout_unsupported_raises_on_cuda(cuda, option, match):
                                 qv=qv)
     assert torch.equal(kc, kc0) and torch.equal(vc, vc0)
     assert flash_decode.launches == before
+
+
+def _varlen_inputs(case, dtype, d, gen, dev):
+    """Packed q, k, v, cu_seqlens, max lengths and keyword arguments of one
+    varlen case: BERT-like non-causal, causal GQA with an empty q sequence
+    and an empty k sequence (cross lengths), window + softcap + ALiBi."""
+    lens_q, lens_k, h, hk = [150, 64, 1, 200], None, 4, 4
+    kw = dict(softmax_scale=d ** -0.5, causal=case != "bert")
+    if case == "gqa_cross_empty":
+        lens_q, lens_k, h, hk = [130, 0, 70, 5], [200, 40, 0, 260], 8, 2
+    if case == "window_softcap_alibi":
+        kw.update(window_size=(40, 0), softcap=30.0,
+                  alibi_slopes=torch.rand(h, generator=gen, device=dev))
+    lens_k = lens_k or lens_q
+
+    def stream(lens, heads):
+        return torch.randn(sum(lens) + 3, heads, d, generator=gen,
+                           device=dev).to(dtype)
+
+    def cu(lens):
+        return torch.tensor([0] + lens, device=dev).cumsum(0).int()
+
+    q, k, v = stream(lens_q, h), stream(lens_k, hk), stream(lens_k, hk)
+    return q, k, v, cu(lens_q), cu(lens_k), max(lens_q), max(lens_k), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["bert", "gqa_cross_empty",
+                                  "window_softcap_alibi"])
+def test_varlen_kernels_match_plain(cuda, dtype, d, case):
+    """The packed varlen forward and backward against their plain versions
+    (fp32 oracle, low-precision yardstick); rows with no key and tokens past
+    the last sequence are o = 0, lse = +inf; the backward is bitwise
+    deterministic."""
+    from flash_attn_tpu_torch.kernels import varlen
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, cu_q, cu_k, mq, mk, kw = _varlen_inputs(case, dtype, d, gen,
+                                                     cuda)
+    args = (cu_q, cu_k, mq, mk)
+    before = varlen.launches_fwd, varlen.launches_dq, varlen.launches_dkv
+    o, lse = varlen.varlen_attn_fwd(q, k, v, *args, **kw)
+    o_ref, lse_ref = varlen.varlen_attn_fwd_ref(q.float(), k.float(),
+                                                v.float(), *args, **kw)
+    o_pt, lse_pt = varlen.varlen_attn_fwd_ref(q, k, v, *args, **kw)
+    check_close(o, o_ref, o_pt, label="o")
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    check_close(lse[fin], lse_ref[fin], lse_pt[fin], label="lse")
+    assert not o[-3:].any() and torch.isposinf(lse[:, -3:]).all()
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    dq, dk, dv = varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+    assert (varlen.launches_fwd, varlen.launches_dq, varlen.launches_dkv) \
+        == (before[0] + 1, before[1] + 1, before[2] + 1)
+    ref = varlen.varlen_attn_bwd_ref(do.float(), q.float(), k.float(),
+                                     v.float(), o.float(), lse, *args, **kw)
+    pt = varlen.varlen_attn_bwd_ref(do, q, k, v, o, lse, *args, **kw)
+    for name, x, r, y in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, pt):
+        check_close(x, r, y, label=name)
+    again = varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+    for x, y in zip((dq, dk, dv), again):
+        assert torch.equal(x, y)
+    if case == "gqa_cross_empty":  # sequence 1 has no query, 2 no key
+        assert not dk[200:240].any() and not dv[200:240].any()
+        assert not dq[130:200].any()
+
+
+def test_varlen_func_gradient_on_cuda(cuda):
+    """flash_attn_varlen_func's packed route on CUDA launches the varlen
+    kernels and its gradient the varlen backward; float32 q and head dim 96
+    raise NotImplementedError."""
+    from flash_attn_tpu_torch.interface import flash_attn_varlen_func
+    from flash_attn_tpu_torch.kernels import varlen
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, cu_q, cu_k, mq, mk, kw = _varlen_inputs(
+        "gqa_cross_empty", torch.bfloat16, 64, gen, cuda)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = varlen.launches_fwd, varlen.launches_dq
+    o = flash_attn_varlen_func(q, k, v, cu_q, cu_k, mq, mk, causal=True)
+    o.float().sum().backward()
+    assert (varlen.launches_fwd, varlen.launches_dq) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+    for bad in (q.detach().float(), q.detach()[..., :48].contiguous()):
+        with pytest.raises(NotImplementedError):
+            flash_attn_varlen_func(bad, bad, bad, cu_q, cu_q, mq, mq)
+
+
+def test_bert_on_cuda_matches_cpu_plain_path(cuda):
+    """BERT at a small size, unpadded and padded on CUDA in bf16, against
+    float32 on the CPU: the varlen path launches only varlen kernels, one a
+    layer, and the padded rows are exactly 0."""
+    from flash_attn_tpu_torch.kernels import varlen
+    from flash_attn_tpu_torch.models.bert import BertConfig, BertModel
+
+    cfg = BertConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=1024)
+    gpu = BertModel(cfg, device=cuda, dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(0))
+    cpu = BertModel(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    lens = [200, 17, 64, 130]
+    ids = torch.as_tensor(rng.integers(0, 1000, (4, 200)))
+    mask = torch.arange(200)[None, :] < torch.tensor(lens)[:, None]
+    with torch.no_grad():
+        want, _ = cpu(ids, mask, unpad_varlen=True)
+        before = varlen.launches_fwd, flash_fwd.launches
+        got, _ = gpu(ids.to(cuda), mask.to(cuda), unpad_varlen=True)
+        assert (varlen.launches_fwd - before[0],
+                flash_fwd.launches - before[1]) == (2, 0)
+        padded, _ = gpu(ids.to(cuda), mask.to(cuda))
+    got, padded = got.float().cpu(), padded.float().cpu()
+    assert not got[~mask].any()
+    assert (got[mask] - want[mask]).abs().max() < 0.1
+    assert (got[mask] - padded[mask]).abs().max() < 0.1

@@ -75,6 +75,9 @@ def test_model_raises_without_cuda(no_cuda):
 
 def _entry_points():
     from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
+    from flash_attn_tpu_torch.models.bert import (BertConfig,
+                                                  BertForPreTraining,
+                                                  BertModel)
     from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTModel
     from flash_attn_tpu_torch.modules.block import Block, _Norm
     from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
@@ -88,7 +91,13 @@ def _entry_points():
     tiny.model.n_embd, tiny.model.n_head, tiny.model.n_layer = 64, 2, 1
     tiny.model.vocab_size, tiny.data.seq_len = 17, 8
     stub = torch.nn.Identity()
+    bert = BertConfig(vocab_size=17, hidden_size=64, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=128,
+                      max_position_embeddings=32)
     return {
+        "BertModel": lambda: BertModel(bert),
+        "BertForPreTraining": lambda: BertForPreTraining(bert),
+        "Block_postnorm": lambda: Block(64, stub, stub, prenorm=False),
         "GPTModel": lambda: GPTModel(GPTConfig(n_embd=64, n_head=2, n_layer=1,
                                                vocab_size=17, n_positions=32)),
         "MHA": lambda: MHA(64, 2),
@@ -106,7 +115,8 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["GPTModel", "MHA", "Mlp", "GatedMlp",
                                   "_Norm", "Block", "GPT2Embeddings",
                                   "allocate_inference_cache", "Trainer",
-                                  "RotaryEmbedding"])
+                                  "RotaryEmbedding", "BertModel",
+                                  "BertForPreTraining", "Block_postnorm"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     """Every public constructor resolves device=None to CUDA, so none of
     them builds on the CPU unless asked to."""
@@ -118,17 +128,31 @@ def test_entry_point_raises_without_cuda(no_cuda, name):
 @pytest.mark.parametrize("fn", ["flash_attn_fwd_bhsd", "decode_attn_bhsd",
                                 "flash_attn_bwd_bhsd", "flash_attn_func",
                                 "decode_attn_ref_layout",
-                                "flash_attn_with_kvcache"])
+                                "flash_attn_with_kvcache", "varlen_attn_fwd",
+                                "varlen_attn_bwd", "flash_attn_varlen_func"])
 def test_wrappers_run_no_plain_version_off_cpu(fn):
     """A tensor that is not on the CPU never reaches the plain version."""
-    from flash_attn_tpu_torch.interface import flash_attn_func
-    from flash_attn_tpu_torch.kernels import flash_bwd, flash_decode, flash_fwd
+    from flash_attn_tpu_torch.interface import (flash_attn_func,
+                                                flash_attn_varlen_func)
+    from flash_attn_tpu_torch.kernels import (flash_bwd, flash_decode,
+                                              flash_fwd, varlen)
 
     q = torch.empty(1, 2, 4, 64, device="meta")
     k = torch.empty(1, 2, 8, 64, device="meta")
     lens = torch.empty(1, dtype=torch.int32, device="meta")
+    packed = torch.empty(8, 2, 64, device="meta")
+    cu = torch.empty(3, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for meta"):
-        if fn == "flash_attn_fwd_bhsd":
+        if fn == "varlen_attn_fwd":
+            varlen.varlen_attn_fwd(packed, packed, packed, cu, cu, 4, 4,
+                                   softmax_scale=0.125)
+        elif fn == "varlen_attn_bwd":
+            lse = torch.empty(2, 8, device="meta")
+            varlen.varlen_attn_bwd(packed, packed, packed, packed, packed,
+                                   lse, cu, cu, 4, 4, softmax_scale=0.125)
+        elif fn == "flash_attn_varlen_func":
+            flash_attn_varlen_func(packed, packed, packed, cu, cu, 4, 4)
+        elif fn == "flash_attn_fwd_bhsd":
             flash_fwd.flash_attn_fwd_bhsd(q, k, k, lens, lens,
                                           softmax_scale=0.125)
         elif fn == "decode_attn_bhsd":

@@ -260,10 +260,15 @@ def test_paged_varlen_prefill_matches_jax(causal, window, alibi, seqused):
 
 
 def test_varlen_unported_branches_raise():
+    """Varlen dropout is the one branch left unported, on the packed and
+    the padded route alike."""
     q = torch.zeros(6, 2, 32)
     cu = torch.tensor([0, 2, 6], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1.2"):
-        port.flash_attn_varlen_func(q, q, q, cu, cu, 4, 4)
+    with pytest.raises(NotImplementedError, match="Queue 2b"):
+        port.flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, dropout_p=0.1)
+    with pytest.raises(NotImplementedError, match="Queue 2b"):
+        port.flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, dropout_p=0.1,
+                                    return_attn_probs=True)
 
 
 @pytest.mark.parametrize("form", ["plain", "out_dtype", "out_buffer"])
