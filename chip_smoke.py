@@ -24,13 +24,19 @@ chunked prefill (int8 also against the plain int8 version on the kernel's
 own 64-key tiles).  The packed varlen kernels (the varlen modes of
 `flash_fwd.cu` and `flash_bwd.cu`) are held against their plain versions
 in `kernel_varlen` (cases (a)-(e)) and `kernel_varlen_bwd` (bitwise
-deterministic), and the last path is BERT-base's encoder at full width and
+deterministic), and the next path is BERT-base's encoder at full width and
 depth (`bert`): 10 unpadded forwards of 64 sequences of 16-512 tokens
 through `BertModel(unpad_varlen=True)`, against the padded path and fp32
-on the CPU, and one gradient.  The kernel launch counts of each path are
-set to 0 just before it and read just after.  Prints one JSON line per
-phase, the kernel summary, the card's name and power limit, and as its
-last line
+on the CPU, and one gradient.  Then programmable attention: the flex
+kernels of `csrc/flex.cu` against their plain versions in `kernel_flex`
+(cases (a)-(i): causal, sliding window, document mask through aux,
+softcap, relative position, attn_bias, ragged lengths, the block-sparse
+API, packed varlen) and `kernel_flex_bwd` (bitwise deterministic), and the
+`flex` path: forward and backward of Llama-3-8B's 32 attention layers
+over an 8192-token packed sequence under the causal document mask.  The
+kernel launch counts of each path are set to 0 just before it and read
+just after.  Prints one JSON line per phase, the kernel summary, the
+card's name and power limit, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero.
 """
@@ -1849,6 +1855,574 @@ def bert_phase():
     return res
 
 
+# The flex path: Llama-3-8B's attention widths (meta-llama/Meta-Llama-3-8B
+# config.json: 32 layers, 32 heads, 8 kv heads, head dim 128) over one packed
+# 8192-token pretraining sequence of seeded documents of 128-4096 tokens,
+# under the causal document mask that Llama 3 pretraining uses between
+# documents; blocks of 128, head-invariant tables.
+FLEX_LAYERS = 32
+FLEX_SEQ = 8192
+FLEX_BLOCK = 128
+FLEX_PROFILE_LAYERS = 3
+
+
+def doc_lengths(gen, total, lo, hi):
+    """Seeded document lengths of lo-hi tokens filling `total` tokens (the
+    last one cut to fit)."""
+    import torch
+
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(torch.randint(lo, hi + 1, (1,), generator=gen)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+def doc_ids(lens):
+    """(1, sum(lens)) int32 document ids on the card."""
+    import torch
+
+    return torch.repeat_interleave(
+        torch.arange(len(lens)), torch.tensor(lens)).int()[None].to(DEV)
+
+
+def causal_mod(b, h, q_idx, kv_idx):
+    return q_idx >= kv_idx
+
+
+def doc_mod(b, h, q_idx, kv_idx, qa, ka):
+    return qa == ka
+
+
+def doc_causal_mod(b, h, q_idx, kv_idx, qa, ka):
+    return (qa == ka) & (q_idx >= kv_idx)
+
+
+def window_causal_mod(b, h, q_idx, kv_idx):
+    return (q_idx >= kv_idx) & (q_idx - kv_idx < 256)
+
+
+def late_rows_mod(b, h, q_idx, kv_idx):
+    return (q_idx >= 200) & (kv_idx <= q_idx + 500)
+
+
+def flex_keep(bm, bits, sq, sk):
+    """(b, th, sq, sk) bool: what the block lists keep (full blocks whole,
+    partial blocks through the bits, keys < sk), the mask a dense library
+    call needs for the same function."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flex
+
+    b, th, nq, _ = bm.kv_idx.shape
+    nk, bq, bk = bm.q_idx.shape[2], bm.block_q, bm.block_k
+    keep = torch.zeros(b, th, nq, nk, bq, bk, dtype=torch.bool, device=DEV)
+    for num, idx, partial in ((bm.full_kv_num, bm.full_kv_idx, False),
+                              (bm.kv_num, bm.kv_idx, True)):
+        valid = torch.arange(idx.shape[-1], device=DEV) < num[..., None]
+        bi, hi, qi, j = valid.nonzero(as_tuple=True)
+        kb = idx[bi, hi, qi, j].long()
+        if partial:
+            slot = bits.slot[bi, hi, qi, kb].long()
+            keep[bi, hi, qi, kb] = flex._unpack_bits(bits.words[slot], bk)
+        else:
+            keep[bi, hi, qi, kb] = True
+    keep = keep.permute(0, 1, 2, 4, 3, 5).reshape(b, th, nq * bq, nk * bk)
+    return keep[:, :, :sq, :sk]
+
+
+def bias_live_bytes(keep, bias):
+    """Bytes of the bias elements some kept pair reads (keep reduced over
+    the bias's broadcast dimensions), float32; 0 without a bias."""
+    if bias is None:
+        return 0
+    if bias.shape[0] == 1:
+        keep = keep.any(0, keepdim=True)
+    if bias.shape[1] == 1:
+        keep = keep.any(1, keepdim=True)
+    return int(keep.sum()) * (bias.shape[1] // keep.shape[1]) * 4
+
+
+def flex_library_mask(keep, h, score_mod, bias):
+    """SDPA's attn_mask for the same function: the bool keep mask, or, with
+    a relative-position mod or a bias, a float mask carrying those terms
+    (-inf where masked); None for a softcap, which SDPA cannot apply."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flex
+
+    if score_mod is not None and score_mod.code == flex._MOD_SOFTCAP:
+        return None
+    if score_mod is None and bias is None:
+        return keep
+    sq, sk = keep.shape[-2:]
+    terms = torch.zeros(1, h, sq, sk, device=DEV)
+    if bias is not None:
+        terms = terms + bias
+    if score_mod is not None:
+        rel = (torch.arange(sq, device=DEV)[:, None]
+               - torch.arange(sk, device=DEV)[None, :]).abs().float()
+        terms = terms - score_mod.slopes.to(DEV).view(1, h, 1, 1) * rel
+    return torch.where(keep, terms, -math.inf)
+
+
+def sdpa_flex_inputs(q, k, v):
+    """(b, h, s, d) copies of the flex inputs for SDPA, kv heads repeated
+    to the query heads outside the timed call (SDPA's masked kernels take
+    no GQA)."""
+    g = q.shape[2] // k.shape[2]
+    return (q.transpose(1, 2).contiguous(),
+            k.repeat_interleave(g, 2).transpose(1, 2).contiguous(),
+            v.repeat_interleave(g, 2).transpose(1, 2).contiguous())
+
+
+def flex_inputs(label, b, h, hk, sq, sk, d, gen, mask_mod, block=128,
+                aux=None, score_mod=None, bias=None, head_invariant=True,
+                block_mask=None):
+    """One flex case: seeded bf16 q (b, sq, h, d), k, v (b, sk, hk, d), its
+    BlockMask (built here, timed, unless given) and partial-block bits."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flex
+
+    q = torch.randn(b, sq, h, d, generator=gen, device=DEV).bfloat16()
+    k = torch.randn(b, sk, hk, d, generator=gen, device=DEV).bfloat16()
+    v = torch.randn(b, sk, hk, d, generator=gen, device=DEV).bfloat16()
+    block_mask_ms = None
+    if block_mask is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block_mask = flex.create_block_mask(
+            mask_mod, b, h, sq, sk, block_q=block, block_k=block, q_aux=aux,
+            kv_aux=aux, head_invariant=head_invariant, device=DEV)
+        torch.cuda.synchronize()
+        block_mask_ms = (time.perf_counter() - t0) * 1e3
+    bits = flex.partial_block_bits(block_mask, mask_mod, aux, aux, sk)
+    return dict(label=label, q=q, k=k, v=v, bm=block_mask, mask_mod=mask_mod,
+                bits=bits, kw=(block_mask, bits, score_mod, d ** -0.5, aux,
+                               aux, bias),
+                block_mask_ms=block_mask_ms, score_mod=score_mod, bias=bias,
+                aux=aux)
+
+
+def flex_fwd_case(c, **extra):
+    """`flex_fwd_kernel` against `flex_attn_fwd_ref` (fp32 oracle, bf16
+    yardstick) on o and lse; kernel (cold inputs), mask preparation (the
+    partial-block bits, once per call), plain version and SDPA on the
+    materialised mask (dense work) timed beside the bound: 4*d FLOPs per
+    live pair (full blocks' elements plus the bits' kept pairs) against q,
+    k, v, o (and the bias's live elements) bytes.  `extra` goes into the case's JSON line."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flex
+
+    q, k, v, kw, label = c["q"], c["k"], c["v"], c["kw"], c["label"]
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    o, lse = flex.flex_attn_fwd(q, k, v, *kw)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flex.flex_attn_fwd_ref(q.float(), k.float(), v.float(),
+                                            *kw)
+    o_pt, lse_pt = flex.flex_attn_fwd_ref(q, k, v, *kw)
+    if not torch.isfinite(o).all():
+        raise AssertionError(f"{label}: non-finite output")
+    rows_ok = torch.ones(b, h, sq, dtype=torch.bool, device=DEV)
+    err_o, err_o_pt, err_l, err_l_pt = check_attention(
+        label, o.transpose(1, 2), lse, o_ref.transpose(1, 2), lse_ref,
+        o_pt.transpose(1, 2), lse_pt, rows_ok)
+    empty_rows = int(torch.isinf(lse_ref).sum())
+    del o_ref, lse_ref, o_pt, lse_pt
+    keep = flex_keep(c["bm"], c["bits"], sq, sk)
+    live = int(keep.sum()) * (h // keep.shape[1])
+    bias = c["bias"]
+    bytes_ = ((2 * q.numel() + k.numel() + v.numel()) * 2 + b * h * sq * 4
+              + bias_live_bytes(keep, bias))
+    bound_ms, bound_by = bound(4 * d * live, bytes_)
+    prep = (lambda: flex.partial_block_bits(c["bm"], c["mask_mod"], c["aux"],
+                                            c["aux"], sk))
+    mask_prep_ms = call_ms(prep, [()], iters=5, warmup=1)
+    copies = input_copies(q, k, v)
+    fn = lambda *a: flex.flex_attn_fwd(*a, *kw)  # noqa: E731
+    before = flex.launches_fwd
+    kernel_ms = time_ms(fn, copies)
+    kernel_call_ms = call_ms(fn, copies)
+    plain_ms = call_ms(lambda *a: flex.flex_attn_fwd_ref(*a, *kw), copies,
+                       iters=3, warmup=1)
+    flex.launches_fwd = before  # timing launches are not the main path's
+    library_ms = None
+    mask = flex_library_mask(keep, h, c["score_mod"], bias)
+    if mask is not None:
+        import torch.nn.functional as F
+
+        library_ms = time_ms(
+            lambda qh, kh, vh, m: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=m, scale=d ** -0.5),
+            input_copies(*sdpa_flex_inputs(q, k, v), mask))
+    bm = c["bm"]
+    res = dict(phase="kernel_flex", case=label, b=b, h=h, hk=k.shape[2],
+               sq=sq, sk=sk, d=d, block_q=bm.block_q, block_k=bm.block_k,
+               head_invariant=bm.kv_num.shape[1] == 1,
+               score_mod=repr(c["score_mod"]),
+               bias=None if bias is None else list(bias.shape),
+               block_density=bm.sparsity, partial_blocks=int(
+                   c["bits"].words.shape[0]),
+               live_pairs=live, empty_rows=empty_rows,
+               max_abs_err_o=err_o, plain_bf16_err_o=err_o_pt,
+               max_abs_err_lse=err_l, plain_bf16_err_lse=err_l_pt,
+               kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               mask_prep_ms=mask_prep_ms,
+               block_mask_ms=c["block_mask_ms"], plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               library=None if mask is None else
+               "sdpa, materialised mask (dense work)",
+               flops=4 * d * live, bytes=bytes_,
+               share_of_bound=bound_ms / kernel_ms, **extra)
+    emit(res)
+    return res
+
+
+def flex_bwd_case(c):
+    """`flex_bwd_dq_kernel` and `flex_bwd_dkv_kernel` against
+    `flex_attn_bwd_ref` (fp32 oracle, bf16 yardstick) on dq, dk, dv and
+    dbias; a second call bitwise equal; each kernel's device time
+    (profiler), the plain version and SDPA's backward on the materialised
+    mask timed beside the bounds (6*d and 8*d FLOPs per live pair; the
+    bias's live elements read, dbias written once in the bias's shape)."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flex
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    q, k, v, kw, label = c["q"], c["k"], c["v"], c["kw"], c["label"]
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    before = flex.launches_fwd, flex.launches_dq, flex.launches_dkv
+    o, lse = flex.flex_attn_fwd(q, k, v, *kw)
+    do = torch.randn(q.shape, generator=gen, device=DEV).bfloat16()
+    grads = flex.flex_attn_bwd(do, q, k, v, o, lse, *kw)
+    torch.cuda.synchronize()
+    ref = flex.flex_attn_bwd_ref(do.float(), q.float(), k.float(), v.float(),
+                                 o.float(), lse, *kw)
+    pt = flex.flex_attn_bwd_ref(do, q, k, v, o, lse, *kw)
+    errs = {}
+    for name, x, r, y in zip(("dq", "dk", "dv", "dbias"), grads, ref, pt):
+        if x is None:
+            continue
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+        errs[name] = check_close(x, r, y, label=f"{label} {name}")
+    del ref, pt
+    again = flex.flex_attn_bwd(do, q, k, v, o, lse, *kw)
+    if not all(x is None or torch.equal(x, y) for x, y in zip(grads, again)):
+        raise AssertionError(f"{label}: two backward runs differ")
+    del again
+    keep = flex_keep(c["bm"], c["bits"], sq, sk)
+    live = int(keep.sum()) * (h // keep.shape[1])
+    bias = c["bias"]
+    q_side, kv_side = q.numel() * 2, k.numel() * 2
+    stats = 2 * b * h * sq * 4
+    bias_b = bias_live_bytes(keep, bias)
+    dbias_b = 0 if bias is None else bias.numel() * 4
+    dq_bound = bound(6 * d * live, 3 * q_side + 2 * kv_side + stats + bias_b
+                     + dbias_b)
+    dkv_bound = bound(8 * d * live, 2 * q_side + 4 * kv_side + stats + bias_b)
+    copies = input_copies(do, q, k, v, o, lse)
+    fn = lambda *a: flex.flex_attn_bwd(*a, *kw)  # noqa: E731
+    kernel_ms = time_ms(fn, copies, iters=10)
+    dev_ms = kernel_device_ms(fn, copies, ("flex_bwd_dq_kernel",
+                                           "flex_bwd_dkv_kernel"), iters=10)
+    plain_ms = call_ms(lambda *a: flex.flex_attn_bwd_ref(*a, *kw), copies,
+                       iters=2, warmup=1)
+    flex.launches_fwd, flex.launches_dq, flex.launches_dkv = before
+    library_ms = None
+    mask = flex_library_mask(keep, h, c["score_mod"], bias)
+    if mask is not None:
+        import torch.nn.functional as F
+
+        graphs = []
+        for qc, kc, vc, dc in input_copies(*sdpa_flex_inputs(q, k, v),
+                                           do.transpose(1, 2).contiguous()):
+            ins = [t.detach().requires_grad_() for t in (qc, kc, vc)]
+            out = F.scaled_dot_product_attention(*ins, attn_mask=mask,
+                                                 scale=d ** -0.5)
+            graphs.append((out, ins, dc))
+        library_ms = time_ms(lambda out, ins, dc: torch.autograd.grad(
+            out, ins, dc, retain_graph=True), graphs, iters=10)
+        del graphs
+    res = dict(phase="kernel_flex_bwd", case=label, b=b, h=h, hk=k.shape[2],
+               sq=sq, sk=sk, d=d,
+               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
+               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
+               bitwise_repeat=True, kernel_ms=kernel_ms,
+               dq_kernel_ms=dev_ms["flex_bwd_dq_kernel"],
+               dkv_kernel_ms=dev_ms["flex_bwd_dkv_kernel"],
+               plain_ms=plain_ms, dq_bound_ms=dq_bound[0],
+               dq_bound_by=dq_bound[1], dkv_bound_ms=dkv_bound[0],
+               dkv_bound_by=dkv_bound[1], library_ms=library_ms,
+               library=None if mask is None else
+               "sdpa backward, materialised mask (dense work)",
+               live_pairs=live,
+               dq_share_of_bound=dq_bound[0] / dev_ms["flex_bwd_dq_kernel"],
+               dkv_share_of_bound=dkv_bound[0]
+               / dev_ms["flex_bwd_dkv_kernel"])
+    emit(res)
+    return res
+
+
+def compiled_flex_ms(c):
+    """torch.nn.attention.flex_attention under torch.compile on the inputs
+    of case `c` (a document mask), as a second yardstick: no check depends
+    on it, and a failure to compile is recorded as such."""
+    import torch
+
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        docs = c["aux"][0]
+        q, k, v = (x.transpose(1, 2).contiguous()
+                   for x in (c["q"], c["k"], c["v"]))
+        sq = q.shape[2]
+        bm = create_block_mask(lambda b, h, qi, ki: docs[qi] == docs[ki],
+                               None, None, sq, sq, device=DEV,
+                               BLOCK_SIZE=c["bm"].block_q)
+        fn = torch.compile(flex_attention)
+        t0 = time.perf_counter()
+        fn(q, k, v, block_mask=bm, enable_gqa=True)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        ms = time_ms(lambda a, b_, c_: fn(a, b_, c_, block_mask=bm,
+                                           enable_gqa=True),
+                     input_copies(q, k, v))
+        return dict(ms=ms, compile_s=compile_s)
+    except Exception as e:  # a yardstick only
+        return dict(error=f"{type(e).__name__}: {str(e)[:300]}")
+
+
+def flex_varlen_case(gen):
+    """Case (i): `flash_attn_varlen_packed_func` (the flex path, blocks of
+    128) on the `bert` batch's 64 sequences, within `check_close` of the
+    fp32 oracle against the varlen kernel's own error
+    (`flash_attn_varlen_func`'s packed route, row 10's kernel); then its
+    flex forward against the plain version like the other cases."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flex
+    from flash_attn_tpu_torch.kernels import varlen as vl
+    from flash_attn_tpu_torch.kernels import varlen_packed as vp
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    lens = bert_batch_lengths()
+    q, k, v, cu, _ = varlen_inputs(lens, lens, 12, 12, 64, gen,
+                                   torch.bfloat16)
+    m, total, blk = max(lens), q.shape[0], 128
+    before = flex.launches_fwd, vl.launches_fwd
+    o_flex = vp.flash_attn_varlen_packed_func(q, k, v, cu, cu, m, m,
+                                              block_q=blk, block_k=blk)
+    args = (cu, cu, m, m)
+    o_var, _ = vl.varlen_attn_fwd(q, k, v, *args, softmax_scale=0.125)
+    flex.launches_fwd, vl.launches_fwd = before
+    o_ref, _ = vl.varlen_attn_fwd_ref(q.float(), k.float(), v.float(), *args,
+                                      softmax_scale=0.125)
+    err, err_varlen = check_close(o_flex, o_ref, o_var,
+                                  label="i: packed varlen vs varlen kernel")
+    tp = -(-total // blk) * blk
+    aux = vp._segment_aux(cu, total, tp)[None]
+    bm = vp.varlen_block_mask(cu, cu, tp, tp, causal=False, block_q=blk,
+                              block_k=blk, nheads=1)
+    c = flex_inputs("i: packed varlen (BERT batch)", 1, 12, 12, total, total,
+                    64, gen, vp.make_varlen_mask_mod(False), aux=aux,
+                    block_mask=bm)
+    c["q"], c["k"], c["v"] = q[None], k[None], v[None]
+    return flex_fwd_case(c, vs_varlen_kernel_err=err,
+                         varlen_kernel_err=err_varlen)
+
+
+def kernel_flex_phases():
+    """Cases (a)-(i) of the flex forward, (a), (c), (d), (f) of the
+    backward, and torch.compile'd flex_attention at case (c)."""
+    import torch
+    from flash_attn_tpu_torch import blocksparse
+    from flash_attn_tpu_torch.kernels import flex
+
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    lens = torch.Generator().manual_seed(7)
+    cases = {
+        "a": flex_inputs("a: GPT-2 small, causal", 8, 12, 12, 1024, 1024,
+                         64, gen, causal_mod),
+        "b": flex_inputs("b: sliding window 256 + causal", 4, 16, 16, 2048,
+                         2048, 128, gen, window_causal_mod),
+        "c": flex_inputs("c: document mask through aux, Llama-3-8B widths",
+                         1, 32, 8, FLEX_SEQ, FLEX_SEQ, 128, gen, doc_mod,
+                         aux=doc_ids(doc_lengths(lens, FLEX_SEQ, 128, 4096))),
+        "d": flex_inputs("d: softcap 30 + causal", 4, 16, 16, 2048, 2048,
+                         128, gen, causal_mod, score_mod=flex.softcap(30.0)),
+        "e": flex_inputs("e: relative position (ALiBi slopes), GQA, causal",
+                         2, 32, 8, 2048, 2048, 128, gen, causal_mod,
+                         score_mod=flex.relative_position(
+                             2.0 ** (-8.0 * torch.arange(1, 33) / 32))),
+        "f": flex_inputs("f: attn_bias (1, h, sq, sk) + causal", 2, 16, 16,
+                         2048, 2048, 64, gen, causal_mod,
+                         bias=torch.randn(1, 16, 2048, 2048, generator=gen,
+                                          device=DEV) * 0.5),
+        "g": flex_inputs("g: ragged sq 1000, sk 1500, empty rows", 2, 16, 16,
+                         1000, 1500, 64, gen, late_rows_mod),
+    }
+    layout = torch.rand(8, 8, generator=torch.Generator().manual_seed(8)) \
+        < 0.4
+    layout |= torch.eye(8, dtype=torch.bool)
+    cases["h"] = flex_inputs(
+        "h: flash_blocksparse_attn_func, seeded 8x8 layout of 512-blocks", 2,
+        16, 16, 4096, 4096, 64, gen, None,
+        block_mask=blocksparse.convert_blockmask(
+            layout, 2, 16, 4096, 4096, block_q=512, block_k=512, device=DEV))
+    fwd = {key: flex_fwd_case(c) for key, c in cases.items()}
+    # the entry point reads q, k, v from qkv in place: the same kernel on
+    # the same values gives the same bits
+    c = cases["h"]
+    before = flex.launches_fwd
+    o_bs = blocksparse.flash_blocksparse_attn_func(
+        torch.stack([c["q"], c["k"], c["v"]], dim=2), layout, block_q=512,
+        block_k=512)
+    flex.launches_fwd = before
+    if not torch.equal(o_bs, flex.flex_attn_fwd(c["q"], c["k"], c["v"],
+                                                 *c["kw"])[0]):
+        raise AssertionError("h: flash_blocksparse_attn_func differs from "
+                             "flex_attn_fwd on the same block mask")
+    flex.launches_fwd = before
+    fwd["i"] = flex_varlen_case(gen)
+    bwd = {key: flex_bwd_case(cases[key]) for key in ("a", "c", "d", "f")}
+    compiled = compiled_flex_ms(cases["c"])
+    emit(dict(phase="kernel_flex_compiled", case=cases["c"]["label"],
+              **compiled))
+    del cases
+    torch.cuda.empty_cache()
+    return fwd, bwd, compiled
+
+
+def flex_phase():
+    """The flex path at Llama-3-8B's attention widths: for each of its 32
+    layers, seeded q, k, v and dO through `flex_attention` forward and
+    backward under the causal document mask (one BlockMask, head-invariant,
+    128-blocks, built once); exactly 32 + 32 + 32 flex launches; layer 0's
+    o, lse and gradients against the plain version; attention tokens/s,
+    forward and backward ms a layer, the mask preparation, block density,
+    peak memory and the device's idle share over 3 profiled layers."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flex
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    s, h, hk, d = FLEX_SEQ, 32, 8, 128
+    lens = doc_lengths(torch.Generator().manual_seed(5), s, 128, 4096)
+    doc = doc_ids(lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bm = flex.create_block_mask(doc_causal_mod, 1, h, s, s,
+                                block_q=FLEX_BLOCK, block_k=FLEX_BLOCK,
+                                q_aux=doc, kv_aux=doc, head_invariant=True,
+                                device=DEV)
+    torch.cuda.synchronize()
+    block_mask_ms = (time.perf_counter() - t0) * 1e3
+    gen = torch.Generator(device=DEV).manual_seed(6)
+
+    def layer_inputs():
+        q = torch.randn(1, s, h, d, generator=gen, device=DEV).bfloat16()
+        k = torch.randn(1, s, hk, d, generator=gen, device=DEV).bfloat16()
+        v = torch.randn(1, s, hk, d, generator=gen, device=DEV).bfloat16()
+        do = torch.randn(1, s, h, d, generator=gen, device=DEV).bfloat16()
+        return [x.requires_grad_() for x in (q, k, v)] + [do]
+
+    def attention(q, k, v):
+        return flex.flex_attention(q, k, v, mask_mod=doc_causal_mod,
+                                   block_mask=bm, q_aux=doc, kv_aux=doc,
+                                   return_lse=True)
+
+    q, k, v, do = layer_inputs()  # warm-up, outside the counts
+    attention(q, k, v)[0].backward(do)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("launches_fwd", "launches_dq", "launches_dkv"):
+        setattr(flex, name, 0)
+    fwd_ms, bwd_ms = [], []
+    for layer in range(FLEX_LAYERS):
+        q, k, v, do = layer_inputs()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        o, lse = attention(q, k, v)
+        ev[1].record()
+        o.backward(do)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        bwd_ms.append(ev[1].elapsed_time(ev[2]))
+        if layer == 0:
+            first = (q, k, v, do, o.detach(), lse,
+                     [x.grad for x in (q, k, v)])
+    counts = dict(flex_fwd=flex.launches_fwd, flex_dq=flex.launches_dq,
+                  flex_dkv=flex.launches_dkv)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(flex_fwd=FLEX_LAYERS, flex_dq=FLEX_LAYERS,
+                flex_dkv=FLEX_LAYERS)
+    if counts != want:
+        raise AssertionError(f"flex: launches {counts}, expected {want}")
+
+    # layer 0 against the plain version
+    q, k, v, do, o, lse, grads = first
+    bits = flex.partial_block_bits(bm, doc_causal_mod, doc, doc, s)
+    kw = (bm, bits, None, d ** -0.5, doc, doc, None)
+    q, k, v = (x.detach() for x in (q, k, v))
+    o_ref, lse_ref = flex.flex_attn_fwd_ref(q.float(), k.float(), v.float(),
+                                            *kw)
+    o_pt, lse_pt = flex.flex_attn_fwd_ref(q, k, v, *kw)
+    rows_ok = torch.ones(1, h, s, dtype=torch.bool, device=DEV)
+    errs = dict(zip(("o", "o_plain_bf16", "lse", "lse_plain_bf16"),
+                    check_attention("flex layer 0", o.transpose(1, 2), lse,
+                                    o_ref.transpose(1, 2), lse_ref,
+                                    o_pt.transpose(1, 2), lse_pt, rows_ok)))
+    del o_ref, o_pt
+    ref = flex.flex_attn_bwd_ref(do.float(), q.float(), k.float(), v.float(),
+                                 o.float(), lse, *kw)
+    pt = flex.flex_attn_bwd_ref(do, q, k, v, o, lse, *kw)
+    for name, x, r, y in zip(("dq", "dk", "dv"), grads, ref, pt):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"flex layer 0: non-finite {name}")
+        errs[name], errs[f"{name}_plain_bf16"] = check_close(
+            x, r, y, label=f"flex layer 0 {name}")
+    del ref, pt, first, grads
+    mask_prep_ms = call_ms(
+        lambda: flex.partial_block_bits(bm, doc_causal_mod, doc, doc, s),
+        [()], iters=5, warmup=1)
+
+    # the device's idle share over FLEX_PROFILE_LAYERS more layers
+    ins = [layer_inputs() for _ in range(FLEX_PROFILE_LAYERS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for q, k, v, do in ins:
+        attention(q, k, v)[0].backward(do)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / FLEX_PROFILE_LAYERS
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for q, k, v, do in ins:
+            attention(q, k, v)[0].backward(do)
+        torch.cuda.synchronize()
+    profile = dict(layers=FLEX_PROFILE_LAYERS, **profile_summary(
+        prof, FLEX_PROFILE_LAYERS, step_s, "layer", "flex", "flex_"))
+    del ins, prof
+    layer_ms = sum(fwd_ms) + sum(bwd_ms)
+    res = dict(phase="flex",
+               model="Llama-3-8B attention (32 layers, 32 heads, 8 kv heads, "
+               "head dim 128), bf16, random q/k/v/dO per layer",
+               tokens=s, documents=len(lens), doc_min=min(lens),
+               doc_max=max(lens), block=FLEX_BLOCK,
+               block_density=bm.sparsity, block_mask_ms=block_mask_ms,
+               mask_prep_ms=mask_prep_ms, layers=FLEX_LAYERS,
+               forward_ms_per_layer=sum(fwd_ms) / FLEX_LAYERS,
+               backward_ms_per_layer=sum(bwd_ms) / FLEX_LAYERS,
+               attention_tokens_per_s=s * FLEX_LAYERS / (layer_ms * 1e-3),
+               max_memory_allocated=peak, launches=counts,
+               layer0_errs=errs, profile=profile)
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
 
@@ -1920,6 +2494,8 @@ def main():
     kv_by_run = {run: r["flash_decode_ref_launches"]
                  for run, r in kvpath.items()}
     bert = bert_phase()
+    ffwd, fbwd, fcompiled = kernel_flex_phases()
+    flexpath = flex_phase()
 
     a = bwd["a"]
     kernels = [
@@ -2019,6 +2595,62 @@ def main():
                               library_ms=r["library_ms"],
                               bitwise_repeat=r["bitwise_repeat"])
                       for k, r in vbwd.items()}),
+        dict(name="flex_fwd", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flex.cu",
+             kernel="flex_fwd_kernel (also serves flex.py:521, "
+             "_flex_fwd_hb_kernel)",
+             replaces="flash_attn_tpu/kernels/flex.py:430",
+             launches=flexpath["launches"]["flex_fwd"],
+             launches_by_path=dict(flex=flexpath["launches"]["flex_fwd"]),
+             case=ffwd["c"]["case"], max_abs_err=ffwd["c"]["max_abs_err_o"],
+             ms=ffwd["c"]["kernel_ms"], plain_ms=ffwd["c"]["plain_ms"],
+             bound_ms=ffwd["c"]["bound_ms"], bound_by=ffwd["c"]["bound_by"],
+             library_ms=ffwd["c"]["library_ms"],
+             library=ffwd["c"]["library"],
+             mask_prep_ms=ffwd["c"]["mask_prep_ms"],
+             compiled_torch_flex=fcompiled,
+             by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["bound_ms"],
+                              library_ms=r["library_ms"],
+                              mask_prep_ms=r["mask_prep_ms"],
+                              max_abs_err=r["max_abs_err_o"])
+                      for k, r in ffwd.items()}),
+        dict(name="flex_bwd_dq", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flex.cu",
+             kernel="flex_bwd_dq_kernel",
+             replaces="flash_attn_tpu/kernels/flex.py:912",
+             launches=flexpath["launches"]["flex_dq"],
+             launches_by_path=dict(flex=flexpath["launches"]["flex_dq"]),
+             case=fbwd["c"]["case"], max_abs_err=fbwd["c"]["max_abs_err_dq"],
+             ms=fbwd["c"]["dq_kernel_ms"], plain_ms=fbwd["c"]["plain_ms"],
+             bound_ms=fbwd["c"]["dq_bound_ms"],
+             bound_by=fbwd["c"]["dq_bound_by"],
+             library_ms=fbwd["c"]["library_ms"],
+             library=fbwd["c"]["library"],
+             by_case={k: dict(ms=r["dq_kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["dq_bound_ms"],
+                              library_ms=r["library_ms"],
+                              bitwise_repeat=r["bitwise_repeat"])
+                      for k, r in fbwd.items()}),
+        dict(name="flex_bwd_dkv", route="cuda",
+             source="flash_attn_tpu_torch/csrc/flex.cu",
+             kernel="flex_bwd_dkv_kernel",
+             replaces="flash_attn_tpu/kernels/flex.py:1010",
+             launches=flexpath["launches"]["flex_dkv"],
+             launches_by_path=dict(flex=flexpath["launches"]["flex_dkv"]),
+             case=fbwd["c"]["case"],
+             max_abs_err=max(fbwd["c"]["max_abs_err_dk"],
+                             fbwd["c"]["max_abs_err_dv"]),
+             ms=fbwd["c"]["dkv_kernel_ms"], plain_ms=fbwd["c"]["plain_ms"],
+             bound_ms=fbwd["c"]["dkv_bound_ms"],
+             bound_by=fbwd["c"]["dkv_bound_by"],
+             library_ms=fbwd["c"]["library_ms"],
+             library=fbwd["c"]["library"],
+             by_case={k: dict(ms=r["dkv_kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["dkv_bound_ms"],
+                              library_ms=r["library_ms"],
+                              bitwise_repeat=r["bitwise_repeat"])
+                      for k, r in fbwd.items()}),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

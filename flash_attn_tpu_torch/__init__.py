@@ -9,7 +9,9 @@ Ported so far: the GPT-2 serving path (`serving.ServingEngine` ->
 and packed varlen attention with the BERT encoder
 (`models.bert.BertModel(unpad_varlen=True)` -> `flash_attn_varlen_func` ->
 `kernels.varlen` -> the varlen modes of `csrc/flash_fwd.cu` and
-`csrc/flash_bwd.cu`).
+`csrc/flash_bwd.cu`), and programmable attention (`flex_attention`,
+`create_block_mask`, `blocksparse.flash_blocksparse_attn_func`,
+`flash_attn_varlen_packed_func` -> `kernels.flex` -> `csrc/flex.cu`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU present `device=None` raises `RuntimeError`.  On CPU tensors each kernel
@@ -24,9 +26,15 @@ from flash_attn_tpu_torch.interface import (
     flash_attn_varlen_kvpacked_func, flash_attn_varlen_qkvpacked_func,
     flash_attn_with_kvcache, fuse_kv_cache, get_scheduler_metadata,
     split_kv_cache)
+from flash_attn_tpu_torch.kernels.flex import (BlockMask, create_block_mask,
+                                               flex_attention)
+from flash_attn_tpu_torch.kernels.varlen_packed import \
+    flash_attn_varlen_packed_func
 
-__all__ = ["default_device", "flash_attn_combine", "flash_attn_func",
-           "flash_attn_kvpacked_func", "flash_attn_qkvpacked_func",
-           "flash_attn_varlen_func", "flash_attn_varlen_kvpacked_func",
+__all__ = ["BlockMask", "create_block_mask", "default_device",
+           "flash_attn_combine", "flash_attn_func", "flash_attn_kvpacked_func",
+           "flash_attn_qkvpacked_func", "flash_attn_varlen_func",
+           "flash_attn_varlen_kvpacked_func", "flash_attn_varlen_packed_func",
            "flash_attn_varlen_qkvpacked_func", "flash_attn_with_kvcache",
-           "fuse_kv_cache", "get_scheduler_metadata", "split_kv_cache"]
+           "flex_attention", "fuse_kv_cache", "get_scheduler_metadata",
+           "split_kv_cache"]

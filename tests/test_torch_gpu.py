@@ -457,3 +457,141 @@ def test_bert_on_cuda_matches_cpu_plain_path(cuda):
     assert not got[~mask].any()
     assert (got[mask] - want[mask]).abs().max() < 0.1
     assert (got[mask] - padded[mask]).abs().max() < 0.1
+
+
+def _flex_inputs(case, dtype, d, gen, dev):
+    """(q, k, v, block mask, bits, score mod, bias, sq) of one flex case."""
+    from flash_attn_tpu_torch.kernels import flex
+
+    b, h, hk, sq, sk, bq, bk = 2, 4, 2, 300, 300, 64, 64
+    smod = bias = aux = None
+    inv = False
+
+    def mask(b_, h_, qi, ki):
+        return qi >= ki
+
+    if case == "doc_aux":
+        bq, bk, hk = 128, 64, 4
+        aux = (torch.rand(b, sk, generator=gen, device=dev) < 0.02).cumsum(
+            1).int()
+
+        def mask(b_, h_, qi, ki, qa, ka):
+            return (qa == ka) & (qi >= ki)
+    elif case == "softcap":
+        smod = flex.softcap(30.0)
+    elif case == "relpos_head_invariant":
+        smod = flex.relative_position(0.02 * torch.arange(1, h + 1))
+        inv = True
+    elif case == "bias":
+        bias = torch.randn(1, h, sq, sk, generator=gen, device=dev) * 0.5
+    elif case == "ragged_empty":
+        sq, sk, bk = 100, 250, 128
+
+        def mask(b_, h_, qi, ki):
+            return (qi >= 40) & (ki <= qi + 130)
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, sk, hk, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk, hk, d, generator=gen, device=dev).to(dtype)
+    auxes = (aux, aux)
+    bm = flex.create_block_mask(mask, b, h, sq, sk, block_q=bq, block_k=bk,
+                                q_aux=aux, kv_aux=aux, head_invariant=inv,
+                                device=dev)
+    bits = flex.partial_block_bits(bm, mask, *auxes, sk)
+    return q, k, v, bm, bits, smod, bias, auxes
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["causal_gqa", "doc_aux", "softcap",
+                                  "relpos_head_invariant", "bias",
+                                  "ragged_empty"])
+def test_flex_kernels_match_plain(cuda, dtype, d, case):
+    """The flex forward, dQ and dK/dV kernels against their plain versions
+    (fp32 oracle, low-precision yardstick), dbias included; empty rows give
+    o = 0 and lse = +inf; the backward is bitwise deterministic."""
+    from flash_attn_tpu_torch.kernels import flex
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, bm, bits, smod, bias, aux = _flex_inputs(case, dtype, d, gen,
+                                                      cuda)
+    scale = d ** -0.5
+    before = flex.launches_fwd, flex.launches_dq, flex.launches_dkv
+    o, lse = flex.flex_attn_fwd(q, k, v, bm, bits, smod, scale, *aux, bias)
+    f32 = [x.float() for x in (q, k, v)]
+    o_ref, lse_ref = flex.flex_attn_fwd_ref(*f32, bm, bits, smod, scale,
+                                            *aux, bias)
+    o_pt, lse_pt = flex.flex_attn_fwd_ref(q, k, v, bm, bits, smod, scale,
+                                          *aux, bias)
+    check_close(o, o_ref, o_pt, label="o")
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    check_close(lse[fin], lse_ref[fin], lse_pt[fin], label="lse")
+    if case == "ragged_empty":
+        assert not o[:, :40].any() and torch.isposinf(lse[..., :40]).all()
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    grads = flex.flex_attn_bwd(do, q, k, v, o, lse, bm, bits, smod, scale,
+                               *aux, bias)
+    assert (flex.launches_fwd, flex.launches_dq, flex.launches_dkv) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    ref = flex.flex_attn_bwd_ref(do.float(), *f32, o.float(), lse, bm, bits,
+                                 smod, scale, *aux, bias)
+    pt = flex.flex_attn_bwd_ref(do, q, k, v, o, lse, bm, bits, smod, scale,
+                                *aux, bias)
+    for name, x, r, y in zip(("dq", "dk", "dv", "dbias"), grads, ref, pt):
+        if x is not None:
+            check_close(x, r, y, label=name)
+    again = flex.flex_attn_bwd(do, q, k, v, o, lse, bm, bits, smod, scale,
+                               *aux, bias)
+    for x, y in zip(grads, again):
+        assert x is None or torch.equal(x, y)
+
+
+@pytest.mark.parametrize("option,match", [
+    ("score_mod_callable", "descriptor"), ("block_96", "multiples of 64"),
+    ("float32", "dtype"), ("head_dim_96", "head dim")])
+def test_flex_unsupported_raises_on_cuda(cuda, option, match):
+    """What the flex kernels do not take raises NotImplementedError on
+    CUDA; nothing runs the plain version instead."""
+    from flash_attn_tpu_torch.kernels import flex
+
+    d = 96 if option == "head_dim_96" else 64
+    dtype = torch.float32 if option == "float32" else torch.bfloat16
+    q = torch.randn(1, 192, 2, d, device=cuda).to(dtype)
+    kw = dict(mask_mod=lambda b, h, qi, ki: qi >= ki, block_q=64, block_k=64)
+    if option == "score_mod_callable":
+        kw["score_mod"] = lambda s, b, h, qi, ki: s * 0.5
+    elif option == "block_96":
+        kw["block_q"] = 96
+    before = flex.launches_fwd
+    with pytest.raises(NotImplementedError, match=match):
+        flex.flex_attention(q, q, q, **kw)
+    assert flex.launches_fwd == before
+
+
+def test_flex_attention_gradient_on_cuda(cuda):
+    """flex_attention and flash_attn_varlen_packed_func on CUDA launch the
+    flex kernels, forward and backward, and agree with the CPU float32
+    plain path."""
+    from flash_attn_tpu_torch.kernels import flex, varlen_packed
+
+    gen = torch.Generator().manual_seed(7)
+    lens = [90, 0, 200, 33]
+    total = sum(lens)
+    cu = torch.tensor([0] + lens).cumsum(0).int()
+    q, k, v, do = (torch.randn(total, h, 64, generator=gen)
+                   for h in (4, 2, 2, 4))
+    outs = []
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.float32)):
+        ins = [x.to(dev, dtype).requires_grad_() for x in (q, k, v)]
+        before = flex.launches_fwd, flex.launches_dq
+        o = varlen_packed.flash_attn_varlen_packed_func(
+            *ins, cu.to(dev), cu.to(dev), 200, 200, causal=True,
+            window_size=(64, 0), block_q=64, block_k=128)
+        o.backward(do.to(dev, dtype))
+        if dev == cuda:
+            assert (flex.launches_fwd, flex.launches_dq) == (before[0] + 1,
+                                                             before[1] + 1)
+        outs.append([x.detach().float().cpu()
+                     for x in (o, *(i.grad for i in ins))])
+    for got, want in zip(*outs):
+        assert (got - want).abs().max() < 0.05

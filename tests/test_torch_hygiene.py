@@ -74,6 +74,8 @@ def test_model_raises_without_cuda(no_cuda):
 
 
 def _entry_points():
+    from flash_attn_tpu_torch.blocksparse import convert_blockmask
+    from flash_attn_tpu_torch.kernels.flex import BlockMask, create_block_mask
     from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
     from flash_attn_tpu_torch.models.bert import (BertConfig,
                                                   BertForPreTraining,
@@ -109,6 +111,15 @@ def _entry_points():
         "allocate_inference_cache": lambda: allocate_inference_cache(2, 32),
         "Trainer": lambda: Trainer(tiny),
         "RotaryEmbedding": lambda: RotaryEmbedding(128, base=500000.0),
+        "create_block_mask": lambda: create_block_mask(
+            lambda b, h, q, k: q >= k, 1, 1, 64, 64, block_q=64, block_k=64),
+        "BlockMask.from_numpy": lambda: BlockMask.from_numpy(
+            64, 64, 64, 64, **{n: [[[0]]] for n in ("kv_num", "full_kv_num",
+                                                    "q_num", "full_q_num")},
+            **{n: [[[[0]]]] for n in ("kv_idx", "full_kv_idx", "q_idx",
+                                      "full_q_idx")}),
+        "convert_blockmask": lambda: convert_blockmask(
+            [[True]], 1, 1, 64, 64, block_q=64, block_k=64),
     }
 
 
@@ -116,7 +127,10 @@ def _entry_points():
                                   "_Norm", "Block", "GPT2Embeddings",
                                   "allocate_inference_cache", "Trainer",
                                   "RotaryEmbedding", "BertModel",
-                                  "BertForPreTraining", "Block_postnorm"])
+                                  "BertForPreTraining", "Block_postnorm",
+                                  "create_block_mask",
+                                  "BlockMask.from_numpy",
+                                  "convert_blockmask"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     """Every public constructor resolves device=None to CUDA, so none of
     them builds on the CPU unless asked to."""
@@ -129,21 +143,43 @@ def test_entry_point_raises_without_cuda(no_cuda, name):
                                 "flash_attn_bwd_bhsd", "flash_attn_func",
                                 "decode_attn_ref_layout",
                                 "flash_attn_with_kvcache", "varlen_attn_fwd",
-                                "varlen_attn_bwd", "flash_attn_varlen_func"])
+                                "varlen_attn_bwd", "flash_attn_varlen_func",
+                                "flex_attn_fwd", "flex_attn_bwd",
+                                "flex_attention",
+                                "flash_blocksparse_attn_func",
+                                "flash_attn_varlen_packed_func"])
 def test_wrappers_run_no_plain_version_off_cpu(fn):
     """A tensor that is not on the CPU never reaches the plain version."""
+    from flash_attn_tpu_torch.blocksparse import flash_blocksparse_attn_func
     from flash_attn_tpu_torch.interface import (flash_attn_func,
                                                 flash_attn_varlen_func)
     from flash_attn_tpu_torch.kernels import (flash_bwd, flash_decode,
-                                              flash_fwd, varlen)
+                                              flash_fwd, flex, varlen,
+                                              varlen_packed)
 
     q = torch.empty(1, 2, 4, 64, device="meta")
     k = torch.empty(1, 2, 8, 64, device="meta")
     lens = torch.empty(1, dtype=torch.int32, device="meta")
     packed = torch.empty(8, 2, 64, device="meta")
     cu = torch.empty(3, dtype=torch.int32, device="meta")
+    bshd = torch.empty(1, 4, 2, 64, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for meta"):
-        if fn == "varlen_attn_fwd":
+        if fn == "flex_attn_fwd":
+            flex.flex_attn_fwd(bshd, bshd, bshd, None, None, None, 0.125)
+        elif fn == "flex_attn_bwd":
+            flex.flex_attn_bwd(bshd, bshd, bshd, bshd, bshd, lens, None, None,
+                               None, 0.125)
+        elif fn == "flex_attention":
+            flex.flex_attention(bshd, bshd, bshd,
+                                mask_mod=lambda b, h, q, k: q >= k)
+        elif fn == "flash_blocksparse_attn_func":
+            flash_blocksparse_attn_func(
+                torch.empty(1, 64, 3, 2, 64, device="meta"),
+                torch.ones(1, 1, dtype=torch.bool), block_q=64, block_k=64)
+        elif fn == "flash_attn_varlen_packed_func":
+            varlen_packed.flash_attn_varlen_packed_func(packed, packed, packed,
+                                                        cu, cu, 4, 4)
+        elif fn == "varlen_attn_fwd":
             varlen.varlen_attn_fwd(packed, packed, packed, cu, cu, 4, 4,
                                    softmax_scale=0.125)
         elif fn == "varlen_attn_bwd":
