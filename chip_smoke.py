@@ -34,8 +34,11 @@ softcap, relative position, attn_bias, ragged lengths, the block-sparse
 API, packed varlen) and `kernel_flex_bwd` (bitwise deterministic), and the
 `flex` path: forward and backward of Llama-3-8B's 32 attention layers
 over an 8192-token packed sequence under the causal document mask.  The
-kernel launch counts of each path are set to 0 just before it and read
-just after.  Prints one JSON line per phase, the kernel summary, the
+last phase, `diag`, holds the diagnostic probes' kernels
+(`csrc/diag_*.cu`) against their plain twins and runs the three probes
+(`flash_attn_tpu_torch.diag`: the paged DMA stream, the decode-body ladder,
+the varlen tick bisect) at the JAX scripts' full shapes.  The kernel launch
+counts of each path are set to 0 just before it and read just after.  Prints one JSON line per phase, the kernel summary, the
 card's name and power limit, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero.
@@ -2423,6 +2426,254 @@ def flex_phase():
     return res
 
 
+DIAG_LADDER_ITERS = 16  # the CLI's 64 chained calls a leg, cut for time
+
+
+def ladder_oracle(q, kc, vc, int8):
+    """float64 `full` of the decode ladder: sum_j exp(s_j - max s) v_j over
+    the whole cache (x 0.0883883 for int8), s the probe's scaled scores."""
+    import torch
+    from flash_attn_tpu_torch.diag import int8_decode
+
+    b, hk, rows, d = q.shape
+    smax = kc.shape[1]
+    kf = kc.double().view(b, smax, hk, d).transpose(1, 2)
+    vf = vc.double().view(b, smax, hk, d).transpose(1, 2)
+    s = q.double() @ kf.transpose(-1, -2)
+    if int8:
+        s = s.float().double()
+    s = s * float(torch.tensor(int8_decode.SCALE, dtype=torch.float32))
+    out = torch.exp(s - s.amax(-1, keepdim=True)) @ vf
+    return (out * int8_decode.SCALE if int8 else out)[:, None]
+
+
+def sum_check(label, got, ref, extra=0.0):
+    """|got - ref| <= 1e-5 max|ref| + extra (sums, summation order only);
+    returns the error."""
+    err = (got.double() - ref.double()).abs().max().item()
+    tol = 1e-5 * ref.double().abs().max().item() + extra
+    if not err <= tol:
+        raise AssertionError(f"{label}: sum err {err:.3e} > {tol:.3e}")
+    return err
+
+
+def diag_ladder_checks():
+    """Every ladder stage, bf16 and int8, at the script's shape (b=8, hk=8,
+    smax=8192, d=128, bk=1024) at one split and at the split that fills the
+    card, against the plain twin; `full` also against the float64 oracle
+    (2x rule, the twin's error the yardstick).  pquant may differ by one
+    bf16 rounding of a block sum (bf16) or one step of round(127 p) a row
+    (int8) where exp2f and the twin's exp2 straddle a rounding boundary."""
+    from flash_attn_tpu_torch.diag import int8_decode as ld
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    out = {}
+    for int8 in (False, True):
+        q, kc, vc = ld.make_inputs(int8)
+        fill = ld.fill_splits(8, 8, 8192, 1024, int8=int8)
+        oracle = ladder_oracle(q, kc, vc, int8)
+        for splits in sorted({1, fill}):
+            for stage in ld.STAGES:
+                got = ld.decode_ladder(stage, q, kc, vc, bk=1024,
+                                       splits=splits)
+                ref = ld.decode_ladder_ref(stage, q, kc, vc, bk=1024,
+                                           splits=splits)
+                label = f"ladder {'int8' if int8 else 'bf16'} {stage} " \
+                    f"splits={splits}"
+                if stage == "full":
+                    err, _ = check_close(got, oracle.float(), ref,
+                                         label=label)
+                else:
+                    if got[..., 1:].any():
+                        raise AssertionError(f"{label}: columns 1.. not 0")
+                    extra = 0.0
+                    if stage == "pquant":
+                        extra = (1.0 if int8 else
+                                 2.0 ** -8 * ref.abs().max().item())
+                    err = sum_check(label, got, ref, extra)
+                out[label] = err
+        del q, kc, vc, oracle
+    return out
+
+
+def diag_stream_checks():
+    """Every stream variant of the script at its full 512 MiB shape against
+    the plain twin (sums, 1e-5 of their magnitude), and one bitwise
+    repeat."""
+    import torch
+    from flash_attn_tpu_torch.diag import dma_stream as ds
+
+    out = {}
+    for R, bundle, shuffled, fused in ds.VARIANTS:
+        arr, table, _ = ds.make_case(R, bundle, shuffled, fused)
+        got = ds.dma_stream(arr, table, bundle=bundle, fused=fused)
+        ref = ds.dma_stream_ref(arr, table, bundle=bundle, fused=fused)
+        label = f"stream R={R} bundle={bundle} shuf={shuffled} fused={fused}"
+        out[label] = sum_check(label, got, ref)
+        if (R, bundle, shuffled, fused) == (512, 2, True, False):
+            again = ds.dma_stream(arr, table, bundle=bundle, fused=fused)
+            if not torch.equal(got, again):
+                raise AssertionError("stream: repeat run not bitwise equal")
+    return out
+
+
+def diag_bisect_checks():
+    """The bisect levels that write o (K3..K10) at the script's widths (H=16,
+    D=128, BQ=BK=1024, BH=4, 16 blocks of tokens) on live tables of 10 or 8
+    ticks (the plain twin walks ticks in Python: the script's 256 would be
+    slow), aux of 300-token documents so that boundary ticks mask; o and
+    lse against the float32 twin by the 2x rule (the bf16 twin's error the
+    yardstick).  Returns {variant: max |o - float32 twin|}."""
+    import torch
+    from flash_attn_tpu_torch.diag import varlen_overhead_bisect as vb
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    q, k, v = (torch.randn(vb.H, vb.TOTAL_P, vb.D, generator=gen,
+                           device=DEV).bfloat16() for _ in range(3))
+    qa, ka = (x.to(DEV) for x in vb.make_aux(vb.TOTAL_P, vb.BK))
+    out = {}
+    for variant in ("K3", "K4", "K6", "K7", "K8", "K9", "K10"):
+        kind = {"K9": "code", "K10": "k10"}.get(variant, "init")
+        qi, ki, fl, code = (torch.tensor(x, dtype=torch.int32, device=DEV)
+                            for x in vb.live_tables(kind, n_bodies=2))
+        lse_lanes = variant in ("K7", "K8")
+
+        def run(fns, q, k, v, qi=qi, ki=ki, fl=fl, code=code,
+                variant=variant, lse_lanes=lse_lanes):
+            if variant in ("K3", "K4"):
+                return fns[0](int(variant[1]), qi, ki, fl, q, k, v, qa,
+                              ka), None
+            if variant == "K9":
+                return fns[2](qi, ki, fl, code, q, k, v, qa, ka), None
+            if variant == "K10":
+                return fns[3](2, 4, qi, ki, fl, q, k, v), None
+            res = fns[1](qi, ki, fl, q, k, v, qa, ka, lse_lanes=lse_lanes,
+                         four_variants=variant in ("K6", "K8"))
+            return res[0], (res[1] if lse_lanes else None)
+
+        o, lse = run((vb.launch, vb.launch2, vb.launch3, vb.launch4), q, k, v)
+        twins = (vb.launch_ref, vb.launch2_ref, vb.launch3_ref, vb.launch4_ref)
+        o_pt, lse_pt = run(twins, q, k, v)
+        o_ref, lse_ref = run(twins, q.float(), k.float(), v.float())
+        rows = vb.finalized_rows(qi.cpu(), fl.cpu()).to(DEV)
+        if not (o_ref[:, rows].abs().amax(-1) > 0).all():
+            raise AssertionError(f"bisect {variant}: a finalized row saw "
+                                 "no key: the check would be empty")
+        err, _ = check_close(o[:, rows], o_ref[:, rows], o_pt[:, rows],
+                             label=f"bisect {variant} o")
+        if lse_lanes:
+            check_close(lse[:, rows], lse_ref[:, rows], lse_pt[:, rows],
+                        label=f"bisect {variant} lse")
+        out[variant] = err
+    del q, k, v
+    return out
+
+
+def diag_phase():
+    """The three diagnostic probes on the card at the JAX scripts' full
+    shapes.  First each probe kernel against its plain twin (launches not
+    counted); then the probes' own entry points (`main`) with the launch
+    counts set to 0 just before and read just after: `dma_stream` (30
+    variants, 512 MiB each; every GB/s at most the card's 3.35 TB/s),
+    `int8_decode` (the ladder at one split and at the filling split, the
+    int8 bk sweep, the end-to-end decode; DIAG_LADDER_ITERS chained calls a
+    leg) and `varlen_overhead_bisect` k04 k58 k9 k10 (all-empty tables of
+    256 ticks).  Then each probe's headline kernel, its plain twin and a
+    library call are timed for the kernels line."""
+    import torch
+    from flash_attn_tpu_torch.diag import dma_stream as ds
+    from flash_attn_tpu_torch.diag import int8_decode as ld
+    from flash_attn_tpu_torch.diag import varlen_overhead_bisect as vb
+
+    t0 = time.perf_counter()
+    checks = dict(ladder=diag_ladder_checks(), stream=diag_stream_checks(),
+                  bisect=diag_bisect_checks())
+    check_s = time.perf_counter() - t0
+
+    mods = dict(diag_dma_stream=ds, diag_int8_decode=ld,
+                diag_varlen_bisect=vb)
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    stream = ds.main([])
+    ladder = ld.main([], iters=DIAG_LADDER_ITERS)
+    bis = vb.main(["k04", "k58", "k9", "k10"])
+    path_s = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in mods.items()}
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"diag: {name} was not launched")
+    fastest = max(r["gbps"] for r in stream)
+    if fastest > PEAK_BYTES / 1e9:
+        raise AssertionError(f"stream: {fastest:.1f} GB/s is above the "
+                             "card's memory rate: pages were not streamed")
+
+    # headline numbers for the kernels line
+    R, bundle, shuffled, fused = ds.VARIANTS[0]
+    arr, table, steps = ds.make_case(R, bundle, shuffled, fused)
+    sbytes = ds.stream_bytes(R, bundle, fused, steps)
+    src = arr.view(-1)[: sbytes // 2]
+    dst = torch.empty_like(src)
+    stream_lib = time_ms(lambda s, d: d.copy_(s), [(src, dst)])
+    stream_plain = call_ms(lambda a, t: ds.dma_stream_ref(
+        a, t, bundle=bundle, fused=fused), [(arr, table)], iters=5)
+    del dst
+
+    q, kc, vc = ld.make_inputs(False)
+    b, hk, rows, d = q.shape
+    kh = kc.view(b, 8192, hk, d).transpose(1, 2).contiguous()
+    vh = vc.view(b, 8192, hk, d).transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ladder_lib = time_ms(lambda q_, k_, v_: sdpa(q_, k_, v_, scale=ld.SCALE),
+                         input_copies(q, kh, vh))
+    ladder_plain = call_ms(lambda *a: ld.decode_ladder_ref(
+        "full", *a, bk=1024), [(q, kc, vc)], iters=3)
+    ladder_bytes = (ld.kv_bytes(False) + q.numel() * 2
+                    + b * hk * rows * d * 4)
+    full_err = (ld.decode_ladder("full", q, kc, vc, bk=1024).double()
+                - ladder_oracle(q, kc, vc, False)).abs().max().item()
+    del q, kc, vc, kh, vh
+
+    qT, kT, vT, qa, ka, qi, ki, fl = vb._inputs()
+    bis_plain = call_ms(lambda *a: vb.launch_ref(4, *a),
+                        [(qi, ki, fl, qT, kT, vT, qa, ka)], iters=3)
+    # an all-empty table: K4 reads its tables and each tick's aux words
+    bis_bytes = 3 * vb.T * 4 + vb.BQ * 4 + vb.BK * 4
+    del qT, kT, vT
+
+    res = dict(phase="diag", check_s=check_s, path_s=path_s,
+               launches=launches, checks=checks,
+               stream=stream, ladder=ladder, bisect=bis)
+    emit(res)
+    torch.cuda.empty_cache()
+    s1 = ladder["split1"]
+    return dict(
+        stream=dict(ms=stream[0]["ms"], plain_ms=stream_plain,
+                    library_ms=stream_lib, bytes=sbytes,
+                    bound_ms=sbytes / PEAK_BYTES * 1e3,
+                    max_abs_err=max(checks["stream"].values()),
+                    by_variant={f"{'fused' if r['fused'] else 'plain'} "
+                                f"R={r['R']} bundle={r['bundle']} "
+                                f"shuf={int(r['shuffled'])}": dict(
+                                    ms=r["ms"], gbps=r["gbps"])
+                                for r in stream}),
+        ladder=dict(ms=s1["bf16 full"] * 1e3, plain_ms=ladder_plain,
+                    library_ms=ladder_lib, bytes=ladder_bytes,
+                    bound_ms=ladder_bytes / PEAK_BYTES * 1e3,
+                    max_abs_err=full_err,
+                    by_stage={k: v * 1e3 for k, v in s1.items()},
+                    fill_splits=ladder["fill_splits"],
+                    by_stage_fill={k: v * 1e3
+                                   for k, v in ladder["fill"].items()}),
+        bisect=dict(ms=bis["K4"]["ms"], plain_ms=bis_plain,
+                    bound_ms=bis_bytes / PEAK_BYTES * 1e3,
+                    max_abs_err=max(checks["bisect"].values()),
+                    us_per_tick={k: v["us_per_tick"] for k, v in bis.items()},
+                    us_per_empty_cta=bis["K0 per CTA"]["us_per_cta"]),
+        launches=launches)
+
+
 def main():
     import torch
 
@@ -2496,6 +2747,7 @@ def main():
     bert = bert_phase()
     ffwd, fbwd, fcompiled = kernel_flex_phases()
     flexpath = flex_phase()
+    dg = diag_phase()
 
     a = bwd["a"]
     kernels = [
@@ -2651,6 +2903,47 @@ def main():
                               library_ms=r["library_ms"],
                               bitwise_repeat=r["bitwise_repeat"])
                       for k, r in fbwd.items()}),
+        dict(name="diag_varlen_bisect", route="cuda",
+             source="flash_attn_tpu_torch/csrc/diag_varlen_bisect.cu",
+             kernel="bisect_kernel, levels K0..K10 (K5 runs K4); ms: K4 on "
+             "the script's all-empty table of 256 ticks",
+             replaces="benchmarks/diag_varlen_overhead_bisect.py:144",
+             also_replaces=["benchmarks/diag_varlen_overhead_bisect.py:334",
+                            "benchmarks/diag_varlen_overhead_bisect.py:485",
+                            "benchmarks/diag_varlen_overhead_bisect.py:599"],
+             launches=dg["launches"]["diag_varlen_bisect"],
+             max_abs_err=dg["bisect"]["max_abs_err"], ms=dg["bisect"]["ms"],
+             plain_ms=dg["bisect"]["plain_ms"],
+             bound_ms=dg["bisect"]["bound_ms"], bound_by="bytes",
+             library_ms=None, us_per_tick=dg["bisect"]["us_per_tick"],
+             us_per_empty_cta=dg["bisect"]["us_per_empty_cta"]),
+        dict(name="diag_int8_decode", route="cuda",
+             source="flash_attn_tpu_torch/csrc/diag_int8_decode.cu",
+             kernel="decode_ladder_kernel; ms: bf16 full at one split",
+             replaces="benchmarks/diag_int8_decode.py:144",
+             launches=dg["launches"]["diag_int8_decode"],
+             max_abs_err=dg["ladder"]["max_abs_err"], ms=dg["ladder"]["ms"],
+             plain_ms=dg["ladder"]["plain_ms"],
+             bound_ms=dg["ladder"]["bound_ms"], bound_by="bytes",
+             library_ms=dg["ladder"]["library_ms"],
+             library="SDPA on the contiguous (b, hk, smax, d) cache, "
+             "8 query rows a kv head",
+             by_stage_ms=dg["ladder"]["by_stage"],
+             fill_splits=dg["ladder"]["fill_splits"],
+             by_stage_fill_ms=dg["ladder"]["by_stage_fill"]),
+        dict(name="diag_dma_stream", route="cuda",
+             source="flash_attn_tpu_torch/csrc/diag_dma_stream.cu",
+             kernel="dma_stream_kernel + dma_stream_reduce; ms: plain R=256 "
+             "bundle=1 sequential",
+             replaces="benchmarks/diag_dma_stream.py:92",
+             launches=dg["launches"]["diag_dma_stream"],
+             max_abs_err=dg["stream"]["max_abs_err"], ms=dg["stream"]["ms"],
+             plain_ms=dg["stream"]["plain_ms"],
+             bound_ms=dg["stream"]["bound_ms"], bound_by="bytes",
+             library_ms=dg["stream"]["library_ms"],
+             library="device-to-device copy_ of the same bytes (reads and "
+             "writes them)",
+             by_variant=dg["stream"]["by_variant"]),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

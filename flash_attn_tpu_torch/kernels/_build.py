@@ -20,7 +20,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("flash_fwd", "flash_decode_ref", "flash_bwd", "flex")
+KERNELS = ("flash_fwd", "flash_decode_ref", "flash_bwd", "flex",
+           "diag_dma_stream", "diag_int8_decode", "diag_varlen_bisect")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

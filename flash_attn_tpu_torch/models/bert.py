@@ -14,7 +14,9 @@ gives the mask's lengths to the dense kernels as per-batch `seqused`.
 the defaults of `bert-base-uncased`'s config.json.  `hidden_act="gelu"` is
 the tanh approximation, as the JAX package's `ACT2FN` maps it
 (`modules/mlp.py:23-26`); Hugging Face's BERT uses the erf form.  Dropout is
-not ported: the forward is the JAX `deterministic=True` path.
+not ported: the forward is the JAX `deterministic=True` path, and
+`deterministic=False` with a dropout probability above 0 raises
+NotImplementedError rather than run without the dropout.
 """
 
 from __future__ import annotations
@@ -53,6 +55,18 @@ class BertConfig:
 
 def _act(config):
     return ACT2FN.get(getattr(config, "hidden_act", "gelu"), gelu_approx)
+
+
+def _check_deterministic(config, deterministic):
+    """JAX's `deterministic=False` applies the configured dropout, which the
+    port does not have yet: raise where it would change the result."""
+    probs = (config.hidden_dropout_prob, config.attention_probs_dropout_prob)
+    if not deterministic and max(probs) > 0:
+        raise NotImplementedError(
+            "BERT dropout (hidden_dropout_prob, attention_probs_dropout_prob "
+            f"= {probs}) is not ported yet (dropout through the model, "
+            "ROADMAP.md Queue 1.3): pass deterministic=True or set both "
+            "probabilities to 0")
 
 
 class BertEmbeddings(nn.Module):
@@ -111,11 +125,14 @@ class BertModel(nn.Module):
         return init_weights(self, generator, self.config.initializer_range)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                position_ids=None, unpad_varlen: bool = False):
+                position_ids=None, deterministic: bool = True,
+                unpad_varlen: bool = False):
         """input_ids, attention_mask (1 = token), token_type_ids: (b, s).
         Returns (hidden (b, s, hidden), pooled (b, hidden) or None).  With
         `unpad_varlen` and a mask the encoder runs on the packed tokens and
-        the padded rows of the output are 0."""
+        the padded rows of the output are 0.  `deterministic=False` raises
+        NotImplementedError while a dropout probability is above 0."""
+        _check_deterministic(self.config, deterministic)
         b, s = input_ids.shape
         h = self.embeddings(input_ids, token_type_ids, position_ids)
         mask = attention_mask.bool() if attention_mask is not None else None
@@ -150,9 +167,11 @@ class BertForPreTraining(nn.Module):
         self.decoder_bias = nn.Parameter(torch.zeros(c.vocab_size, **kw))
         self.seq_relationship = nn.Linear(c.hidden_size, 2, **kw)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                deterministic: bool = True):
         """Returns (MLM logits (b, s, vocab), NSP logits (b, 2))."""
-        h, pooled = self.bert(input_ids, attention_mask, token_type_ids)
+        h, pooled = self.bert(input_ids, attention_mask, token_type_ids,
+                              deterministic=deterministic)
         t = self.transform_norm(_act(self.config)(self.transform_dense(h)))
         logits = t @ self.bert.embeddings.word_embeddings.weight.t() \
             + self.decoder_bias

@@ -11,6 +11,8 @@ CPU, with the JAX weights carried over by `bert_state_dict_from_jax_params`.
   taken through the JAX packed backward kernel (interpret mode), against
   the port's autograd, every parameter.
 * `unpad_input`, `pad_input`, `unpad_input_for_concatenated_sequences`.
+* `deterministic=False` with a dropout probability above 0 raises
+  NotImplementedError (the port has no dropout yet; JAX applies it).
 
 `remap_state_dict_hf_bert` is tested in `test_torch_bert_hf.py`, apart,
 because importing `transformers` takes seconds.
@@ -21,6 +23,8 @@ Tolerances: 1e-4 on hidden states, logits and pooled outputs (12 float32
 matrix products and norms deep; both sides differ only in summation order),
 and 1e-4 of each parameter gradient's largest entry.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -164,6 +168,27 @@ def test_bert_pretraining_matches_jax():
                                np.asarray(logits_j)[valid], atol=ATOL, rtol=0)
     np.testing.assert_allclose(nsp.numpy(), np.asarray(nsp_j), atol=ATOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("cls", ["BertModel", "BertForPreTraining"])
+def test_bert_dropout_raises_until_ported(cls):
+    """JAX applies the configured dropout when deterministic=False; the port
+    raises instead of running without it.  deterministic=False with both
+    probabilities at 0 is the deterministic path (as the cases above,
+    which take the default deterministic=True)."""
+    ids, types, mask = batch()
+    torch.manual_seed(0)
+    for field in ("hidden_dropout_prob", "attention_probs_dropout_prob"):
+        cfg = dataclasses.replace(CFG, **{field: 0.1})
+        model = getattr(bert, cls)(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 1.3"):
+            model(t(ids), t(mask), t(types), deterministic=False)
+    model = getattr(bert, cls)(CFG, device="cpu")
+    with torch.no_grad():
+        a = model(t(ids), t(mask), t(types), deterministic=False)
+        b = model(t(ids), t(mask), t(types))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 def test_padding_matches_jax():

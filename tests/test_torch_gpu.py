@@ -595,3 +595,161 @@ def test_flex_attention_gradient_on_cuda(cuda):
                      for x in (o, *(i.grad for i in ins))])
     for got, want in zip(*outs):
         assert (got - want).abs().max() < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the diagnostic probes (`flash_attn_tpu_torch.diag`): each kernel against
+# its plain twin on the card.  Sums are held to 1e-5 of their magnitude
+# (summation order only), plus, for `pquant`, one bf16 rounding of a block
+# sum (bf16) or one step of round(127 p) (int8), where exp2f and the twin's
+# exp2 differ by an ulp at a rounding boundary; attention-like outputs by
+# the 2x rule against the float32 (bisect) or float64 (ladder) reference.
+
+
+def _sum_close(got, ref, extra=0.0):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    tol = 1e-5 * ref.abs().max().item() + extra
+    err = (got - ref).abs().max().item()
+    assert err <= tol, f"sum err {err:.3e} > {tol:.3e}"
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("stage", ["dma", "qk", "cast", "soft", "pquant",
+                                   "full"])
+def test_decode_ladder_matches_twin(cuda, stage, splits, int8):
+    from flash_attn_tpu_torch.diag import int8_decode
+
+    b, hk, smax, d, bk = 2, 3, 2048, 128, 256
+    q, kc, vc = int8_decode.make_inputs(int8, b, hk, smax, d, seed=1)
+    before = int8_decode.launches
+    got = int8_decode.decode_ladder(stage, q, kc, vc, bk=bk, splits=splits)
+    assert int8_decode.launches == before + 1
+    ref = int8_decode.decode_ladder_ref(stage, q, kc, vc, bk=bk,
+                                        splits=splits)
+    assert got.shape == ref.shape == (b, 1, hk, 8, d)
+    if stage != "full":
+        assert not got[..., 1:].any()
+        extra = 0.0
+        if stage == "pquant":
+            extra = 1.0 if int8 else 2.0 ** -8 * ref.abs().max().item()
+        _sum_close(got, ref, extra)
+        return
+    kf = kc.double().view(b, smax, hk, d).transpose(1, 2)
+    vf = vc.double().view(b, smax, hk, d).transpose(1, 2)
+    s = q.double() @ kf.transpose(-1, -2)
+    if int8:
+        s = s.float().double()
+    s = s * float(torch.tensor(int8_decode.SCALE, dtype=torch.float32))
+    oracle = torch.exp(s - s.amax(-1, keepdim=True)) @ vf
+    if int8:
+        oracle = oracle * int8_decode.SCALE
+    check_close(got, oracle[:, None].float(), ref)
+
+
+@pytest.mark.parametrize("fused,R,bundle,shuffled", [
+    (fused, R, bundle, shuffled)
+    for fused in (False, True) for R in (256, 512, 1024)
+    for bundle in ((1, 2, 4) if not fused else (1, 2))
+    for shuffled in (False, True)])
+def test_dma_stream_matches_twin(cuda, fused, R, bundle, shuffled):
+    from flash_attn_tpu_torch.diag import dma_stream
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n = 24
+    shape = (n, 2, R, 1024) if fused else (n, R, 1024)
+    arr = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    order = torch.randperm(n, generator=gen, device=cuda) if shuffled \
+        else torch.arange(n, device=cuda)
+    table = order[: n - 1].int().contiguous()  # a ragged tail
+    before = dma_stream.launches
+    got = dma_stream.dma_stream(arr, table, bundle=bundle, fused=fused)
+    assert dma_stream.launches == before + 1
+    _sum_close(got, dma_stream.dma_stream_ref(arr, table, bundle=bundle,
+                                              fused=fused))
+
+
+def test_dma_stream_repeat_is_bitwise(cuda):
+    from flash_attn_tpu_torch.diag import dma_stream
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    arr = torch.randn(64, 512, 1024, generator=gen, device=cuda).bfloat16()
+    table = torch.randperm(64, generator=gen, device=cuda).int()
+    runs = [dma_stream.dma_stream(arr, table, bundle=2, fused=False)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+
+
+_BISECT_SMALL = dict(H=4, BQ=128, BK=128, BH=2, TOTAL_P=512)
+
+
+@pytest.mark.parametrize("variant,n_bodies,bh", [
+    ("K3", 0, 2), ("K4", 0, 2), ("K5", 0, 2), ("K6", 0, 2), ("K7", 0, 2),
+    ("K8", 0, 2), ("K9", 0, 2), ("K10", 1, 2), ("K10", 2, 4), ("K10", 3, 2),
+    ("K10", 4, 4)])
+def test_varlen_bisect_matches_twin(cuda, monkeypatch, variant, n_bodies,
+                                    bh):
+    """The bisect levels that write o, on live tables whose boundary ticks
+    mask by nonzero aux (documents of 300 tokens)."""
+    from flash_attn_tpu_torch.diag import varlen_overhead_bisect as vb
+
+    for name, value in _BISECT_SMALL.items():
+        monkeypatch.setattr(vb, name, value)
+    kind = {"K9": "code", "K10": "k10"}.get(variant, "init")
+    tables = [torch.tensor(x, dtype=torch.int32, device=cuda)
+              for x in vb.live_tables(kind, n_bodies=max(n_bodies, 1))]
+    qi, ki, fl, code = tables
+    monkeypatch.setattr(vb, "T", len(fl))
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(4, 512, 128, generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    qa, ka = (x.to(cuda) for x in vb.make_aux(512, 128))
+    lse_lanes = variant in ("K7", "K8")
+
+    def run(fn_kernel, q, k, v):
+        if variant in ("K3", "K4"):
+            return fn_kernel[0](int(variant[1]), qi, ki, fl, q, k, v, qa, ka), None
+        if variant == "K9":
+            return fn_kernel[2](qi, ki, fl, code, q, k, v, qa, ka), None
+        if variant == "K10":
+            return fn_kernel[3](n_bodies, bh, qi, ki, fl, q, k, v), None
+        res = fn_kernel[1](qi, ki, fl, q, k, v, qa, ka, cost=variant == "K5",
+                           lse_lanes=lse_lanes,
+                           four_variants=variant in ("K6", "K8"))
+        return res[0], (res[1] if lse_lanes else None)
+
+    kernel = (vb.launch, vb.launch2, vb.launch3, vb.launch4)
+    twin = (vb.launch_ref, vb.launch2_ref, vb.launch3_ref, vb.launch4_ref)
+    before = vb.launches
+    o, lse = run(kernel, q, k, v)
+    torch.cuda.synchronize()
+    assert vb.launches == before + 1
+    o_pt, lse_pt = run(twin, q, k, v)
+    o_ref, lse_ref = run(twin, q.float(), k.float(), v.float())
+    rows = vb.finalized_rows(qi.cpu(), fl.cpu()).to(cuda)
+    assert rows.sum() == 256
+    assert (o_ref[:, rows].abs().amax(-1) > 0).all()  # every row sees keys
+    check_close(o[:, rows], o_ref[:, rows], o_pt[:, rows])
+    if lse_lanes:
+        check_close(lse[:, rows], lse_ref[:, rows], lse_pt[:, rows])
+
+
+def test_varlen_bisect_empty_levels_launch(cuda):
+    """K0..K2 and the one-CTA-per-tick K0 write no output; they launch and
+    finish at the script's shapes on an all-empty table."""
+    from flash_attn_tpu_torch.diag import varlen_overhead_bisect as vb
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(vb.H, vb.TOTAL_P, vb.D, generator=gen,
+                    device=cuda).bfloat16()
+    qa = torch.zeros(vb.TOTAL_P, 8, dtype=torch.int32, device=cuda)
+    ka = torch.zeros(vb.TOTAL_P // vb.BK, 8, vb.BK, dtype=torch.int32,
+                     device=cuda)
+    qi = torch.zeros(vb.T, dtype=torch.int32, device=cuda)
+    fl = torch.full((vb.T,), 8, dtype=torch.int32, device=cuda)
+    before = vb.launches
+    for level in range(3):
+        vb.launch(level, qi, qi, fl, q, q, q, qa, ka)
+    vb.launch_empty_ctas(qi, qi, fl, q, q, q)
+    torch.cuda.synchronize()
+    assert vb.launches == before + 4

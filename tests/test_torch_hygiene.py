@@ -230,3 +230,35 @@ def test_kernel_depends_on_its_source_and_headers_only(monkeypatch,
         (tmp_path / f).write_text("")
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
     assert {p.name for p in _build.sources("k")} == {"k.cu", "shared.cuh"}
+
+
+@pytest.mark.parametrize("fn", ["dma_stream", "decode_ladder", "launch",
+                                "launch2", "launch3", "launch4",
+                                "launch_empty_ctas"])
+def test_probe_kernels_take_cuda_tensors_only(fn):
+    """The diagnostic probes' kernel entry points raise on CPU tensors: only
+    their plain twins (`*_ref`) run there."""
+    from flash_attn_tpu_torch.diag import dma_stream, int8_decode
+    from flash_attn_tpu_torch.diag import varlen_overhead_bisect as vb
+
+    t = torch.zeros(4, dtype=torch.int32)
+    x = torch.zeros(2, 128, 128, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="takes CUDA tensors"):
+        if fn == "dma_stream":
+            dma_stream.dma_stream(torch.zeros(4, 8, 1024,
+                                              dtype=torch.bfloat16), t,
+                                  bundle=1, fused=False)
+        elif fn == "decode_ladder":
+            q = torch.zeros(1, 1, 8, 128, dtype=torch.int8)
+            kv = torch.zeros(1, 128, 128, dtype=torch.int8)
+            int8_decode.decode_ladder("full", q, kv, kv, bk=64)
+        elif fn == "launch":
+            vb.launch(4, t, t, t, x, x, x, t, t)
+        elif fn == "launch2":
+            vb.launch2(t, t, t, x, x, x, t, t, lse_lanes=True)
+        elif fn == "launch3":
+            vb.launch3(t, t, t, t, x, x, x, t, t)
+        elif fn == "launch4":
+            vb.launch4(2, 2, t, t, t, x, x, x)
+        else:
+            vb.launch_empty_ctas(t, t, t, x, x, x)
