@@ -20,8 +20,9 @@ its 32 layers through `flash_attn_with_kvcache` (rotary, append into 512
 pages of 256 rows a layer), with bf16 and then int8 caches; the
 `kernel_kvcache` cases before it hold the decode kernel against its plain
 version on paged, fused, int8, fp8 and contiguous caches and a paged
-chunked prefill (int8 also against the plain int8 version on the kernel's
-own 64-key tiles).  The packed varlen kernels (the varlen modes of
+chunked prefill, each plain version at the key split the kernel launched
+(int8 also against the plain int8 version on the kernel's own 64-key
+tiles, at one split and at that one).  The packed varlen kernels (the varlen modes of
 `flash_fwd.cu` and `flash_bwd.cu`) are held against their plain versions
 in `kernel_varlen` (cases (a)-(e)) and `kernel_varlen_bwd` (bitwise
 deterministic), and the next path is BERT-base's encoder at full width and
@@ -408,8 +409,8 @@ def sdpa_causal(q, k, v, live):
     return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
 
-def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=1,
-                library=False):
+def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=0,
+                block_k=None, library=False):
     import torch
     import torch.nn.functional as F
     from flash_attn_tpu_torch.kernels import flash_decode as fd
@@ -420,9 +421,11 @@ def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=1,
     vc = torch.randn(b, hk, smax, d, generator=gen, device=dev).bfloat16()
     lens = torch.randint(17, smax + 1, (b,), generator=gen, device=dev,
                          dtype=torch.int32)
-    kw = dict(softmax_scale=d ** -0.5, causal=True, num_splits=num_splits)
+    kw = dict(softmax_scale=d ** -0.5, causal=True, num_splits=num_splits,
+              block_k=block_k)
     o, lse = fd.decode_attn_bhsd(q, kc, vc, lens, **kw)
     torch.cuda.synchronize()
+    ns = fd.last_num_splits
     o_ref, lse_ref = fd.decode_attn_bhsd_ref(q.float(), kc.float(),
                                              vc.float(), lens, **kw)
     o_pt, lse_pt = fd.decode_attn_bhsd_ref(q, kc, vc, lens, **kw)
@@ -447,9 +450,10 @@ def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=1,
         library_ms = time_ms(
             lambda *a: F.scaled_dot_product_attention(*a[:3], attn_mask=a[3]),
             input_copies(q, kc, vc, mask))
-    num_splits_eff = fd.split_layout(smax, num_splits, None)[0]
+    blocks = fd.row_tiles(h // hk * sq) * ns * b * hk
     res = dict(phase="kernel_decode", case=label, b=b, h=h, hk=hk, sq=sq,
-               smax=smax, d=d, num_splits=num_splits,
+               smax=smax, d=d, num_splits_requested=num_splits,
+               num_splits=ns,
                cache_seqlens=lens.tolist(), max_abs_err_o=err_o,
                plain_bf16_err_o=err_o_pt, max_abs_err_lse=err_l,
                plain_bf16_err_lse=err_l_pt, kernel_ms=kernel_ms,
@@ -457,8 +461,7 @@ def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=1,
                bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, bytes=bytes_,
                share_of_bound=bound_ms / kernel_ms,
-               blocks=b * hk * num_splits_eff,
-               sm_fill=b * hk * num_splits_eff / 132)
+               blocks=blocks, sm_fill=blocks / fd.sm_count(q.device))
     emit(res)
     return res
 
@@ -804,12 +807,20 @@ INT8_TILED_O_ATOL = 1e-6
 INT8_TILED_LSE_ATOL = 1e-4
 
 
-def int8_tiled_check(label, q, kc, vc, lens, **kw):
+def int8_tiled_check(label, q, kc, vc, lens, splits=(1,), **kw):
     """The int8 kernel on 64-row pages of the same paged cache (a view;
-    fused pages are re-fused) at one split, against the plain int8 version
-    on the same pages.  Raises where |o - o_plain| > INT8_TILED_O_RTOL
-    |o_plain| + INT8_TILED_O_ATOL or |lse - lse_plain| >
-    INT8_TILED_LSE_ATOL; returns the errors."""
+    fused pages are re-fused) at each split count of `splits` (one, and the
+    count the kernel resolved for the call under test), against the plain
+    int8 version on the same pages at the same count: both cut the splits at
+    the same keys.  Raises where |o - o_plain| > INT8_TILED_O_RTOL |o_plain|
+    + INT8_TILED_O_ATOL or |lse - lse_plain| > INT8_TILED_LSE_ATOL; returns
+    the errors by split count."""
+    kw.pop("num_splits", None)
+    return {str(n): _int8_tiled_one(label, q, kc, vc, lens, n, **kw)
+            for n in dict.fromkeys(splits)}
+
+
+def _int8_tiled_one(label, q, kc, vc, lens, num_splits, **kw):
     import torch
     from flash_attn_tpu_torch.kernels import flash_decode as fd
 
@@ -826,7 +837,7 @@ def int8_tiled_check(label, q, kc, vc, lens, **kw):
     table = kw["block_table"].long()
     t64 = (table[:, :, None] * r + torch.arange(r, device=table.device))
     kw = dict(kw, block_table=t64.reshape(table.shape[0], -1).int(),
-              num_splits=1)
+              num_splits=num_splits)
     o, lse = fd.decode_attn_ref_layout(q, k64, v64, lens, **kw)
     o_pt, lse_pt = fd.decode_attn_ref_layout_ref(q, k64, v64, lens, **kw)
     o, o_pt = o.float(), o_pt.float()
@@ -842,7 +853,8 @@ def int8_tiled_check(label, q, kc, vc, lens, **kw):
                o_elements=o.numel(), lse_max_abs_err=err_l)
     if worst > 1.0 or err_l > INT8_TILED_LSE_ATOL:
         raise AssertionError(f"{label}: int8 kernel against the plain int8 "
-                             f"version on the same 64-key tiles: {res}")
+                             f"version on the same 64-key tiles, "
+                             f"{num_splits} splits: {res}")
     return res
 
 
@@ -863,8 +875,13 @@ def kvcache_case(label, q, kc, vc, lens, library=None, **kw):
     kw.setdefault("causal", True)
     o, lse = fd.decode_attn_ref_layout(q, kc, vc, lens, **kw)
     torch.cuda.synchronize()
-    o_pt, lse_pt = fd.decode_attn_ref_layout_ref(q, kc, vc, lens, **kw)
-    ref_kw = {k: v for k, v in kw.items()
+    # the plain versions at the split count the kernel launched (for int8
+    # the splits change the result: each restarts the quantisation)
+    ns = fd.last_num_splits
+    plain_kw = dict(kw, num_splits=ns)
+    o_pt, lse_pt = fd.decode_attn_ref_layout_ref(q, kc, vc, lens,
+                                                 **plain_kw)
+    ref_kw = {k: v for k, v in plain_kw.items()
               if k not in ("k_descale", "v_descale")}
     quant = kc.element_size() == 1
     if quant:
@@ -891,7 +908,8 @@ def kvcache_case(label, q, kc, vc, lens, library=None, **kw):
         raise AssertionError(f"{label}: non-finite output")
     tiled = None
     if kc.dtype == torch.int8:
-        tiled = int8_tiled_check(label, q, kc, vc, lens, **kw)
+        tiled = int8_tiled_check(label, q, kc, vc, lens, splits=(1, ns),
+                                 **kw)
 
     if kw.get("block_table") is not None:
         cap = kw["block_table"].shape[1] * (kc.shape[2] if fused
@@ -926,11 +944,7 @@ def kvcache_case(label, q, kc, vc, lens, library=None, **kw):
                        warmup=1)
     fd.launches = before  # timing launches are not the main path's
     library_ms = library() if library is not None else None
-    bk, nk_max, bundle, ns, bps = fd.ref_layout_tiles(
-        kc, vc, kw.get("block_table"), kw.get("num_splits", 1),
-        kw.get("block_k"))
-    rows = h // hk * sq
-    blocks = -(-rows // 64) * ns * b * hk
+    blocks = fd.row_tiles(h // hk * sq) * ns * b * hk
     res = dict(phase="kernel_kvcache", case=label, b=b, h=h, hk=hk, sq=sq,
                d=d, cache_dtype=str(kc.dtype), fused=fused,
                paged=kw.get("block_table") is not None,
@@ -942,7 +956,7 @@ def kvcache_case(label, q, kc, vc, lens, library=None, **kw):
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, bytes=bytes_, flops=4 * d * pairs,
                live_keys=live_keys, share_of_bound=bound_ms / kernel_ms,
-               blocks=blocks, sm_fill=blocks / 132)
+               blocks=blocks, sm_fill=blocks / fd.sm_count(q.device))
     emit(res)
     return res, o, lse
 
@@ -1126,6 +1140,7 @@ def paged_prefill_case(gen):
     kernel_ms = time_ms(lambda *a: run(*a), args)
     kernel_call_ms = call_ms(lambda *a: run(*a), args)
     fd.launches = before
+    library_ms = sdpa_prefill_ms(q, kc, vc, table, cu_q, lens_q, lens_k)
     rows = h // hk * max_sq
     res = dict(phase="kernel_kvcache",
                case="g: paged varlen prefill (flash_attn_varlen_func)",
@@ -1138,10 +1153,75 @@ def paged_prefill_case(gen):
                plain_lowp_err_lse=max(e[3] for e in errs),
                kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
                plain_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=None, flops=4 * d * pairs, bytes=bytes_,
+               library_ms=library_ms,
+               library="SDPA enable_gqa on a contiguous copy, bottom-right "
+               "causal bool mask",
+               flops=4 * d * pairs, bytes=bytes_,
                share_of_bound=bound_ms / kernel_ms)
     emit(res)
     return res
+
+
+def sdpa_prefill_ms(q, kc, vc, table, cu_q, lens_q, lens_k):
+    """Device time of one `scaled_dot_product_attention(enable_gqa=True)`
+    over the chunked prefill's sequences, on a contiguous copy of their
+    pages (b, hk, max_k, d) and their chunks left-padded to (b, h, max_q,
+    d), with the bottom-right causal mask as a bool (b, 1, max_q, max_k)
+    tensor: the same function without the page gather, as a yardstick the
+    port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    b = table.shape[0]
+    h, d = q.shape[1:]
+    hk = kc.shape[-2]
+    max_q, max_k = int(lens_q.max()), int(lens_k.max())
+    dev = q.device
+    r = torch.arange(max_q, device=dev)[None, :]
+    src = cu_q[:-1, None].long() + r - (max_q - lens_q[:, None].long())
+    qq = q[src.clamp(0, q.shape[0] - 1)].transpose(1, 2).contiguous()
+
+    def contiguous(c):
+        return c[table.long()].reshape(b, -1, hk, d)[:, :max_k].transpose(
+            1, 2).contiguous()
+
+    kq, vq = contiguous(kc), contiguous(vc)
+    col = torch.arange(max_k, device=dev)[None, None, :]
+    pos = (lens_k[:, None, None].long() - max_q + r[:, :, None])
+    mask = ((col <= pos) & (col < lens_k[:, None, None]))[:, None]
+    return time_ms(lambda a, k_, v_, m: F.scaled_dot_product_attention(
+        a, k_, v_, attn_mask=m, enable_gqa=True),
+        input_copies(qq, kq, vq, mask))
+
+
+def ptxas_summary(name):
+    """Registers, static shared memory and spills of each instantiation of
+    kernel library `name`, from `nvcc -Xptxas -v` (`_build.build_info`):
+    {template arguments of the mangled name: {registers, smem_bytes,
+    spill_stores, spill_loads}}."""
+    import re
+    from flash_attn_tpu_torch.kernels import _build
+
+    out, fn = {}, None
+    for ln in _build.build_info.get(name, {}).get("ptxas", []):
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            t = re.search(r"_kernelI(\w+?)EvNS_6ParamsE", fn)
+            fn = t.group(1) if t else fn
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[fn].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m:
+            out[fn].update(registers=int(m.group(1)),
+                           smem_bytes=int(m.group(2)))
+    return out
 
 
 def kvcache_phase():
@@ -1305,8 +1385,9 @@ def kvcache_step_check(label, o, q, k, v, kc, vc, lens, table, cos, sin,
     if not (torch.equal(kc[pid, off], k_new[:, 0])
             and torch.equal(vc[pid, off], v_new[:, 0])):
         raise AssertionError(f"{label}: appended rows differ from plain")
+    # the plain versions at the split count the kernel launched
     kw = dict(softmax_scale=q.shape[-1] ** -0.5, causal=True,
-              block_table=table)
+              block_table=table, num_splits=fd.last_num_splits)
     new_len = lens + 1
     o_pt, lse_pt = fd.decode_attn_ref_layout_ref(q_rot, kc, vc, new_len,
                                                  **kw, **descales)
@@ -1321,8 +1402,9 @@ def kvcache_step_check(label, o, q, k, v, kc, vc, lens, table, cos, sin,
     res = dict(step=label, max_abs_err_o=err, plain_lowp_err_o=err_pt)
     if kc.dtype == torch.int8:
         before = fd.launches  # a check's launch is not the path's
-        res["int8_tiled"] = int8_tiled_check(label, q_rot, kc, vc, new_len,
-                                             **kw, **descales)
+        res["int8_tiled"] = int8_tiled_check(
+            label, q_rot, kc, vc, new_len,
+            splits=(1, kw.pop("num_splits")), **kw, **descales)
         fd.launches = before
     return res
 
@@ -2720,7 +2802,7 @@ def main():
     dec["b"] = decode_case("b: GQA", 8, 32, 8, 1, 4096, 128, gen)
     dec["c"] = decode_case("c: sq = 4", 8, 12, 12, 4, 1024, 64, gen)
     dec["d"] = decode_case("d: num_splits = 4", 8, 12, 12, 1, 1024, 64, gen,
-                           num_splits=4)
+                           num_splits=4, block_k=256)
 
     bwd = {}
     bwd["a"] = bwd_case("a: training shape", 8, 12, 12, 1024, 1024, 64,
@@ -2771,7 +2853,9 @@ def main():
              max_abs_err=dec["a"]["max_abs_err_o"], ms=dec["a"]["kernel_ms"],
              plain_ms=dec["a"]["plain_ms"], bound_ms=dec["a"]["bound_ms"],
              bound_by=dec["a"]["bound_by"],
-             library_ms=dec["a"]["library_ms"]),
+             library_ms=dec["a"]["library_ms"],
+             num_splits=dec["a"]["num_splits"], blocks=dec["a"]["blocks"],
+             sm_fill=dec["a"]["sm_fill"]),
         dict(name="flash_bwd_dq", route="cuda",
              source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attn_tpu/kernels/flash_bwd.py:121",
@@ -2799,8 +2883,13 @@ def main():
              plain_ms=kvc["a"]["plain_ms"], bound_ms=kvc["a"]["bound_ms"],
              bound_by=kvc["a"]["bound_by"],
              library_ms=kvc["a"]["library_ms"],
+             num_splits=kvc["a"]["num_splits"], blocks=kvc["a"]["blocks"],
+             sm_fill=kvc["a"]["sm_fill"],
+             ptxas=ptxas_summary("flash_decode_ref"),
              by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                               bound_ms=r["bound_ms"],
+                              library_ms=r["library_ms"],
+                              num_splits=r.get("num_splits"),
                               max_abs_err=r["max_abs_err_o"])
                       for k, r in kvc.items()}),
         dict(name="flash_fwd_varlen", route="cuda",

@@ -12,32 +12,62 @@
 // :369 by decode_attn_bhsd), the same function over heads-first caches.
 //
 // What bounds it on the H100: bytes.  A decode step reads every live K/V row
-// once and does ~4*g*sq FLOPs per pair of rows; at Llama-3-8B's widths
-// (hk 8, d 128, g 4) that is far below the card's ratio of FLOPs to bytes.
+// once and does ~4*g*sq FLOPs per pair of rows; at Llama-3-8B's widths (hk 8,
+// d 128, g 4, batch 8, 64 pages of 256 rows a sequence) one call moves
+// 536,870,912 B of bf16 cache for 2.1 GFLOP, far below the card's ratio of
+// FLOPs to bytes.  The kernel has to keep the memory busy: enough blocks,
+// enough loads in flight, and little work per byte between them.
 //
 // What the design does about it:
-// * One block per (row tile, split, kv head, batch).  A row tile holds at
-//   most 64 of the g*sq packed query rows of one kv head (packed row r is
-//   query position r % sq of group head r // sq, flash_decode.py:836-840),
-//   so every cache row a block reads serves all of its rows; a decode step
-//   (g*sq <= 64) has one tile and reads each live row once.  More rows (a
-//   chunked prefill) take more tiles.
+// * One block of 4 warps per (row tile, split, kv head, batch).  The q heads
+//   of one kv head are packed into rows (packed row r is query position
+//   r % sq of group head r // sq, flash_decode.py:836-840), so every cache
+//   row a block reads serves all of its rows.  Up to 16 rows (a decode step)
+//   take one 16-row tile and the 4 warps share out each key tile (16 keys a
+//   warp); more rows (a chunked prefill) take 64-row tiles, 16 rows a warp,
+//   each warp over the whole key tile.
+// * Both products run on tensor cores with mma.sync.m16n8k16 and fp32
+//   accumulation: Q K^T with K fragments from ldmatrix, P V with V fragments
+//   from ldmatrix.trans (V is key-major).  Not wgmma: its 64-row minimum
+//   would do 16x the needed math for the 4 rows a kv head of a decode step,
+//   and bytes, not the tensor cores, are the limit here; a decode tile uses
+//   4 of the m16 tile's 16 rows and that is accepted.  Q's fragments, the O
+//   accumulator and the running max and sum stay in registers; shared memory
+//   holds only the key ring, so no fp32 per-(row, key) array is kept there.
+// * The grid's key split comes from the wrapper (decode_num_splits fills the
+//   card with about two blocks an SM when b*hk*tiles does not), and the
+//   splits are merged in the kernel: each block writes its partial O and LSE,
+//   and the last block of a (row tile, kv head, batch) to finish, counted on
+//   a semaphore it resets, merges them as combine_attn_partials does.
 // * A block reads only its kv head's d contiguous elements of each key (at
-//   stride hk*d, or d in the heads-first layout) in tiles of at most 64 keys that never cross a page, and
-//   only the keys that its rows can see (leftpad, length, window, causal
-//   bound of the tile's positions).
-// * Tiles arrive through a kStages-deep cp.async ring: the loads of the next
-//   kStages-1 tiles are in flight while a tile is computed.  This is the
-//   counterpart of the TPU pipe kernel's page copies in flight, for every
-//   layout.
-// * The math is small, so it runs on CUDA cores: fp32 for bf16/fp16 and fp8
-//   caches (fp8 is widened to half on load, which is exact, and scaled by
-//   the descale as flash_decode.py:594-628 does); for int8 caches the query
-//   arrives quantised per (batch, kv head) (the wrapper does it, :957-963),
-//   Q K^T runs as exact int32 __dp4a sums, and P is quantised as
-//   rint(127 p) against the running maximum for an int32 P V, as :656-662.
-// * A row with no key in a split writes o = 0 and lse = +inf; the wrapper
-//   merges splits with combine_attn_partials.
+//   stride hk*d, or d in the heads-first layout) in tiles of at most 64 keys
+//   that never cross a page, and only the keys its rows can see (leftpad,
+//   length, window, causal bound of the tile's positions).  Tiles arrive
+//   through a cp.async ring (2 deep for 16-bit caches, with three blocks an
+//   SM; 4 for 8-bit ones), the counterpart of the TPU pipe kernel's page
+//   copies in flight.  With the key tile shared out, each warp copies and
+//   waits for its own 16 rows: the warps of a block do not wait for each
+//   other inside the loop, except int8's agreement on each tile's maximum.
+// * 8-bit caches stay 8-bit in shared memory and are widened to the 16-bit
+//   compute type in registers, on their way to the fragments: K through an
+//   8-bit ldmatrix whose bytes land in the B fragment's slots once Q's
+//   columns are taken in the same order, V through ldmatrix and a movmatrix
+//   transpose (sm_90 has no 8-bit ldmatrix.trans), its bytes split into the
+//   fragments of the even and the odd d's.  fp8 (e4m3, e5m2) into bf16 or
+//   fp16 is exact; kfac (scale times k descale) scales the scores and vfac
+//   (v descale) P V, as flash_decode.py:594-628 does.  int8 stays exact:
+//   the query arrives quantised per (batch, kv head) (the wrapper does it,
+//   :957-963); Q K^T takes route (a), mma.m16n8k32 s8 with int32 sums, K's
+//   bytes straight from an 8-bit ldmatrix; P V takes route (b): the
+//   quantised P = rint(127 p) (integers in 0..127) and V are widened to
+//   fp16, which is exact, and the fp16 mma sums them in fp32 exactly, since
+//   every partial sum of a 64-key tile stays below 2^24 (at most 64 * 127^2
+//   ~ 1.03e6).  So both integer products are exact, as the JAX kernel's
+//   int32 dots (:614, :661); a 16-key warp's share of P V is converted to
+//   float before the warps' O are summed.  P is quantised after each 64-key tile against the running
+//   maximum of the tiles seen so far in the split (:552-553, :656-662); the
+//   warps sharing a tile agree on its maximum through shared memory first.
+// * A row with no key in a split writes o = 0 and lse = +inf.
 //
 // Masks (flash_decode.py:578-590): keys before cache_leftpad and at or past
 // cache_seqlens; with rel = key - leftpad and offset = len - leftpad - sq,
@@ -52,21 +82,28 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "fa_common.cuh"
+
 namespace {
 
-constexpr int kTileN = 64;    // keys per tile
-constexpr int kRowTile = 64;  // packed query rows per block
-constexpr int kStages = 3;    // cp.async ring depth
-constexpr int kThreads = 256;  // 8 warps: the fp32 math is latency-bound
-constexpr int kWarps = kThreads / 32;
+using fa::Mma;
+using fa::quad_max;
+using fa::quad_sum;
+
+constexpr int kTileN = 64;  // keys per tile: the int8 quantisation unit
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;  // (b, hk, rows, D) packed; int8 for int8 caches
   const unsigned char* k;
   const unsigned char* v;  // unused for fused pages
-  float* o_part;           // (b, hk, splits, rows, D)
+  float* o_part;           // (b, hk, splits, rows, D); split 0 holds the merge
   float* lse_part;         // (b, hk, splits, rows)
+  int* sems;               // (b, hk, row tiles) zeroed counters; splits > 1
   const int* seqlens;      // (b,)
   const int* leftpad;      // (b,) or null
   const int* cache_batch_idx;  // (b,) or null; contiguous caches only
@@ -75,7 +112,7 @@ struct Params {
   const float* q_scale;        // (b, hk), int8 caches
   const float* k_descale;      // (b, hk) or null
   const float* v_descale;      // (b, hk) or null
-  int b, h, hk, g, sq, rows, row_tile;
+  int b, h, hk, g, sq, rows;
   int paged, fused, page, nk_max, smax;
   int heads_first;  // contiguous cache laid out (bc, hk, smax, d)
   int splits, split_keys;
@@ -87,81 +124,59 @@ struct Params {
 template <__nv_fp8_interpretation_t K>
 struct Fp8 {};
 
-// Cache element types: bytes per element and widening to float.
-template <typename T>
-struct Cache;
-
-template <>
-struct Cache<__nv_bfloat16> {
-  static constexpr int kBytes = 2;
-  static __device__ __forceinline__ void chunk(const uint4& u, float* f) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(p[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-  static __device__ __forceinline__ float one(const unsigned char* p) {
-    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
-  }
+// Cache element types: bytes per element, and for 8-bit ones the widening of
+// four elements (one 32-bit word) to two words of the compute type T: in
+// order (widen4, fp8 K), or as the even and the odd bytes (split4, V).
+template <typename TC>
+struct Cache {
+  static constexpr int kBytes = 2;  // bf16 / fp16: the compute type itself
 };
 
 template <>
-struct Cache<__half> {
-  static constexpr int kBytes = 2;
-  static __device__ __forceinline__ void chunk(const uint4& u, float* f) {
-    const __half2* p = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __half22float2(p[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-  static __device__ __forceinline__ float one(const unsigned char* p) {
-    return __half2float(*reinterpret_cast<const __half*>(p));
+struct Cache<int8_t> {
+  static constexpr int kBytes = 1;
+  // Bytes 0 and 2 (`even`), 1 and 3 (`odd`) of w, each pair as fp16, exact:
+  // with the sign bit flipped a byte is x + 128, and fp16 0x64XX is
+  // 1024 + XX, so subtracting 1152 leaves x.
+  template <typename T>
+  static __device__ __forceinline__ void split4(uint32_t w, uint32_t& even, uint32_t& odd) {
+    static_assert(std::is_same<T, __half>::value, "int8 P V runs in fp16");
+    const uint32_t u = w ^ 0x80808080u;
+    uint32_t e = __byte_perm(u, 0x64646464u, 0x4240);
+    uint32_t o = __byte_perm(u, 0x64646464u, 0x4341);
+    const __half2 bias = __half2half2(__ushort_as_half(0x6480));  // 1152
+    const __half2 he = __hsub2(*reinterpret_cast<__half2*>(&e), bias);
+    const __half2 ho = __hsub2(*reinterpret_cast<__half2*>(&o), bias);
+    even = *reinterpret_cast<const uint32_t*>(&he);
+    odd = *reinterpret_cast<const uint32_t*>(&ho);
   }
 };
 
 template <__nv_fp8_interpretation_t K>
 struct Cache<Fp8<K>> {
   static constexpr int kBytes = 1;
-  static __device__ __forceinline__ void chunk(const uint4& u, float* f) {
-    const __nv_fp8x2_storage_t* p =
-        reinterpret_cast<const __nv_fp8x2_storage_t*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float2 x = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(p[i], K)));
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
+  // fp8 -> fp16 is exact, and so is fp16 -> fp32 -> bf16 for these values
+  template <typename T>
+  static __device__ __forceinline__ uint32_t pair(uint16_t x) {
+    const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(x, K));
+    if constexpr (std::is_same<T, __half>::value) {
+      return *reinterpret_cast<const uint32_t*>(&h);
+    } else {
+      const float2 f = __half22float2(h);
+      return Mma<__nv_bfloat16>::pack(f.x, f.y);
     }
   }
-  static __device__ __forceinline__ float one(const unsigned char* p) {
-    return __half2float(__half(__nv_cvt_fp8_to_halfraw(*p, K)));
+  template <typename T>
+  static __device__ __forceinline__ void widen4(uint32_t w, uint32_t* out) {
+    out[0] = pair<T>(static_cast<uint16_t>(w & 0xffffu));
+    out[1] = pair<T>(static_cast<uint16_t>(w >> 16));
+  }
+  template <typename T>
+  static __device__ __forceinline__ void split4(uint32_t w, uint32_t& even, uint32_t& odd) {
+    even = pair<T>(static_cast<uint16_t>(__byte_perm(w, 0, 0x0020)));
+    odd = pair<T>(static_cast<uint16_t>(__byte_perm(w, 0, 0x0031)));
   }
 };
-
-template <>
-struct Cache<int8_t> {
-  static constexpr int kBytes = 1;
-};
-
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   const int q = a / b;
@@ -181,6 +196,41 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Four 8x8 16-bit matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// C += A B on int8 tensor cores with int32 sums: A 16x32 (a0 / a1 rows gid /
+// gid + 8 at k 4*tig .. 4*tig + 3, a2 / a3 the same 16 on), B 32x8 (b0 k
+// 4*tig .. 4*tig + 3 of column gid, b1 the same 16 on).
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An 8x8 16-bit matrix held as an ldmatrix fragment, transposed.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// Four 8x8 16-bit matrices from shared memory, each transposed.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
 // Keys in the tile that starts at `col`: at most kTileN, never past `end`,
 // never across a page.
 __device__ __forceinline__ int tile_len(int col, int end, const Params& p) {
@@ -191,44 +241,56 @@ __device__ __forceinline__ int tile_len(int col, int end, const Params& p) {
 
 template <int D, int kBytes>
 struct Layout {
-  static constexpr int kRowBytes = D * kBytes + 16;  // 16 B pad: no bank conflicts
-  static constexpr int kChunks = D * kBytes / 16;    // 16 B chunks per key row
+  // cp.async ring depth: 16-bit rings of 2 (three blocks an SM fit, which
+  // outran 3-deep rings at two an SM), 8-bit ones of 4
+  static constexpr int kStages = kBytes == 2 ? 2 : 4;
+  static constexpr int kRowBytes = D * kBytes + 16;     // 16 B pad: no bank conflicts
+  static constexpr int kChunks = D * kBytes / 16;       // 16 B chunks per key row
   static constexpr int kTileBytes = kTileN * kRowBytes;
-  // fp32 words before the ring: q (or int8 q), acc, scores, m, l, alpha
-  static __host__ __device__ constexpr int float_words(int rt) {
-    return (rt * (2 * D + kTileN + 3) + 3) / 4 * 4;
-  }
-  static __host__ __device__ constexpr size_t smem_bytes(int rt) {
-    return (size_t)float_words(rt) * 4 + (size_t)kStages * 2 * kTileBytes;
-  }
+  static constexpr int kSmem = kStages * 2 * kTileBytes;
 };
 
-// TQ: bf16 / fp16 query, or int8_t (pre-quantised) with an int8 cache.
-// TC: the cache element type.
-template <typename TQ, typename TC, int D>
+// T: the 16-bit compute type (bf16 / fp16 q; fp16 for int8 caches, whose q
+// arrives pre-quantised as int8).  TC: the cache element type.  kRowWarps:
+// 1 (16-row tile, the warps share out each key tile) or 4 (64-row tile,
+// 16 rows a warp).
+template <typename T, typename TC, int D, int kRowWarps>
 __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params p) {
-  constexpr bool kInt8 = sizeof(TQ) == 1;
-  constexpr int kBytes = Cache<TC>::kBytes;
-  using L = Layout<D, kBytes>;
+  constexpr bool kInt8 = std::is_same<TC, int8_t>::value;
+  constexpr bool kWide = Cache<TC>::kBytes == 2;  // the ring feeds the mma
+  using L = Layout<D, Cache<TC>::kBytes>;
+  constexpr int kStages = L::kStages;
   constexpr int kRowBytes = L::kRowBytes;
-  constexpr int kChunks = L::kChunks;
-  constexpr int kPer = 16 / kBytes;  // elements per 16 B chunk
+  constexpr int kKeyWarps = kWarps / kRowWarps;
+  constexpr int kWK = kTileN / kKeyWarps;  // keys of a tile per warp
+  constexpr int kNT = kWK / 8;             // S n-tiles per warp
+  constexpr int kPK = kWK / 16;            // P V k-steps per warp
+  constexpr int kKS = D / 16;              // 16-column steps of d
+  constexpr int kDT = D / 8;               // O n-tiles
+  constexpr int kRows = 16 * kRowWarps;    // packed rows per block
+  // With the key tile shared out (kKeyWarps > 1), each warp streams its own
+  // kWK rows of every tile through its own part of the ring and waits only
+  // for its own copies; otherwise the block shares each tile.
+  constexpr bool kOwnRows = kKeyWarps > 1;
+  constexpr int kSlotRows = kOwnRows ? kWK : kTileN;  // rows of a K (or V) slot
+  constexpr int kSlotBytes = kSlotRows * L::kRowBytes;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const int rt = p.row_tile;
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sAcc = sQ + rt * D;
-  float* sS = sAcc + rt * D;
-  float* sM = sS + rt * kTileN;
-  float* sL = sM + rt;
-  float* sAlpha = sL + rt;
-  unsigned char* ring = smem + (size_t)L::float_words(rt) * 4;
+  unsigned char* ring = smem;
+  __shared__ float sMax[2][kKeyWarps * 16];  // by tile parity: warps drift a tile
+  __shared__ float sM[kKeyWarps * 16];
+  __shared__ int sLast;
 
   const int tile = blockIdx.x, split = blockIdx.y;
   const int kh = blockIdx.z % p.hk, bb = blockIdx.z / p.hk;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = tile * rt;
-  const int nr = min(rt, p.rows - r0);
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp / kKeyWarps, kg = warp % kKeyWarps;
+  const int r0 = tile * kRows;
+  const int nr = min(kRows, p.rows - r0);
+  unsigned char* my_ring = ring + (kOwnRows ? (size_t)warp * kStages * 2 * kSlotBytes : 0);
+  const int first = kOwnRows ? lane : tid;  // this thread's share of a slot's copies
+  constexpr int kStep = kOwnRows ? 32 : kThreads;
 
   // the heads-first layout's lengths are clamped to the cache, as
   // decode_attn_bhsd does
@@ -236,23 +298,53 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
   const int lp = p.leftpad ? p.leftpad[bb] : 0;
   const int offset = len - lp - p.sq;
   const int cb = p.cache_batch_idx ? p.cache_batch_idx[bb] : bb;
-  constexpr size_t kRow = (size_t)D * kBytes;  // one key of one kv head
+  constexpr size_t kRow = (size_t)D * Cache<TC>::kBytes;  // one key of one kv head
   const size_t key_stride = p.heads_first ? kRow : p.hk * kRow;  // bytes between keys
 
-  // query rows of this tile, and the online-softmax state
-  const size_t q_row0 = ((size_t)(bb * p.hk + kh) * p.rows + r0) * D;
-  if constexpr (kInt8) {
-    const int* qi = reinterpret_cast<const int*>(static_cast<const int8_t*>(p.q) + q_row0);
-    int* sQi = reinterpret_cast<int*>(sQ);
-    for (int i = tid; i < nr * D / 4; i += kThreads) sQi[i] = qi[i];
-  } else {
-    const TQ* q = static_cast<const TQ*>(p.q) + q_row0;
-    for (int i = tid; i < nr * D; i += kThreads) sQ[i] = to_float(q[i]);
+  // this thread's two rows (C fragment rows gid and gid + 8 of its warp):
+  // query position and ALiBi slope; rows past the tile read row rows - 1
+  int qpos[2];
+  float slope[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gr = min(r0 + rg * 16 + gid + 8 * i, p.rows - 1);
+    qpos[i] = gr % p.sq + offset;
+    if (p.alibi) slope[i] = p.alibi[bb * p.h + kh * p.g + gr / p.sq];
   }
-  for (int i = tid; i < rt * D; i += kThreads) sAcc[i] = 0.f;
-  for (int r = tid; r < rt; r += kThreads) {
-    sM[r] = -INFINITY;
-    sL[r] = 0.f;
+
+  // Q's A fragments (rows past the tile are zero): a0 / a1 rows gid / gid + 8
+  // at columns tig*2, a2 / a3 the same rows 8 columns on.  int8: the s8
+  // fragments of 32-column steps (4 bytes at 4*tig, and 16 on).  fp8: the
+  // columns of a 16-column step in K's fragment order (k slots 2*tig,
+  // 2*tig + 1 | 8 + 2*tig, 9 + 2*tig are d 4*tig .. 4*tig + 3): the dot product
+  // is the same, and K's bytes widen where they land.
+  constexpr int kQS = kInt8 ? D / 32 : kKS;
+  uint32_t qa[kQS][4];
+  {
+    const size_t q_row0 = (size_t)(bb * p.hk + kh) * p.rows + r0 + rg * 16;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = rg * 16 + gid + 8 * i;
+      const bool ok = r < nr;
+      const size_t base = (q_row0 + gid + 8 * i) * D;
+#pragma unroll
+      for (int kk = 0; kk < kQS; ++kk) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          uint32_t x = 0;
+          if (ok) {
+            if constexpr (kInt8) {
+              x = *reinterpret_cast<const uint32_t*>(static_cast<const int8_t*>(p.q) + base +
+                                                     kk * 32 + c * 16 + tig * 4);
+            } else {
+              const size_t at = base + kk * 16 + (kWide ? tig * 2 + c * 8 : tig * 4 + c * 2);
+              x = *reinterpret_cast<const uint32_t*>(static_cast<const T*>(p.q) + at);
+            }
+          }
+          qa[kk][i + 2 * c] = x;
+        }
+      }
+    }
   }
 
   // positions the tile's rows hold, for the key range they can see
@@ -288,19 +380,29 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
     return base + ((size_t)cb * p.smax + col) * key_stride + kh * kRow;
   };
 
+  // Copy the slot's rows of the tile at col0 (a warp's kWK keys, or all of
+  // them); rows past the tile's keys are zero-filled, so P = 0 meets V = 0
+  // there.  A tile lies in one page, so its rows are at one stride.
   auto issue = [&](int col0, int slot) {
-    const int n = tile_len(col0, end, p);
-    const unsigned char* kb = row_ptr(col0, 0);
-    const unsigned char* vb = row_ptr(col0, 1);
-    unsigned char* dk = ring + (size_t)(slot * 2) * L::kTileBytes;
-    unsigned char* dv = dk + L::kTileBytes;
-    for (int idx = tid; idx < kTileN * kChunks; idx += kThreads) {
-      const int r = idx / kChunks, c = (idx % kChunks) * 16;
-      const bool ok = r < n;
-      cp_async16(dk + r * kRowBytes + c, ok ? kb + r * key_stride + c : p.k, ok ? 16 : 0);
-      cp_async16(dv + r * kRowBytes + c, ok ? vb + r * key_stride + c : p.k, ok ? 16 : 0);
+    const int row0 = kOwnRows ? kg * kWK : 0;
+    const int valid = tile_len(col0, end, p) - row0;
+    const unsigned char* kb = valid > 0 ? row_ptr(col0 + row0, 0) : p.k;
+    const unsigned char* vb = valid > 0 ? row_ptr(col0 + row0, 1) : p.k;
+    unsigned char* dk = my_ring + (size_t)(slot * 2) * kSlotBytes;
+    unsigned char* dv = dk + kSlotBytes;
+    for (int idx = first; idx < kSlotRows * L::kChunks; idx += kStep) {
+      const int r = idx / L::kChunks, c = (idx % L::kChunks) * 16;
+      const bool ok = r < valid;
+      cp_async16(dk + r * L::kRowBytes + c, ok ? kb + r * key_stride + c : p.k, ok ? 16 : 0);
+      cp_async16(dv + r * L::kRowBytes + c, ok ? vb + r * key_stride + c : p.k, ok ? 16 : 0);
     }
   };
+
+  float o[kDT][4];
+#pragma unroll
+  for (int dt = 0; dt < kDT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's columns; quad-summed at the end
 
   int load_col = start;
 #pragma unroll
@@ -314,156 +416,374 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
 
   int col0 = start;
   for (int it = 0; col0 < end; ++it) {
+    cp_async_wait<kStages - 2>();
+    // tile `it` has landed, and the slot refilled next was read at tile it-1
+    if constexpr (kOwnRows) __syncwarp(); else __syncthreads();
     if (load_col < end) {
       issue(load_col, (it + kStages - 1) % kStages);
       load_col += tile_len(load_col, end, p);
     }
     cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();  // tile `it` is in shared memory for every thread
 
     const int n = tile_len(col0, end, p);
-    const unsigned char* sK = ring + (size_t)((it % kStages) * 2) * L::kTileBytes;
-    const unsigned char* sV = sK + L::kTileBytes;
+    // this warp's keys kg*kWK .. + kWK of the tile: the first rows of its
+    // slot, or of the shared tile with kg = 0
+    const unsigned char* sK = my_ring + (size_t)((it % kStages) * 2) * kSlotBytes;
+    const unsigned char* sV = sK + kSlotBytes;
 
-    // scores: thread per (row, key), consecutive threads on consecutive keys
-    for (int idx = tid; idx < nr * kTileN; idx += kThreads) {
-      const int r = idx / kTileN, j = idx % kTileN;
-      const int gr = r0 + r, pos = gr % p.sq;
-      const int col = col0 + j, rel = col - lp;
-      const int qpos = pos + offset;
-      bool masked = j >= n;
-      if (p.has_upper) masked |= rel > qpos + p.wr;
-      if (p.has_lower) masked |= rel < qpos - p.wl;
-      if (p.chunk > 0) masked |= floor_div(rel, p.chunk) != floor_div(qpos, p.chunk);
-      float x = -INFINITY;
-      if (!masked) {
-        const unsigned char* kr = sK + j * kRowBytes;
-        if constexpr (kInt8) {
-          const int4* qr = reinterpret_cast<const int4*>(reinterpret_cast<const int8_t*>(sQ) + r * D);
-          int acc = 0;
+    // S = Q K^T; consecutive mma go to different n-tiles
+    float s[kNT][4];
 #pragma unroll
-          for (int c = 0; c < kChunks; ++c) {
-            const int4 kw = *reinterpret_cast<const int4*>(kr + c * 16);
-            const int4 qw = qr[c];
-            acc = __dp4a(qw.x, kw.x, acc);
-            acc = __dp4a(qw.y, kw.y, acc);
-            acc = __dp4a(qw.z, kw.z, acc);
-            acc = __dp4a(qw.w, kw.w, acc);
+    for (int jt = 0; jt < kNT; ++jt) s[jt][0] = s[jt][1] = s[jt][2] = s[jt][3] = 0.f;
+    if constexpr (kWide) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; kk += 2) {
+        uint32_t b[kNT][4];
+#pragma unroll
+        for (int jt = 0; jt < kNT; ++jt)
+          ldsm_x4(b[jt], sK + (jt * 8 + (lane & 7)) * kRowBytes + (kk * 16 + (lane >> 3) * 8) * 2);
+#pragma unroll
+        for (int jt = 0; jt < kNT; ++jt) Mma<T>::mma(s[jt], qa[kk], b[jt]);
+#pragma unroll
+        for (int jt = 0; jt < kNT; ++jt) Mma<T>::mma(s[jt], qa[kk + 1], b[jt] + 2);
+      }
+    } else if constexpr (kInt8) {
+      // an 8-bit ldmatrix gives a thread 4 bytes of its key's row (d
+      // 4*tig .. 4*tig + 3 of a 16-byte chunk): as they are, half the s8 B
+      // fragment of a 32-column step; the int32 sums are exact
+      int si[kNT][4];
+#pragma unroll
+      for (int jt = 0; jt < kNT; ++jt) si[jt][0] = si[jt][1] = si[jt][2] = si[jt][3] = 0;
+#pragma unroll
+      for (int c0 = 0; c0 < kKS; c0 += 4) {
+        uint32_t r[kNT][4];
+#pragma unroll
+        for (int jt = 0; jt < kNT; ++jt)
+          ldsm_x4(r[jt], sK + (jt * 8 + (lane & 7)) * kRowBytes + (c0 + (lane >> 3)) * 16);
+#pragma unroll
+        for (int jt = 0; jt < kNT; ++jt) mma_s8(si[jt], qa[c0 / 2], r[jt]);
+#pragma unroll
+        for (int jt = 0; jt < kNT; ++jt) mma_s8(si[jt], qa[c0 / 2 + 1], r[jt] + 2);
+      }
+#pragma unroll
+      for (int jt = 0; jt < kNT; ++jt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jt][e] = (float)si[jt][e];
+    } else {
+      // the same 4 bytes, widened: the B fragment of one 16-column step in
+      // Q's column order
+#pragma unroll
+      for (int c0 = 0; c0 < kKS; c0 += 4) {
+        uint32_t r[kNT][4];
+#pragma unroll
+        for (int jt = 0; jt < kNT; ++jt)
+          ldsm_x4(r[jt], sK + (jt * 8 + (lane & 7)) * kRowBytes + (c0 + (lane >> 3)) * 16);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int jt = 0; jt < kNT; ++jt) {
+            uint32_t b[2];
+            Cache<TC>::template widen4<T>(r[jt][m], b);
+            Mma<T>::mma(s[jt], qa[c0 + m], b);
           }
-          x = (float)acc * kfac;
-        } else {
-          const float* qr = sQ + r * D;
-          float dot = 0.f;
+      }
+    }
+
+    // scale, softcap, ALiBi, masks; the tile's row maxima
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-          for (int c = 0; c < kChunks; ++c) {
-            const uint4 u = *reinterpret_cast<const uint4*>(kr + c * 16);
-            float f[kPer];
-            Cache<TC>::chunk(u, f);
+    for (int jt = 0; jt < kNT; ++jt) {
 #pragma unroll
-            for (int e = 0; e < kPer; ++e) dot = fmaf(qr[c * kPer + e], f[e], dot);
-          }
-          x = dot * kfac;
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int j = kg * kWK + jt * 8 + tig * 2 + (e & 1);
+        const int rel = col0 + j - lp;
+        bool masked = j >= n;
+        if (p.has_upper) masked |= rel > qpos[i] + p.wr;
+        if (p.has_lower) masked |= rel < qpos[i] - p.wl;
+        if (p.chunk > 0) masked |= floor_div(rel, p.chunk) != floor_div(qpos[i], p.chunk);
+        float x = s[jt][e] * kfac;
         if (p.softcap > 0.f) x = tanhf(x / p.softcap) * p.softcap;
-        if (p.alibi) {
-          const float slope = p.alibi[bb * p.h + kh * p.g + gr / p.sq];
-          x -= slope * fabsf((float)(qpos - rel));
-        }
+        if (p.alibi) x -= slope[i] * fabsf((float)(qpos[i] - rel));
+        x = masked ? -INFINITY : x;
+        s[jt][e] = x;
+        mx[i] = fmaxf(mx[i], x);
       }
-      sS[idx] = x;
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) mx[i] = quad_max(mx[i]);
+    if constexpr (kOwnRows && kInt8) {
+      // int8 quantises against the tile's maximum over all its keys: the
+      // warps sharing the tile agree on it (the others keep a running
+      // maximum a warp, merged at the end)
+      float* sm = sMax[it & 1];
+      if (tig == 0) {
+        sm[kg * 16 + gid] = mx[0];
+        sm[kg * 16 + gid + 8] = mx[1];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int w = 0; w < kKeyWarps; ++w) mx[i] = fmaxf(mx[i], sm[w * 16 + gid + 8 * i]);
+    }
 
-    // online softmax: one warp per row, two keys per lane
-    for (int r = warp; r < nr; r += kWarps) {
-      float* sr = sS + r * kTileN;
-      const float x0 = sr[lane], x1 = sr[lane + 32];
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float p0 = exp2f((x0 - m_use) * kLog2e), p1 = exp2f((x1 - m_use) * kLog2e);
-      if constexpr (kInt8) {
-        int* si = reinterpret_cast<int*>(sr);
-        si[lane] = __float2int_rn(p0 * 127.f);
-        si[lane + 32] = __float2int_rn(p1 * 127.f);
-      } else {
-        sr[lane] = p0;
-        sr[lane + 32] = p1;
-      }
-      const float psum = warp_sum(p0 + p1);
-      if (lane == 0) {
-        const float alpha = exp2f((m_old - m_use) * kLog2e);
-        sAlpha[r] = alpha;
-        sL[r] = sL[r] * alpha + psum;
-        sM[r] = m_new;
+    // online softmax: P against the running maximum (int8: rint(127 p))
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m_run[i], mx[i]);
+      m_use[i] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = exp2f((m_run[i] - m_use[i]) * kLog2e);
+      m_run[i] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int jt = 0; jt < kNT; ++jt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f((s[jt][e] - m_use[e >> 1]) * kLog2e);
+        rs[e >> 1] += pe;
+        s[jt][e] = kInt8 ? rintf(pe * 127.f) : pe;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
+    uint32_t pa[kPK][4];  // P's A fragments, in the compute type
+#pragma unroll
+    for (int c = 0; c < kPK; ++c) {
+      pa[c][0] = Mma<T>::pack(s[2 * c][0], s[2 * c][1]);
+      pa[c][1] = Mma<T>::pack(s[2 * c][2], s[2 * c][3]);
+      pa[c][2] = Mma<T>::pack(s[2 * c + 1][0], s[2 * c + 1][1]);
+      pa[c][3] = Mma<T>::pack(s[2 * c + 1][2], s[2 * c + 1][3]);
+    }
 
-    // O = alpha O + P V: thread per (row, dim)
-    for (int idx = tid; idx < nr * D; idx += kThreads) {
-      const int r = idx / D, dd = idx % D;
-      const unsigned char* vc = sV + dd * kBytes;
-      float pv;
-      if constexpr (kInt8) {
-        const int* pr = reinterpret_cast<const int*>(sS + r * kTileN);
-        int s = 0;
-#pragma unroll 16
-        for (int j = 0; j < kTileN; ++j)
-          s += pr[j] * (int)*reinterpret_cast<const int8_t*>(vc + j * kRowBytes);
-        pv = (float)s;
+    // O = alpha O + P V (times vfac: int8 per tile, the others at the end).
+    // 16-bit V: ldmatrix.trans gives the B fragments.  8-bit V: an ldmatrix
+    // matrix is 8 keys x 16 bytes; movmatrix transposes it as 8x8 16-bit
+    // pairs, so a thread holds keys 2*tig, 2*tig + 1 of d 2*gid, 2*gid + 1,
+    // and bytes 0, 2 / 1, 3 widen to the B fragments of two n-tiles: one of
+    // the even d's of the 16-byte chunk, one of the odd d's.  O's n-tiles
+    // 2c and 2c + 1 then hold chunk c's d 4*tig, 4*tig + 2 and 4*tig + 1,
+    // 4*tig + 3 (put_row below writes them back in order).
+    auto pv_step = [&](float (*acc)[4], int ks, int dp) {  // n-tiles dp, dp + 1
+      uint32_t b[4];
+      if constexpr (kWide) {
+        ldsm_x4_t(b, sV + (ks * 16 + (lane & 15)) * kRowBytes + (dp + (lane >> 4)) * 16);
+        Mma<T>::mma(acc[0], pa[ks], b);
+        Mma<T>::mma(acc[1], pa[ks], b + 2);
       } else {
-        const float* pr = sS + r * kTileN;
-        float s = 0.f;
-#pragma unroll 16
-        for (int j = 0; j < kTileN; ++j) s = fmaf(pr[j], Cache<TC>::one(vc + j * kRowBytes), s);
-        pv = s;
+        // chunk dp / 2, keys 0-7 and 8-15: one matrix each
+        const int c = dp >> 1;
+        uint32_t r[2];
+        const unsigned char* at = sV + (ks * 16 + (lane & 15)) * kRowBytes + c * 16;
+        asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+                     : "=r"(r[0]), "=r"(r[1])
+                     : "r"(static_cast<unsigned>(__cvta_generic_to_shared(at))));
+        Cache<TC>::template split4<T>(movmatrix_t(r[0]), b[0], b[2]);
+        Cache<TC>::template split4<T>(movmatrix_t(r[1]), b[1], b[3]);
+        Mma<T>::mma(acc[0], pa[ks], b);
+        Mma<T>::mma(acc[1], pa[ks], b + 2);
       }
-      sAcc[idx] = sAcc[idx] * sAlpha[r] + pv * vfac;
+    };
+    if constexpr (kInt8) {
+      // the tile's integer sums first, exact in fp32, as today's int32 P V
+#pragma unroll
+      for (int dp = 0; dp < kDT; dp += 2) {
+        float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < kPK; ++ks) pv_step(c, ks, dp);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o[dp + t][e] = o[dp + t][e] * alpha[e >> 1] + c[t][e] * vfac;
+      }
+    } else {
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int ks = 0; ks < kPK; ++ks)
+#pragma unroll
+        for (int dp = 0; dp < kDT; dp += 2) pv_step(o + dp, ks, dp);
     }
-    __syncthreads();  // this tile's slot may be refilled next iteration
     col0 += n;
   }
   cp_async_wait<0>();
+  if constexpr (!kInt8) {
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] *= vfac;
+  }
 
   const size_t part = ((size_t)(bb * p.hk + kh) * p.splits + split) * p.rows + r0;
-  for (int idx = tid; idx < nr * D; idx += kThreads) {
-    const float l = sL[idx / D];
-    p.o_part[part * D + idx] = l > 0.f ? sAcc[idx] / l : 0.f;
+  // this thread's values of its row i (gid + 8 i), times f, into a row of D
+  auto put_row = [&](float* row, int i, float f) {
+    if constexpr (kWide) {
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<float2*>(row + dt * 8 + tig * 2) =
+            make_float2(o[dt][2 * i] * f, o[dt][2 * i + 1] * f);
+    } else {
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c)
+        *reinterpret_cast<float4*>(row + c * 16 + tig * 4) =
+            make_float4(o[2 * c][2 * i] * f, o[2 * c + 1][2 * i] * f,
+                        o[2 * c][2 * i + 1] * f, o[2 * c + 1][2 * i + 1] * f);
+    }
+  };
+  float l_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l_row[i] = quad_sum(l_run[i]);
+  if constexpr (kKeyWarps == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = rg * 16 + gid + 8 * i;
+      if (r >= nr) continue;
+      const float l = l_row[i];
+      put_row(p.o_part + (part + r) * D, i, l > 0.f ? 1.f / l : 0.f);
+      if (tig == 0) p.lse_part[part + r] = l > 0.f ? m_run[i] + logf(l) : INFINITY;
+    }
+  } else {
+    // the warps' O and sums over their keys add up, each rescaled from its
+    // running maximum to the largest (int8: one maximum, factors 1)
+    __syncthreads();  // the ring is free
+    float* sO = reinterpret_cast<float*>(ring);  // (kKeyWarps, 16, D)
+    float* sL = sO + kKeyWarps * 16 * D;         // (kKeyWarps, 16)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = gid + 8 * i;
+      if (tig == 0) {
+        sL[kg * 16 + r] = l_row[i];
+        sM[kg * 16 + r] = m_run[i];
+      }
+      put_row(sO + (kg * 16 + r) * D, i, 1.f);
+    }
+    __syncthreads();
+    // warp w's factor for row r: exp(m_w - M), 0 for a warp that saw no key
+    auto factor = [&](int w, int r, float mx) {
+      const float m = sM[w * 16 + r];
+      return m == -INFINITY ? 0.f : exp2f((m - mx) * kLog2e);
+    };
+    auto row_max = [&](int r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kKeyWarps; ++w) mx = fmaxf(mx, sM[w * 16 + r]);
+      return mx;
+    };
+    for (int idx = tid; idx < nr * D; idx += kThreads) {
+      const int r = idx / D, dd = idx % D;
+      const float mx = row_max(r);
+      float l = 0.f, acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kKeyWarps; ++w) {
+        const float f = factor(w, r, mx);
+        l += f * sL[w * 16 + r];
+        acc += f * sO[(w * 16 + r) * D + dd];
+      }
+      p.o_part[(part + r) * D + dd] = l > 0.f ? acc / l : 0.f;
+    }
+    for (int r = tid; r < nr; r += kThreads) {
+      const float mx = row_max(r);
+      float l = 0.f;
+#pragma unroll
+      for (int w = 0; w < kKeyWarps; ++w) l += factor(w, r, mx) * sL[w * 16 + r];
+      p.lse_part[part + r] = l > 0.f ? mx + logf(l) : INFINITY;
+    }
   }
+  if (p.splits == 1) return;
+
+  // The last block of this (row tile, kv head, batch) merges the splits'
+  // partials into split 0's rows (combine_attn_partials: lse = +inf is an
+  // empty split of weight 0) and resets the counter for the next launch.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* sem = p.sems + (size_t)(bb * p.hk + kh) * gridDim.x + tile;
+    const int done = atomicAdd(sem, 1);
+    sLast = done == p.splits - 1;
+    if (sLast) *sem = 0;
+  }
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+  const size_t g0 = (size_t)(bb * p.hk + kh) * p.splits * p.rows + r0;  // split 0, row r0
+  for (int idx = tid; idx < nr * D; idx += kThreads) {
+    const int r = idx / D, dd = idx % D;
+    float mx = -INFINITY;
+    for (int s = 0; s < p.splits; ++s) {
+      const float l = __ldcg(p.lse_part + g0 + (size_t)s * p.rows + r);
+      if (l != INFINITY) mx = fmaxf(mx, l);
+    }
+    float acc = 0.f, sw = 0.f;
+    if (mx != -INFINITY) {
+      for (int s = 0; s < p.splits; ++s) {
+        const size_t at = g0 + (size_t)s * p.rows + r;
+        const float l = __ldcg(p.lse_part + at);
+        if (l == INFINITY) continue;
+        const float w = expf(l - mx);
+        sw += w;
+        acc += w * __ldcg(p.o_part + at * D + dd);
+      }
+    }
+    p.o_part[(g0 + r) * D + dd] = sw > 0.f ? acc / sw : 0.f;
+  }
+  __syncthreads();  // every split's lse is read before split 0's is replaced
   for (int r = tid; r < nr; r += kThreads) {
-    const float l = sL[r];
-    p.lse_part[part + r] = l > 0.f ? sM[r] + logf(l) : INFINITY;
+    float mx = -INFINITY;
+    for (int s = 0; s < p.splits; ++s) {
+      const float l = __ldcg(p.lse_part + g0 + (size_t)s * p.rows + r);
+      if (l != INFINITY) mx = fmaxf(mx, l);
+    }
+    float sw = 0.f;
+    if (mx != -INFINITY)
+      for (int s = 0; s < p.splits; ++s) {
+        const float l = __ldcg(p.lse_part + g0 + (size_t)s * p.rows + r);
+        if (l != INFINITY) sw += expf(l - mx);
+      }
+    p.lse_part[g0 + r] = mx == -INFINITY ? INFINITY : mx + logf(sw);
   }
 }
 
-template <typename TQ, typename TC, int D>
+template <typename T, typename TC, int D, int kRowWarps>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using L = Layout<D, Cache<TC>::kBytes>;
-  const int smem = (int)L::smem_bytes(p.row_tile);
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_ref_kernel<TQ, TC, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = flash_decode_ref_kernel<T, TC, D, kRowWarps>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return err;
-  const int tiles = (p.rows + p.row_tile - 1) / p.row_tile;
+  // all of the SM's unified memory as shared memory: two blocks of ring fit
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int rows_per_block = 16 * kRowWarps;
+  const int tiles = (p.rows + rows_per_block - 1) / rows_per_block;
   dim3 grid(tiles, p.splits, p.b * p.hk);
-  flash_decode_ref_kernel<TQ, TC, D><<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, L::kSmem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, typename TC, int D>
+cudaError_t launch_rows(const Params& p, cudaStream_t s) {
+  return p.rows <= 16 ? launch<T, TC, D, 1>(p, s) : launch<T, TC, D, 4>(p, s);
 }
 
 template <int D>
 cudaError_t dispatch(const Params& p, int q_dtype, int cache_dtype, cudaStream_t s) {
   using E4 = Fp8<__NV_E4M3>;
   using E5 = Fp8<__NV_E5M2>;
-  if (cache_dtype == 2) return launch<int8_t, int8_t, D>(p, s);
+  if (cache_dtype == 2) return launch_rows<__half, int8_t, D>(p, s);
   if (q_dtype == 0) {
-    if (cache_dtype == 0) return launch<__nv_bfloat16, __nv_bfloat16, D>(p, s);
-    if (cache_dtype == 3) return launch<__nv_bfloat16, E4, D>(p, s);
-    if (cache_dtype == 4) return launch<__nv_bfloat16, E5, D>(p, s);
+    if (cache_dtype == 0) return launch_rows<__nv_bfloat16, __nv_bfloat16, D>(p, s);
+    if (cache_dtype == 3) return launch_rows<__nv_bfloat16, E4, D>(p, s);
+    if (cache_dtype == 4) return launch_rows<__nv_bfloat16, E5, D>(p, s);
   } else if (q_dtype == 1) {
-    if (cache_dtype == 1) return launch<__half, __half, D>(p, s);
-    if (cache_dtype == 3) return launch<__half, E4, D>(p, s);
-    if (cache_dtype == 4) return launch<__half, E5, D>(p, s);
+    if (cache_dtype == 1) return launch_rows<__half, __half, D>(p, s);
+    if (cache_dtype == 3) return launch_rows<__half, E4, D>(p, s);
+    if (cache_dtype == 4) return launch_rows<__half, E5, D>(p, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -477,24 +797,27 @@ extern "C" const char* fa_error_string(int err) {
 // q_dtype: 0 = bf16, 1 = fp16.  cache_dtype: 0 = bf16, 1 = fp16 (the q
 // type), 2 = int8 (q pre-quantised to int8, q_scale given), 3 = fp8 e4m3,
 // 4 = fp8 e5m2.  heads_first: a contiguous cache is (bc, hk, smax, d), not
-// (bc, smax, hk, d).  Returns cudaGetLastError() after the launch.
+// (bc, smax, hk, d).  With num_splits > 1, `sems` holds one zeroed int32 per
+// (batch, kv head, row tile) (row tiles: 1 for up to 16 packed rows, else
+// ceil(rows / 64)); the kernel leaves them zeroed, and o_part / lse_part's
+// split 0 holds the merged result.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_decode_ref(
     const void* q, const void* k_cache, const void* v_cache, float* o_part, float* lse_part,
-    const int* cache_seqlens, const int* cache_leftpad, const int* cache_batch_idx,
+    int* sems, const int* cache_seqlens, const int* cache_leftpad, const int* cache_batch_idx,
     const int* block_table, const float* alibi, const float* q_scale, const float* k_descale,
     const float* v_descale, int b, int h, int hk, int sq, int d, int q_dtype, int cache_dtype,
     int paged, int fused, int page, int nk_max, int smax, int heads_first, int num_splits,
-    int split_keys,
-    float scale, int has_upper, int wr, int has_lower, int wl, int chunk, float softcap,
-    void* stream) {
+    int split_keys, float scale, int has_upper, int wr, int has_lower, int wl, int chunk,
+    float softcap, void* stream) {
   if (b == 0 || h == 0 || sq == 0) return 0;
+  if (num_splits > 1 && sems == nullptr) return cudaErrorInvalidValue;
   const int g = h / hk, rows = g * sq;
   Params p{q, static_cast<const unsigned char*>(k_cache),
-           static_cast<const unsigned char*>(v_cache), o_part, lse_part, cache_seqlens,
+           static_cast<const unsigned char*>(v_cache), o_part, lse_part, sems, cache_seqlens,
            cache_leftpad, cache_batch_idx, block_table, alibi, q_scale, k_descale, v_descale,
-           b, h, hk, g, sq, rows, rows < kRowTile ? rows : kRowTile,
-           paged, fused, page, nk_max, smax, heads_first, num_splits, split_keys, scale,
-           has_upper, wr, has_lower, wl, chunk, softcap};
+           b, h, hk, g, sq, rows, paged, fused, page, nk_max, smax, heads_first, num_splits,
+           split_keys, scale, has_upper, wr, has_lower, wl, chunk, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return dispatch<64>(p, q_dtype, cache_dtype, s);
   if (d == 128) return dispatch<128>(p, q_dtype, cache_dtype, s);

@@ -22,7 +22,15 @@ updated caches; here the appended rows are written into `k_cache` /
 As in the JAX kernels, the q heads of one kv head are packed into rows
 (packed row r is query position r % sq of head group r // sq,
 `flash_decode.py:281,836`); each (batch, kv head, split) writes float32
-partial O and LSE, and `combine_attn_partials` merges the splits.
+partial O and LSE, merged as `combine_attn_partials` merges them (the plain
+versions call it; the kernel merges in its last block of each group).
+
+`num_splits = 0` means "auto", as in FA's own API: on CUDA the wrappers
+take `decode_num_splits` at the card's SM count, so that a grid of b * hk
+row-tile blocks that leaves SMs idle is cut along the keys.  On the CPU (and
+in the plain versions) 0 means 1, as the JAX wrapper maps it
+(`flash_attn_tpu/kernels/flash_decode.py:22`: the TPU has no occupancy
+cliff).  An explicit count is honoured everywhere.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (
 KERNEL = "flash_decode_ref"
 
 # Number of times the CUDA kernel was launched, by either wrapper (plain CPU
-# runs do not count).
+# runs do not count), and the key splits of the last launch.
 launches = 0
+last_num_splits = 0
 
 LOG2E = math.log2(math.e)
 MASK_VALUE = -1e30  # the JAX kernels' masked score (`flash_fwd.py:51`)
@@ -61,6 +70,58 @@ def _unsupported(block_table, cache_leftpad, attention_chunk):
         raise NotImplementedError("attention_chunk is not ported yet")
 
 
+# Packed query rows of one block of the kernel: a decode step's rows (up to
+# 16) take one 16-row tile, more rows take 64-row tiles.
+DECODE_ROWS, ROW_TILE = 16, 64
+# Blocks an SM that an automatic split aims at: with two, one block can
+# stream while the other waits on its tile (the kernel's ring lets two or
+# three share an SM).
+SPLIT_BLOCKS_PER_SM = 2
+# Keys per split unit of `decode_attn_bhsd`'s automatic split when block_k
+# is not given (four of the kernel's 64-key tiles): heads-first caches are
+# bf16 / fp16 only, so the split moves no result beyond float32 rounding.
+AUTO_BLOCK_K = 256
+
+
+def row_tiles(rows: int) -> int:
+    """Row tiles of the kernel's grid for `rows` packed query rows."""
+    return 1 if rows <= DECODE_ROWS else cdiv(rows, ROW_TILE)
+
+
+def decode_num_splits(b: int, hk: int, row_tiles: int, keys: int,
+                      split_unit: int, sm_count: int) -> int:
+    """Key splits of an automatic (`num_splits = 0`) launch on a card with
+    `sm_count` SMs: 1 where the b * hk * row_tiles blocks already fill the
+    card (one an SM); else the smallest count whose splits give at least
+    SPLIT_BLOCKS_PER_SM blocks an SM, each split at least one `split_unit`
+    of keys, so never more splits than units.  The count is one that
+    `split_layout` / `ref_layout_tiles` cut into non-empty splits of whole
+    units (cdiv(units, cdiv(units, n)) == n)."""
+    base = b * hk * row_tiles
+    if base == 0 or base >= sm_count:
+        return 1
+    units = max(1, cdiv(keys, split_unit))
+    target = SPLIT_BLOCKS_PER_SM * sm_count
+    for n in range(1, units + 1):
+        nonempty = cdiv(units, cdiv(units, n))
+        if base * nonempty >= target:
+            return nonempty
+    return units
+
+
+_SM_COUNT: dict = {}
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (cached)."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
 def split_layout(smax: int, num_splits: int, block_k: int | None):
     """(num_splits, keys per split) as the JAX wrapper computes them: the
     cache is cut into block_k-key blocks and the blocks are shared out."""
@@ -76,7 +137,7 @@ def decode_attn_bhsd_ref(q, k_cache, v_cache, cache_seqlens, *,
                          window_size=(-1, -1), softcap: float = 0.0,
                          alibi_slopes=None, block_table=None,
                          cache_batch_idx=None, cache_leftpad=None,
-                         num_splits: int = 1, block_k: int | None = None,
+                         num_splits: int = 0, block_k: int | None = None,
                          attention_chunk: int = 0):
     """Plain PyTorch version of `decode_attn_bhsd` (same signature).
 
@@ -124,7 +185,7 @@ def decode_attn_bhsd(q, k_cache, v_cache, cache_seqlens, *,
                      window_size=(-1, -1), softcap: float = 0.0,
                      alibi_slopes=None, block_table=None,
                      cache_batch_idx=None, cache_leftpad=None,
-                     num_splits: int = 1, block_k: int | None = None,
+                     num_splits: int = 0, block_k: int | None = None,
                      attention_chunk: int = 0):
     """Decode attention.  q: (b, h, sq, d); caches: (bc, hk, smax, d);
     cache_seqlens: (b,) keys in use, the new tokens included.  Returns
@@ -132,7 +193,8 @@ def decode_attn_bhsd(q, k_cache, v_cache, cache_seqlens, *,
 
     CPU tensors run the plain version; CUDA tensors launch
     `csrc/flash_decode_ref.cu` in its heads-first layout (bf16 or fp16, d
-    in {64, 128}) or raise."""
+    in {64, 128}) or raise.  On CUDA, num_splits = 0 takes
+    `decode_num_splits` on units of block_k (AUTO_BLOCK_K if not given)."""
     if q.device.type == "cpu":
         return decode_attn_bhsd_ref(
             q, k_cache, v_cache, cache_seqlens, softmax_scale=softmax_scale,
@@ -160,11 +222,17 @@ def decode_attn_bhsd(q, k_cache, v_cache, cache_seqlens, *,
     cbi = _ints(cache_batch_idx, b, q.device)
     if cbi is None and b > bc:
         raise ValueError(f"batch {b} > cache batch {bc}")
+    rows = h // hk * sq
+    if not num_splits:
+        block_k = block_k or AUTO_BLOCK_K
+        unit = min(block_k, round_up(smax, 8))
+        num_splits = decode_num_splits(b, hk, row_tiles(rows), smax, unit,
+                                       sm_count(q.device))
     num_splits, split_keys = split_layout(smax, num_splits, block_k)
     # (b, h, sq, d) is already packed: heads kh*g .. kh*g+g-1 are rows
     # (head - kh*g) * sq + pos of kv head kh
     o, lse = _launch(
-        q.reshape(b, hk, h // hk * sq, d), k_cache, v_cache, lens, h=h,
+        q.reshape(b, hk, rows, d), k_cache, v_cache, lens, h=h,
         sq=sq, q_code=q_code, cache_code=cache_code, cbi=cbi,
         alibi_slopes=alibi_slopes, heads_first=True, smax=smax,
         splits=num_splits, split_keys=split_keys, softmax_scale=softmax_scale,
@@ -209,8 +277,8 @@ def _launch(qp, k_cache, v_cache, lens, *, h, sq, q_code, cache_code,
             attention_chunk=0):
     """One launch of `csrc/flash_decode_ref.cu` on the packed query qp (b,
     hk, rows, d); returns the split-merged o (b, hk, rows, d) and lse (b,
-    hk, rows), float32."""
-    global launches
+    hk, rows), float32 (the kernel merges the splits into split 0)."""
+    global launches, last_num_splits
     b, hk, rows, d = qp.shape
     dev = qp.device
     slopes = None
@@ -227,10 +295,13 @@ def _launch(qp, k_cache, v_cache, lens, *, h, sq, q_code, cache_code,
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
+    sems = (_semaphores(dev, b * hk * row_tiles(rows)) if splits > 1
+            else None)
     lib = _lib()
     err = lib.flash_decode_ref(
         qp.data_ptr(), k_cache.data_ptr(), ptr(v_cache), o_parts.data_ptr(),
-        lse_parts.data_ptr(), lens.data_ptr(), ptr(leftpad), ptr(cbi),
+        lse_parts.data_ptr(), ptr(sems), lens.data_ptr(), ptr(leftpad),
+        ptr(cbi),
         ptr(table), ptr(slopes), ptr(q_scale), ptr(kd), ptr(vd),
         b, h, hk, sq, d, q_code, cache_code, int(table is not None),
         int(v_cache is None), page, nk_max, smax, int(heads_first), splits,
@@ -239,16 +310,30 @@ def _launch(qp, k_cache, v_cache, lens, *, h, sq, q_code, cache_code,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, KERNEL)
     launches += 1
-    if splits > 1:
-        return combine_attn_partials(o_parts, lse_parts, axis=2)
+    last_num_splits = splits
     return o_parts[:, :, 0], lse_parts[:, :, 0]
+
+
+_SEMS: dict = {}
+
+
+def _semaphores(dev, n):
+    """n zeroed int32 counters for the kernel's split merge, one buffer per
+    (device, stream) and reused: the kernel sets every counter it takes
+    back to 0, and launches on one stream run in order."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    t = _SEMS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _SEMS[key] = t
+    return t
 
 
 def _lib():
     lib = _build.load(KERNEL)
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_decode_ref.argtypes = ([P] * 13 + [I] * 15
+        lib.flash_decode_ref.argtypes = ([P] * 14 + [I] * 15
                                          + [F, I, I, I, I, I, F, P])
         lib.flash_decode_ref.restype = I
         _build.declare_error_string(lib)
@@ -339,7 +424,7 @@ def decode_attn_ref_layout_ref(q, k_cache, v_cache, cache_seqlens, *,
                                window_size=(-1, -1), softcap: float = 0.0,
                                alibi_slopes=None, block_table=None,
                                cache_batch_idx=None, cache_leftpad=None,
-                               num_splits: int = 1,
+                               num_splits: int = 0,
                                block_k: int | None = None,
                                attention_chunk: int = 0, k_descale=None,
                                v_descale=None, sinks=None):
@@ -469,7 +554,7 @@ def decode_attn_ref_layout(q, k_cache, v_cache, cache_seqlens, *,
                            window_size=(-1, -1), softcap: float = 0.0,
                            alibi_slopes=None, block_table=None,
                            cache_batch_idx=None, cache_leftpad=None,
-                           num_splits: int = 1, block_k: int | None = None,
+                           num_splits: int = 0, block_k: int | None = None,
                            attention_chunk: int = 0, k_descale=None,
                            v_descale=None, sinks=None):
     """Split-KV decode on reference-layout caches.  q: (b, sq, h, d);
@@ -480,7 +565,10 @@ def decode_attn_ref_layout(q, k_cache, v_cache, cache_seqlens, *,
 
     CPU tensors run the plain version; CUDA tensors launch
     `csrc/flash_decode_ref.cu` (q bf16/fp16, cache of q's dtype, int8 or
-    fp8, d = dv in {64, 128}) or raise."""
+    fp8, d = dv in {64, 128}) or raise.  On CUDA, num_splits = 0 takes
+    `decode_num_splits` on the units of `ref_layout_tiles` (bundle * block_k
+    keys), so the plain version run at `last_num_splits` cuts at the same
+    keys."""
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap,
               alibi_slopes=alibi_slopes, block_table=block_table,
@@ -522,6 +610,12 @@ def decode_attn_ref_layout(q, k_cache, v_cache, cache_seqlens, *,
     if cache_code >= 2:
         kd = _per_kv_head(k_descale, b, hk, dev)
         vd = _per_kv_head(v_descale, b, hk, dev)
+    if not num_splits:
+        bk, nk_max, bundle, _, _ = ref_layout_tiles(k_cache, v_cache,
+                                                    block_table, 1, block_k)
+        num_splits = decode_num_splits(
+            b, hk, row_tiles(qp.shape[2]), nk_max * bk, bundle * bk,
+            sm_count(dev))
     bk, nk_max, bundle, ns, bps = ref_layout_tiles(
         k_cache, v_cache, block_table, num_splits, block_k)
     o, lse = _launch(
@@ -703,7 +797,7 @@ def flash_attn_with_kvcache(q, k_cache, v_cache, k=None, v=None,
         qd, kcd, vcd, new_len, softmax_scale=softmax_scale, causal=causal,
         window_size=window_size, softcap=softcap, alibi_slopes=alibi_slopes,
         block_table=block_table, cache_batch_idx=cache_batch_idx,
-        cache_leftpad=cache_leftpad, num_splits=num_splits or 1,
+        cache_leftpad=cache_leftpad, num_splits=num_splits,
         attention_chunk=attention_chunk, k_descale=k_descale,
         v_descale=v_descale, sinks=sinks)
     results = (out,)

@@ -117,6 +117,62 @@ def test_split_layout_matches_jax_wrapper(smax, num_splits, block_k, expect):
     assert port_decode.split_layout(smax, num_splits, block_k) == expect
 
 
+# (b, hk, row tiles, keys, split unit): the decode kernel's grid before the
+# key split, on a card of 132 SMs (an H100 SXM)
+NUM_SPLITS_CASES = {
+    # b * hk * row tiles >= 132 blocks already fill the card
+    "fills_batch": ((32, 8, 1, 16384, 1024), 1),
+    "fills_prefill_tiles": ((4, 8, 24, 4096, 1024), 1),
+    # the bench shape: Llama-3-8B's 8 kv heads, batch 8, one row tile, 64
+    # pages of 256 rows (bf16 units of 4 pages, int8 units of 8), and the
+    # shortest bench length, 8192 keys
+    "bench_bf16": ((8, 8, 1, 16384, 1024), 6),
+    "bench_int8": ((8, 8, 1, 16384, 2048), 8),
+    "bench_bf16_8192": ((8, 8, 1, 8192, 1024), 8),
+    # the serving decode: GPT-2's 12 heads, batch 8, a 1024-row cache in
+    # 256-key units
+    "serving": ((8, 12, 1, 1024, 256), 4),
+    # fewer units than the fill wants: one split a unit, no more
+    "few_units": ((2, 2, 1, 3000, 1024), 3),
+}
+
+
+@pytest.mark.parametrize("name", list(NUM_SPLITS_CASES))
+def test_decode_num_splits(name):
+    """`decode_num_splits` (num_splits = 0 on CUDA): 1 where the grid fills
+    the card, else the smallest count whose splits give at least two blocks
+    an SM or one split a unit; the count cuts the keys into non-empty
+    splits of whole units under `split_layout`."""
+    (b, hk, tiles, keys, unit), want = NUM_SPLITS_CASES[name]
+    n = port_decode.decode_num_splits(b, hk, tiles, keys, unit, 132)
+    assert n == want
+    units = -(-keys // unit)
+    assert 1 <= n <= units
+    base = b * hk * tiles
+    if base < 132:
+        assert base * n >= 2 * 132 or n == units
+    ns, split_keys = port_decode.split_layout(keys, n, unit)
+    assert ns == n and split_keys % unit == 0
+    assert (n - 1) * split_keys < keys <= n * split_keys
+
+
+def test_decode_num_splits_on_ref_layout_units():
+    """At the bench shape the automatic count cuts the paged cache on the
+    units of `ref_layout_tiles` (bundles of pages) into non-empty splits,
+    for bf16 and int8 caches."""
+    for dtype, unit in ((torch.bfloat16, 1024), (torch.int8, 2048)):
+        kc = torch.empty((512, 256, 8, 128), dtype=dtype, device="meta")
+        table = torch.zeros((8, 64), dtype=torch.int32)
+        bk, nk_max, bundle, _, _ = port_decode.ref_layout_tiles(
+            kc, kc, table, 1, None)
+        assert (bk * bundle, nk_max * bk) == (unit, 16384)
+        n = port_decode.decode_num_splits(8, 8, 1, nk_max * bk,
+                                          bundle * bk, 132)
+        *_, ns, bps = port_decode.ref_layout_tiles(kc, kc, table, n, None)
+        assert ns == n and 8 * 8 * n >= 2 * 132
+        assert (n - 1) * bps * bundle < nk_max <= n * bps * bundle
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_combine_matches_jax(seed):
     rng = np.random.default_rng(seed)

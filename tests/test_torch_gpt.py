@@ -29,6 +29,15 @@ LOGIT_ATOL, KV_ATOL = 1e-4, 1e-5
 TINY = dict(n_embd=128, n_head=4, n_layer=2, vocab_size=311, n_positions=256)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def quick_jax_compiles():
+    """The JAX references here are tiny programs whose time is compiling,
+    not running: compile them with XLA's optimizations off."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 def jax_config(**extra):
     from transformers import GPT2Config
 
@@ -75,42 +84,26 @@ def test_converter_uses_every_array_once(models):
         state_dict_from_jax_params(tree, port.config)
 
 
-@pytest.mark.parametrize("use_flash_attn", [False, True])
-def test_no_cache_logits_match_jax(models, use_flash_attn):
-    """Default JAX path (interpret-mode Pallas) and its XLA reference path."""
-    jmodel, params, port, ids = models
-    jm = JaxGPT(jax_config(use_flash_attn=use_flash_attn), dtype=jnp.float32)
-    ref = np.asarray(jax.jit(lambda p, x: jm.apply(p, x).logits)(
-        params, jnp.asarray(ids)))
-    with torch.no_grad():
-        out = port(torch.from_numpy(ids).long()).logits.numpy()
-    np.testing.assert_allclose(out, ref, atol=LOGIT_ATOL, rtol=0)
+def build_pair(extra, seed, ids):
+    """JAX and port models of the tiny config with `extra` options, on the
+    same weights (initialised by JAX's XLA reference path, which has the
+    same parameters)."""
+    init = JaxGPT(jax_config(use_flash_attn=False, **extra),
+                  dtype=jnp.float32).init
+    params = jax.jit(init)(jax.random.PRNGKey(seed), jnp.asarray(ids[:, :4]))
+    cfg = GPTConfig(**TINY, **extra)
+    port = GPTLMHeadModel(cfg, device="cpu", dtype=torch.float32)
+    port.load_state_dict(state_dict_from_jax_params(to_numpy_tree(params),
+                                                    cfg))
+    return params, port.eval()
 
 
-@pytest.mark.parametrize("act", ["swiglu", "sqrelu"])
-def test_mlp_variants_match_jax(act):
-    """`GatedMlp` with SwiGLU and the squared-ReLU `Mlp`, through the tiny
-    model (XLA reference attention on the JAX side)."""
-    ids = np.random.default_rng(1).integers(0, 311, (2, 12)).astype(np.int32)
-    jm = JaxGPT(jax_config(activation_function=act, use_flash_attn=False),
-                dtype=jnp.float32)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(ids[:, :4]))
-    cfg = GPTConfig(**TINY, activation_function=act)
-    port = GPTLMHeadModel(cfg, device="cpu")
-    port.load_state_dict(state_dict_from_jax_params(to_numpy_tree(params), cfg))
-    ref = np.asarray(jax.jit(lambda p, x: jm.apply(p, x).logits)(
-        params, jnp.asarray(ids)))
-    with torch.no_grad():
-        out = port(torch.from_numpy(ids).long()).logits.numpy()
-    np.testing.assert_allclose(out, ref, atol=LOGIT_ATOL, rtol=0)
-
-
-def test_cached_prefill_and_decode_match_jax(models):
-    """Prefill of 17 tokens (the prefill kernel: s > 16) then 3 one-token
-    decode steps, logits and live cache rows compared at every step."""
-    jmodel, params, port, ids = models
+def check_cached_steps(jmodel, params, port, ids, n_decode):
+    """Prefill of 17 tokens (the prefill kernel: s > 16) then `n_decode`
+    one-token decode steps, logits and live cache rows compared at every
+    step; JAX under `jax.jit`."""
     b, smax = 2, 32
-    steps = [ids[:, :17]] + [ids[:, 17 + i:18 + i] for i in range(3)]
+    steps = [ids[:, :17]] + [ids[:, 17 + i:18 + i] for i in range(n_decode)]
     jip = JaxInferenceParams(max_seqlen=smax, max_batch_size=b,
                              lengths_per_sample=jnp.zeros((b,), jnp.int32))
     tip = InferenceParams(max_seqlen=smax, max_batch_size=b,
@@ -135,6 +128,80 @@ def test_cached_prefill_and_decode_match_jax(models):
                 np.testing.assert_allclose(tc[:, :, :n].numpy(),
                                            np.asarray(jc)[:, :, :n],
                                            atol=KV_ATOL, rtol=0)
+
+
+# Model options held to JAX: (config fields, JAX's use_flash_attn, decode
+# steps after the no-cache logits).  ALiBi goes through JAX's Pallas path
+# (its XLA reference drops ALiBi, ROADMAP Queue 3); the three attention
+# options together also through a prefill and two decode steps.
+MODEL_OPTIONS = {
+    "False": (None, False, 0),  # the default model, XLA reference path
+    "True": (None, True, 0),    # the default model, interpret-mode Pallas
+    "window": (dict(window_size=(8, 0)), False, 0),
+    "softcap": (dict(attn_softcap=5.0), False, 0),
+    "alibi": (dict(use_alibi=True), True, 0),
+    "window_softcap_alibi": (dict(window_size=(8, 0), attn_softcap=5.0,
+                                  use_alibi=True), True, 2),
+    "residual_in_fp32": (dict(residual_in_fp32=True), False, 0),
+    "lm_head_bias": (dict(tie_word_embeddings=False, lm_head_bias=True),
+                     False, 0),
+}
+
+
+@pytest.mark.parametrize("option", list(MODEL_OPTIONS))
+def test_no_cache_logits_match_jax(models, option):
+    """The default model on JAX's Pallas path (interpret mode) and its XLA
+    reference path, and the tiny model with each option of
+    MODEL_OPTIONS."""
+    extra, use_flash_attn, n_decode = MODEL_OPTIONS[option]
+    jmodel, params, port, ids = models
+    if extra is not None:
+        params, port = build_pair(extra, 2, ids)
+    jm = JaxGPT(jax_config(use_flash_attn=use_flash_attn, **(extra or {})),
+                dtype=jnp.float32)
+    ref = np.asarray(jax.jit(lambda p, x: jm.apply(p, x).logits)(
+        params, jnp.asarray(ids)))
+    with torch.no_grad():
+        out = port(torch.from_numpy(ids).long()).logits.numpy()
+    np.testing.assert_allclose(out, ref, atol=LOGIT_ATOL, rtol=0)
+    if n_decode:
+        check_cached_steps(jm, params, port, ids, n_decode)
+
+
+MLP_OPTIONS = {
+    "swiglu": dict(activation_function="swiglu"),
+    "sqrelu": dict(activation_function="sqrelu"),
+    "glu": dict(activation_function="glu"),
+    "geglu": dict(activation_function="geglu"),
+    "relu": dict(activation_function="relu"),
+    "silu": dict(activation_function="silu"),
+    "no_bias": dict(qkv_proj_bias=False, out_proj_bias=False,
+                    mlp_fc1_bias=False, mlp_fc2_bias=False),
+    "n_inner_200": dict(n_inner=200),
+}
+
+
+@pytest.mark.parametrize("act", list(MLP_OPTIONS))
+def test_mlp_variants_match_jax(act):
+    """`GatedMlp` with SwiGLU, GLU (sigmoid) and GeGLU, `Mlp` with squared
+    ReLU, ReLU and SiLU, no biases, and an inner width of 200, through the
+    tiny model (XLA reference attention on the JAX side)."""
+    extra = MLP_OPTIONS[act]
+    ids = np.random.default_rng(1).integers(0, 311, (2, 12)).astype(np.int32)
+    jm = JaxGPT(jax_config(use_flash_attn=False, **extra), dtype=jnp.float32)
+    params, port = build_pair(extra, 1, ids)
+    ref = np.asarray(jax.jit(lambda p, x: jm.apply(p, x).logits)(
+        params, jnp.asarray(ids)))
+    with torch.no_grad():
+        out = port(torch.from_numpy(ids).long()).logits.numpy()
+    np.testing.assert_allclose(out, ref, atol=LOGIT_ATOL, rtol=0)
+
+
+def test_cached_prefill_and_decode_match_jax(models):
+    """Prefill of 17 tokens (the prefill kernel: s > 16) then 3 one-token
+    decode steps, logits and live cache rows compared at every step."""
+    jmodel, params, port, ids = models
+    check_cached_steps(jmodel, params, port, ids, 3)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])

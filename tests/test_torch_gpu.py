@@ -61,6 +61,7 @@ def test_fwd_kernel_matches_plain(cuda, dtype, d, h, hk, causal, window,
     assert torch.all(o[2] == 0) and torch.all(torch.isposinf(lse[2]))
 
 
+@pytest.mark.parametrize("splits", ["explicit", "auto"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d,h,hk,sq,num_splits,window,softcap,alibi", [
     (64, 12, 12, 1, 1, (-1, -1), 0.0, False),
@@ -72,7 +73,12 @@ def test_fwd_kernel_matches_plain(cuda, dtype, d, h, hk, causal, window,
     (64, 8, 2, 4, 3, (100, 0), 30.0, True),
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, d, h, hk, sq, num_splits,
-                                     window, softcap, alibi):
+                                     window, softcap, alibi, splits):
+    """Heads-first decode against its plain version, at the case's split
+    count and at num_splits = 0 (the kernel's own split, merged in the
+    kernel)."""
+    if splits == "auto":
+        num_splits = 0
     gen = torch.Generator(device=cuda).manual_seed(1)
     b, smax = 4, 600
     q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
@@ -87,6 +93,8 @@ def test_decode_kernel_matches_plain(cuda, dtype, d, h, hk, sq, num_splits,
     before = flash_decode.launches
     o, lse = flash_decode.decode_attn_bhsd(q, kc, vc, lens, **kw)
     assert flash_decode.launches == before + 1
+    if splits == "auto":  # 4 * hk blocks leave SMs idle: the keys are split
+        assert flash_decode.last_num_splits > 1
     o_ref, lse_ref = flash_decode.decode_attn_bhsd_ref(
         q.float(), kc.float(), vc.float(), lens, **kw)
     o_pt, lse_pt = flash_decode.decode_attn_bhsd_ref(q, kc, vc, lens, **kw)
@@ -267,14 +275,16 @@ def _ref_layout_inputs(case, dtype, gen, dev):
     return q, kc, vc, lens, kw, deq, fused
 
 
+@pytest.mark.parametrize("splits", ["explicit", "auto"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", ["paged", "fused", "int8_paged", "int8_fused",
                                   "fp8_contiguous", "rows_gt_64",
                                   "d64_window_chunk_alibi"])
-def test_decode_ref_layout_kernel_matches_plain(cuda, dtype, case):
+def test_decode_ref_layout_kernel_matches_plain(cuda, dtype, case, splits):
     """The reference-layout kernel against its plain version: the fp32
     oracle on the dequantised cache, the plain version in the cache's own
-    precision as the low-precision yardstick."""
+    precision as the low-precision yardstick, both at the split count the
+    kernel launched (the case's own, or num_splits = 0's)."""
     from flash_attn_tpu_torch.utils.testing import dequantise_cache
 
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -282,10 +292,14 @@ def test_decode_ref_layout_kernel_matches_plain(cuda, dtype, case):
                                                          cuda)
     d = q.shape[-1]
     kw["softmax_scale"] = d ** -0.5
+    kw.setdefault("num_splits", 1)
+    if splits == "auto":
+        kw["num_splits"] = 0
     before = flash_decode.launches
     o, lse = flash_decode.decode_attn_ref_layout(q, kc, vc, lens, **kw)
     torch.cuda.synchronize()
     assert flash_decode.launches == before + 1
+    kw["num_splits"] = flash_decode.last_num_splits
     o_pt, lse_pt = flash_decode.decode_attn_ref_layout_ref(q, kc, vc, lens,
                                                            **kw)
     ref_kw = {k: v for k, v in kw.items()
@@ -307,6 +321,87 @@ def test_decode_ref_layout_kernel_matches_plain(cuda, dtype, case):
     fin = torch.isfinite(lse_ref)
     check_close(lse[fin], lse_ref[fin], lse_pt[fin])
     assert torch.all(o[2] == 0) or case == "rows_gt_64"
+
+
+# The int8 kernel and the plain int8 version on 64-row pages (the kernel's
+# own 64-key tiles) at the same split count quantise the same p against the
+# same running maximum and differ only in float32 summation order: their
+# bf16 outputs are equal or one step apart (<= 2^-7 |o|, and 1e-6 near 0),
+# their lse far within 1e-4 (the rule of chip_smoke.py's int8_tiled_check).
+@pytest.mark.parametrize("num_splits", [1, 0], ids=["one_split", "auto"])
+def test_decode_int8_matches_plain_on_its_tiles(cuda, num_splits):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b, h, hk, d, page, pps = 2, 32, 8, 128, 64, 128
+    npages = b * pps + 3
+    table = torch.randperm(npages, generator=gen, device=cuda)[
+        :b * pps].view(b, pps).int()
+    shape = (npages, page, hk, d)
+    kc = torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                       dtype=torch.int8)
+    vc = torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                       dtype=torch.int8)
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).bfloat16()
+    lens = torch.tensor([page * pps, 5000], dtype=torch.int32, device=cuda)
+    kw = dict(softmax_scale=d ** -0.5, causal=True, block_table=table,
+              num_splits=num_splits,
+              k_descale=torch.rand(b, hk, generator=gen, device=cuda) * 0.01
+              + 0.01,
+              v_descale=torch.rand(b, hk, generator=gen, device=cuda) * 0.01
+              + 0.01)
+    o, lse = flash_decode.decode_attn_ref_layout(q, kc, vc, lens, **kw)
+    ns = flash_decode.last_num_splits
+    assert ns == (4 if num_splits == 0 else 1)  # 8192 keys, 2048-key units
+    o_pt, lse_pt = flash_decode.decode_attn_ref_layout_ref(
+        q, kc, vc, lens, **dict(kw, num_splits=ns))
+    o, o_pt = o.float(), o_pt.float()
+    assert torch.all((o - o_pt).abs() <= 2.0 ** -7 * o_pt.abs() + 1e-6)
+    assert float((lse - lse_pt).abs().max()) <= 1e-4
+
+
+def test_serving_decode_auto_split(cuda):
+    """The serving decode's shape (GPT-2: 12 heads, one row a kv head, d 64,
+    a 1024-row heads-first cache, batch 8): 96 blocks leave SMs idle, so
+    num_splits = 0 splits the keys; the result matches the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, h, d, smax = 8, 12, 64, 1024
+    q = torch.randn(b, h, 1, d, generator=gen, device=cuda).bfloat16()
+    kc = torch.randn(b, h, smax, d, generator=gen, device=cuda).bfloat16()
+    vc = torch.randn(b, h, smax, d, generator=gen, device=cuda).bfloat16()
+    lens = torch.randint(1, smax + 1, (b,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    kw = dict(softmax_scale=d ** -0.5, causal=True)
+    o, lse = flash_decode.decode_attn_bhsd(q, kc, vc, lens, **kw)
+    want = flash_decode.decode_num_splits(
+        b, h, 1, smax, flash_decode.AUTO_BLOCK_K,
+        flash_decode.sm_count(cuda))
+    assert flash_decode.last_num_splits == want > 1
+    o_ref, lse_ref = flash_decode.decode_attn_bhsd_ref(
+        q.float(), kc.float(), vc.float(), lens, **kw)
+    o_pt, lse_pt = flash_decode.decode_attn_bhsd_ref(q, kc, vc, lens, **kw)
+    check_close(o, o_ref, o_pt)
+    check_close(lse, lse_ref, lse_pt)
+
+
+def test_decode_auto_split_is_one_when_the_grid_fills_the_card(cuda):
+    """b * hk = 136 blocks fill an H100's 132 SMs: num_splits = 0 launches
+    one split, and the result matches the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    b, h, hk, d, smax = 34, 8, 4, 128, 700
+    q = torch.randn(b, 1, h, d, generator=gen, device=cuda).bfloat16()
+    kc = torch.randn(b, smax, hk, d, generator=gen, device=cuda).bfloat16()
+    vc = torch.randn(b, smax, hk, d, generator=gen, device=cuda).bfloat16()
+    lens = torch.randint(1, smax + 1, (b,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    kw = dict(softmax_scale=d ** -0.5, causal=True)
+    o, lse = flash_decode.decode_attn_ref_layout(q, kc, vc, lens, **kw)
+    assert flash_decode.sm_count(cuda) > b * hk or \
+        flash_decode.last_num_splits == 1
+    o_ref, lse_ref = flash_decode.decode_attn_ref_layout_ref(
+        q.float(), kc.float(), vc.float(), lens, **kw)
+    o_pt, lse_pt = flash_decode.decode_attn_ref_layout_ref(q, kc, vc, lens,
+                                                           **kw)
+    check_close(o, o_ref, o_pt)
+    check_close(lse, lse_ref, lse_pt)
 
 
 @pytest.mark.parametrize("option,match", [("head_dim_96", "head dim"),

@@ -24,6 +24,7 @@ import torch
 from flash_attn_tpu import interface as jfa
 from flash_attn_tpu.layers import rotary as jax_rotary
 from flash_attn_tpu_torch import interface as port
+from flash_attn_tpu_torch.kernels import flash_decode as port_decode
 from flash_attn_tpu_torch.layers import rotary as port_rotary
 
 O_ATOL, LSE_ATOL = 2e-5, 1e-5
@@ -99,7 +100,10 @@ CASES = {
                                      paged=True),
     "batch_idx_leftpad_empty": dict(sq=2, snew=1, cbi=[3, 0, 1],
                                     leftpad=[5, 0, 3], lens=[30, 0, 25]),
-    "int8_paged_append": dict(cache="int8", paged=True, snew=1, sq=2),
+    # num_splits = 0 ("auto") is one split on CPU tensors, as in JAX; an
+    # int8 result depends on the splits (each restarts the quantisation)
+    "int8_paged_append": dict(cache="int8", paged=True, snew=1, sq=2,
+                              num_splits=0),
     "int8_contiguous": dict(cache="int8", sq=4, window=(20, 0)),
     "fp8_append": dict(cache="fp8", snew=1),
     "splits3": dict(smax=2304, num_splits=3, lens=[2304, 1500, 700]),
@@ -214,6 +218,13 @@ def test_kvcache_matches_jax(name):
             np.testing.assert_allclose(ct, cj, atol=1e-6, rtol=0)
     assert o_t.shape == o_j.shape and o_t.dtype == torch.float32
     assert_attention_close(o_t, lse_t, o_j, lse_j)
+    if kw["num_splits"] == 0:  # the plain version's tiles: one split
+        cache = to_torch(arrays["k_cache"])
+        table = kw.get("block_table")
+        assert port_decode.ref_layout_tiles(
+            cache, None if arrays["v_cache"] is None else cache,
+            None if table is None else torch.from_numpy(table), 0,
+            None)[3] == 1
     if c["lens"] is not None and 0 in c["lens"] and not c["snew"]:
         i = c["lens"].index(0)
         assert torch.all(o_t[i] == 0)
