@@ -1195,10 +1195,10 @@ def sdpa_prefill_ms(q, kc, vc, table, cu_q, lens_q, lens_k):
 
 
 def ptxas_summary(name):
-    """Registers, static shared memory and spills of each instantiation of
-    kernel library `name`, from `nvcc -Xptxas -v` (`_build.build_info`):
-    {template arguments of the mangled name: {registers, smem_bytes,
-    spill_stores, spill_loads}}."""
+    """Registers, static shared memory, spills and warnings of each
+    instantiation of kernel library `name`, from `nvcc -Xptxas -v`
+    (`_build.build_info`): {"kernel<template arguments of the mangled
+    name>": {registers, smem_bytes, spill_stores, spill_loads, warnings}}."""
     import re
     from flash_attn_tpu_torch.kernels import _build
 
@@ -1207,20 +1207,24 @@ def ptxas_summary(name):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             fn = m.group(1)
-            t = re.search(r"_kernelI(\w+?)EvNS_6ParamsE", fn)
-            fn = t.group(1) if t else fn
+            t = re.search(r"([a-z_]+_kernel)I(\w+?)Ev", fn)
+            fn = f"{t.group(1)}<{t.group(2)}>" if t else fn
             out[fn] = {}
             continue
         if fn is None:
             continue
+        if "ptxas warning" in ln:
+            out[fn].setdefault("warnings", []).append(ln)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             out[fn].update(spill_stores=int(m.group(1)),
                            spill_loads=int(m.group(2)))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        m = re.search(r"Used (\d+) registers", ln)
         if m:
-            out[fn].update(registers=int(m.group(1)),
-                           smem_bytes=int(m.group(2)))
+            out[fn]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            out[fn]["smem_bytes"] = int(m.group(1))
     return out
 
 
@@ -2142,6 +2146,7 @@ def flex_fwd_case(c, **extra):
     bm = c["bm"]
     res = dict(phase="kernel_flex", case=label, b=b, h=h, hk=k.shape[2],
                sq=sq, sk=sk, d=d, block_q=bm.block_q, block_k=bm.block_k,
+               tile=flex.fwd_tile(bm.block_q, bm.block_k),
                head_invariant=bm.kv_num.shape[1] == 1,
                score_mod=repr(c["score_mod"]),
                bias=None if bias is None else list(bias.shape),
@@ -2252,8 +2257,10 @@ def flex_bwd_case(c):
 
 def compiled_flex_ms(c):
     """torch.nn.attention.flex_attention under torch.compile on the inputs
-    of case `c` (a document mask), as a second yardstick: no check depends
-    on it, and a failure to compile is recorded as such."""
+    of case `c` (a document mask), as a second yardstick, forward (`ms`)
+    and backward (`bwd_ms`: dQ, dK and dV together from one autograd.grad
+    of the compiled forward's output): no check depends on them, and a
+    failure to compile is recorded as such, each apart."""
     import torch
 
     try:
@@ -2275,9 +2282,27 @@ def compiled_flex_ms(c):
         ms = time_ms(lambda a, b_, c_: fn(a, b_, c_, block_mask=bm,
                                            enable_gqa=True),
                      input_copies(q, k, v))
-        return dict(ms=ms, compile_s=compile_s)
+        res = dict(ms=ms, compile_s=compile_s)
     except Exception as e:  # a yardstick only
         return dict(error=f"{type(e).__name__}: {str(e)[:300]}")
+    try:
+        gen = torch.Generator(device=DEV).manual_seed(11)
+        do = torch.randn(q.shape, generator=gen, device=DEV).bfloat16()
+        graphs = []
+        for qc, kc, vc, dc in input_copies(q, k, v, do):
+            ins = [t.detach().requires_grad_() for t in (qc, kc, vc)]
+            graphs.append((fn(*ins, block_mask=bm, enable_gqa=True), ins,
+                           dc))
+        t0 = time.perf_counter()
+        torch.autograd.grad(*graphs[0], retain_graph=True)
+        torch.cuda.synchronize()
+        res["bwd_compile_s"] = time.perf_counter() - t0
+        res["bwd_ms"] = time_ms(lambda out, ins, dc: torch.autograd.grad(
+            out, ins, dc, retain_graph=True), graphs, iters=10)
+        del graphs
+    except Exception as e:  # a yardstick only
+        res["bwd_error"] = f"{type(e).__name__}: {str(e)[:300]}"
+    return res
 
 
 def flex_varlen_case(gen):
@@ -2779,6 +2804,11 @@ def main():
     info = _build.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=info))
+    spills = {k: v for k, v in ptxas_summary("flex").items()
+              if k.startswith("flex_fwd_kernel")
+              and (v.get("spill_stores") or v.get("spill_loads"))}
+    if spills:
+        raise AssertionError(f"flex_fwd_kernel spills registers: {spills}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     fwd = {}
@@ -2950,6 +2980,8 @@ def main():
              library=ffwd["c"]["library"],
              mask_prep_ms=ffwd["c"]["mask_prep_ms"],
              compiled_torch_flex=fcompiled,
+             ptxas={k: v for k, v in ptxas_summary("flex").items()
+                    if k.startswith("flex_fwd_kernel")},
              by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                               bound_ms=r["bound_ms"],
                               library_ms=r["library_ms"],
@@ -2968,6 +3000,7 @@ def main():
              bound_by=fbwd["c"]["dq_bound_by"],
              library_ms=fbwd["c"]["library_ms"],
              library=fbwd["c"]["library"],
+             compiled_torch_flex_bwd_ms=fcompiled.get("bwd_ms"),
              by_case={k: dict(ms=r["dq_kernel_ms"], plain_ms=r["plain_ms"],
                               bound_ms=r["dq_bound_ms"],
                               library_ms=r["library_ms"],
@@ -2987,6 +3020,7 @@ def main():
              bound_by=fbwd["c"]["dkv_bound_by"],
              library_ms=fbwd["c"]["library_ms"],
              library=fbwd["c"]["library"],
+             compiled_torch_flex_bwd_ms=fcompiled.get("bwd_ms"),
              by_case={k: dict(ms=r["dkv_kernel_ms"], plain_ms=r["plain_ms"],
                               bound_ms=r["dkv_bound_ms"],
                               library_ms=r["library_ms"],

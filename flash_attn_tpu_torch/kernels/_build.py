@@ -93,7 +93,7 @@ def build(names=KERNELS) -> dict[str, dict]:
         build_info[name] = {
             "seconds": round(secs, 2),
             "ptxas": [ln.strip() for ln in out.splitlines()
-                      if "ptxas info" in ln or "spill" in ln],
+                      if "ptxas" in ln or "spill" in ln],
         }
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -66,7 +66,7 @@ from flash_attn_tpu_torch.kernels.block_sizes import cdiv, round_up
 from flash_attn_tpu_torch.kernels.flash_fwd import HEAD_DIMS, _DTYPE_CODE
 
 KERNEL = "flex"
-TILE = 64  # the CUDA kernels' q-row and key tile: block_q, block_k multiples
+TILE = 64  # the CUDA kernels' smallest tile: block_q, block_k multiples
 _MASK_CHUNK = 1 << 24  # elements of one mask evaluation (bounds its memory)
 TABLES = ("kv_num", "kv_idx", "full_kv_num", "full_kv_idx", "q_num", "q_idx",
           "full_q_num", "full_q_idx")
@@ -651,11 +651,23 @@ def _check_cuda(q, k, v, block_q, block_k, score_mod):
 
 
 def _kernel_ready(x):
-    """x itself if the kernel can read it in place (unit last stride, rows
-    16-byte aligned), else a contiguous copy."""
+    """x itself if the kernels can read it in place (unit last stride, rows
+    16-byte aligned, no broadcast dimension: the forward's TMA descriptors
+    take strides that are nonzero multiples of 16 bytes), else a contiguous
+    copy."""
     ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(st % 8 == 0 for st in x.stride()[:-1]))
+          and all(st % 8 == 0 and (st > 0 or n == 1)
+                  for st, n in zip(x.stride()[:-1], x.shape[:-1])))
     return x if ok else x.contiguous()
+
+
+def fwd_tile(block_q: int, block_k: int) -> tuple[int, int]:
+    """(q rows, keys) of the CUDA forward's tile for these blocks, the rule
+    of `csrc/flex.cu::launch_fwd`: 128 rows (two consumer warpgroups) when
+    block_q is a multiple of 128, else 64; keys 128 when block_k is a
+    multiple of 128, else 64."""
+    return (128 if block_q % 128 == 0 else 64,
+            128 if block_k % 128 == 0 else 64)
 
 
 def _params(q, k, v, block_mask, bits, score_mod, scale, bias):

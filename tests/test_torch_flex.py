@@ -578,3 +578,28 @@ def test_varlen_packed_position_limit_raises():
     many = torch.arange(0x7FFF + 1, dtype=torch.int32)
     with pytest.raises(ValueError, match="32767"):
         varlen_packed.flash_attn_varlen_packed_func(x, x, x, many, many, 1, 1)
+
+
+@pytest.mark.parametrize("block_q,block_k,tile", [
+    (128, 64, (128, 64)), (64, 64, (64, 64)), (512, 512, (128, 128)),
+    (192, 192, (64, 64)), (128, 128, (128, 128)), (64, 128, (64, 128)),
+    (1024, 1024, (128, 128)), (320, 384, (64, 128)),
+])
+def test_fwd_tile_rule(block_q, block_k, tile):
+    """The CUDA forward's instantiation for (block_q, block_k), the rule of
+    `csrc/flex.cu::launch_fwd`: 128 q rows and 128 keys where the blocks
+    are multiples of 128, else 64."""
+    assert flex.fwd_tile(block_q, block_k) == tile
+
+
+def test_kernel_ready_reads_strided_views_in_place():
+    """q, k, v views of a packed qkv and head-transposed tensors are read in
+    place; a broadcast (stride 0) or misaligned view is copied."""
+    qkv = torch.zeros(2, 16, 3, 4, 64, dtype=torch.bfloat16)
+    for x in (*qkv.unbind(2), torch.zeros(2, 4, 16, 64).transpose(1, 2)):
+        assert flex._kernel_ready(x) is x
+    wide = torch.zeros(2, 16, 1, 64).expand(2, 16, 4, 64)
+    odd = torch.zeros(2, 16, 4, 68)[..., :64]
+    for x in (wide, odd):
+        y = flex._kernel_ready(x)
+        assert y is not x and y.is_contiguous() and torch.equal(y, x)

@@ -641,6 +641,119 @@ def test_flex_kernels_match_plain(cuda, dtype, d, case):
         assert x is None or torch.equal(x, y)
 
 
+_TILE_CASES = {
+    # case: (b, h, hk, sq, sk, block_q, block_k)
+    "bq128_bk64": (2, 4, 2, 384, 384, 128, 64),
+    "bq64": (2, 4, 2, 320, 320, 64, 64),
+    "bq512_bk512": (1, 4, 4, 1100, 1100, 512, 512),
+    "bq192": (2, 4, 2, 500, 500, 192, 192),
+    "ragged_empty": (2, 4, 2, 1000, 1500, 128, 128),
+    "packed_qkv": (2, 4, 4, 384, 384, 128, 128),
+    "transposed_kv": (2, 4, 2, 384, 384, 64, 128),
+    "gqa_head_invariant": (1, 8, 2, 640, 640, 128, 128),
+}
+
+
+def _flex_tile_inputs(case, dtype, d, mods, gen, dev):
+    """(q, k, v, block mask, bits, score mod, bias, aux) of one forward tile
+    case: a causal mask (rows < 200 empty and keys <= row + 500 for
+    `ragged_empty`, causal documents through aux for `gqa_head_invariant`);
+    q, k, v strided views of one (b, s, 3, h, d) tensor for `packed_qkv`, k
+    and v transposed (b, h, s, d) tensors for `transposed_kv`; with `mods`,
+    softcap 20 and a (1, h, sq, sk) bias."""
+    from flash_attn_tpu_torch.kernels import flex
+
+    b, h, hk, sq, sk, bq, bk = _TILE_CASES[case]
+    aux = None
+
+    def mask(b_, h_, qi, ki):
+        return qi >= ki
+
+    if case == "ragged_empty":
+        def mask(b_, h_, qi, ki):
+            return (qi >= 200) & (ki <= qi + 500)
+    elif case == "gqa_head_invariant":
+        aux = (torch.rand(b, sk, generator=gen, device=dev) < 0.01).cumsum(
+            1).int()
+
+        def mask(b_, h_, qi, ki, qa, ka):
+            return (qa == ka) & (qi >= ki)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    if case == "packed_qkv":
+        q, k, v = randn(b, sq, 3, h, d).unbind(2)
+    elif case == "transposed_kv":
+        q = randn(b, sq, h, d)
+        k, v = (randn(b, hk, sk, d).transpose(1, 2) for _ in range(2))
+    else:
+        q, k, v = randn(b, sq, h, d), randn(b, sk, hk, d), randn(b, sk, hk, d)
+    bm = flex.create_block_mask(mask, b, h, sq, sk, block_q=bq, block_k=bk,
+                                q_aux=aux, kv_aux=aux,
+                                head_invariant=case != "bq128_bk64",
+                                device=dev)
+    bits = flex.partial_block_bits(bm, mask, aux, aux, sk)
+    smod = flex.softcap(20.0) if mods else None
+    bias = (torch.randn(1, h, sq, sk, generator=gen, device=dev) * 0.5
+            if mods else None)
+    return q, k, v, bm, bits, smod, bias, aux
+
+
+@pytest.mark.parametrize("mods", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", list(_TILE_CASES))
+def test_flex_fwd_tiles_match_plain(cuda, case, d, dtype, mods):
+    """Each tile instantiation of the forward (`flex.fwd_tile`: 128 or 64
+    q rows, 128 or 64 keys), q, k, v read in place through their strides,
+    ragged lengths and GQA against the plain version (fp32 oracle,
+    low-precision yardstick); empty rows give o = 0 and lse = +inf; one
+    launch a call."""
+    from flash_attn_tpu_torch.kernels import flex
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, bm, bits, smod, bias, aux = _flex_tile_inputs(case, dtype, d,
+                                                           mods, gen, cuda)
+    scale = d ** -0.5
+    before = flex.launches_fwd
+    o, lse = flex.flex_attn_fwd(q, k, v, bm, bits, smod, scale, aux, aux,
+                                bias)
+    torch.cuda.synchronize()
+    assert flex.launches_fwd == before + 1
+    f32 = [x.float() for x in (q, k, v)]
+    o_ref, lse_ref = flex.flex_attn_fwd_ref(*f32, bm, bits, smod, scale, aux,
+                                            aux, bias)
+    o_pt, lse_pt = flex.flex_attn_fwd_ref(q, k, v, bm, bits, smod, scale, aux,
+                                          aux, bias)
+    check_close(o, o_ref, o_pt, label="o")
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_ref))
+    fin = torch.isfinite(lse_ref)
+    check_close(lse[fin], lse_ref[fin], lse_pt[fin], label="lse")
+    empty = torch.isposinf(lse_ref).transpose(1, 2)
+    assert not o[empty].any()
+    if case == "ragged_empty":
+        assert empty[:, :200].all() and not empty[:, 200:].any()
+
+
+@pytest.mark.parametrize("scale", [-0.1, 0.0])
+def test_flex_fwd_nonpositive_scale_matches_plain(cuda, scale):
+    """A softmax scale <= 0 (which the forward without a mod cannot fold
+    into its exponent: it takes row maxima of raw scores) goes to the
+    kernel compiled with mods, and still matches the plain version."""
+    from flash_attn_tpu_torch.kernels import flex
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v, bm, bits = _flex_tile_inputs("bq128_bk64", torch.bfloat16, 64,
+                                          False, gen, cuda)[:5]
+    o, lse = flex.flex_attn_fwd(q, k, v, bm, bits, None, scale)
+    f32 = [x.float() for x in (q, k, v)]
+    o_ref, lse_ref = flex.flex_attn_fwd_ref(*f32, bm, bits, None, scale)
+    o_pt, lse_pt = flex.flex_attn_fwd_ref(q, k, v, bm, bits, None, scale)
+    check_close(o, o_ref, o_pt, label="o")
+    check_close(lse, lse_ref, lse_pt, label="lse")
+
+
 @pytest.mark.parametrize("option,match", [
     ("score_mod_callable", "descriptor"), ("block_96", "multiples of 64"),
     ("float32", "dtype"), ("head_dim_96", "head dim")])
