@@ -32,7 +32,8 @@ on the CPU, and one gradient.  Then programmable attention: the flex
 kernels of `csrc/flex.cu` against their plain versions in `kernel_flex`
 (cases (a)-(i): causal, sliding window, document mask through aux,
 softcap, relative position, attn_bias, ragged lengths, the block-sparse
-API, packed varlen) and `kernel_flex_bwd` (bitwise deterministic), and the
+API, packed varlen) and `kernel_flex_bwd` (cases (a), (c)-(h), bitwise
+deterministic), and the
 `flex` path: forward and backward of Llama-3-8B's 32 attention layers
 over an 8192-token packed sequence under the causal document mask.  The
 last phase, `diag`, holds the diagnostic probes' kernels
@@ -2237,6 +2238,7 @@ def flex_bwd_case(c):
         del graphs
     res = dict(phase="kernel_flex_bwd", case=label, b=b, h=h, hk=k.shape[2],
                sq=sq, sk=sk, d=d,
+               tile=flex.bwd_tile(c["bm"].block_q, c["bm"].block_k),
                **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
                **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
                bitwise_repeat=True, kernel_ms=kernel_ms,
@@ -2344,8 +2346,8 @@ def flex_varlen_case(gen):
 
 
 def kernel_flex_phases():
-    """Cases (a)-(i) of the flex forward, (a), (c), (d), (f) of the
-    backward, and torch.compile'd flex_attention at case (c)."""
+    """Cases (a)-(i) of the flex forward, (a) and (c)-(h) of the backward,
+    and torch.compile'd flex_attention at case (c)."""
     import torch
     from flash_attn_tpu_torch import blocksparse
     from flash_attn_tpu_torch.kernels import flex
@@ -2396,7 +2398,8 @@ def kernel_flex_phases():
                              "flex_attn_fwd on the same block mask")
     flex.launches_fwd = before
     fwd["i"] = flex_varlen_case(gen)
-    bwd = {key: flex_bwd_case(cases[key]) for key in ("a", "c", "d", "f")}
+    bwd = {key: flex_bwd_case(cases[key])
+           for key in ("a", "c", "d", "e", "f", "g", "h")}
     compiled = compiled_flex_ms(cases["c"])
     emit(dict(phase="kernel_flex_compiled", case=cases["c"]["label"],
               **compiled))
@@ -2805,10 +2808,10 @@ def main():
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=info))
     spills = {k: v for k, v in ptxas_summary("flex").items()
-              if k.startswith("flex_fwd_kernel")
+              if k.startswith(("flex_fwd_kernel", "flex_bwd_"))
               and (v.get("spill_stores") or v.get("spill_loads"))}
     if spills:
-        raise AssertionError(f"flex_fwd_kernel spills registers: {spills}")
+        raise AssertionError(f"flex kernels spill registers: {spills}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     fwd = {}
@@ -3001,6 +3004,8 @@ def main():
              library_ms=fbwd["c"]["library_ms"],
              library=fbwd["c"]["library"],
              compiled_torch_flex_bwd_ms=fcompiled.get("bwd_ms"),
+             ptxas={k: v for k, v in ptxas_summary("flex").items()
+                    if k.startswith("flex_bwd_dq_kernel")},
              by_case={k: dict(ms=r["dq_kernel_ms"], plain_ms=r["plain_ms"],
                               bound_ms=r["dq_bound_ms"],
                               library_ms=r["library_ms"],
@@ -3021,6 +3026,8 @@ def main():
              library_ms=fbwd["c"]["library_ms"],
              library=fbwd["c"]["library"],
              compiled_torch_flex_bwd_ms=fcompiled.get("bwd_ms"),
+             ptxas={k: v for k, v in ptxas_summary("flex").items()
+                    if k.startswith("flex_bwd_dkv_kernel")},
              by_case={k: dict(ms=r["dkv_kernel_ms"], plain_ms=r["plain_ms"],
                               bound_ms=r["dkv_bound_ms"],
                               library_ms=r["library_ms"],

@@ -68,22 +68,69 @@
 //   (kMods = false), free of the per-element branches on the mod and the
 //   bias, which cost the mask-only case a third of its time on an H100.
 //
-// The backward (first version) is the deterministic recompute split of
-// flash_bwd.cu, on mma.sync.m16n8k16 (fa_common.cuh's fragments) with tiles
-// loaded synchronously (no cp.async / TMA, no wgmma; later work): the dQ
-// kernel, 4 warps per 64-row tile, walks the kv lists and writes dQ (and the
-// dbias tiles of the blocks it visits) once; the dK/dV kernel, one block of
-// 8 warps per 64-key tile of one kv block of one (kv head, batch), walks
-// each query head of its GQA group's full_q and q lists in a fixed order and
-// keeps dK, dV in registers.  No atomics: the result is bitwise
-// deterministic.
-//
+// The backward (redesigned for Hopper) is the deterministic recompute
+// split of flash_bwd.cu: a dQ kernel and a dK/dV kernel, each recomputing
+// P from lse.  It is bound by operations: 6*d FLOPs per live (row, key)
+// pair for dQ (S, dP, dS K) and 8*d for dK/dV (S^T, dP^T, P^T dO, dS^T Q),
+// against q, k, v, do bytes read about once.  The first version ran
+// mma.sync on fragments read element by element from shared memory, with
+// every tile loaded synchronously between __syncthreads, 64-row blocks
+// that re-read each K/V tile for every 64 q rows, and P^T, dS^T making a
+// round trip through shared memory: 9-16 % of its bound.  Now:
+// * dQ (flex_bwd_dq_kernel) has the forward's shape: a block owns 128 q
+//   rows (two consumer warpgroups; 64 and one where block_q % 128 != 0) of
+//   one (head, batch), Q and dO loaded once by TMA, and a producer thread
+//   keeps a ring of 64-key K/V stages (4 at d = 128).  S = Q K^T and
+//   dP = dO V^T run on wgmma from shared memory; dS = P (dP - delta) (times
+//   the mod's derivative; also dbias) is formed in fp32 registers and
+//   becomes the A operand of dQ += dS K in place, K read MN-major, issued
+//   beside the next tile's S and dP.  The two consumers take the tensor
+//   cores in turns, as in the forward.
+// * dK/dV (flex_bwd_dkv_kernel): a block owns 128 keys of one kv block of
+//   one (kv head, batch), K and V resident, two consumer warpgroups of 64
+//   keys each, and walks the q lists of its GQA group's heads in a fixed
+//   order (head, then full_q then q list, then 64-row tiles).  A producer
+//   thread keeps a ring of (Q, dO) stages full: the tiles by TMA, and the
+//   rows' lse and delta and a partial block's bit words by bulk copies on
+//   the same barrier, from buffers the wrapper lays out for it (lse in
+//   log2 units and delta padded to 64 rows; bits by 64- or 128-key block).
+//   S^T = K Q^T and dP^T = V dO^T run on wgmma from shared memory; P^T and
+//   dS^T are formed in registers and become the A operands of dV += P^T dO
+//   and dK += dS^T Q, Q and dO read MN-major: no shared-memory round trip.
+//   dK and dV (64 + 64 fp32 a thread at d = 128) leave no room to overlap
+//   one tile's dV, dK with the next tile's products inside a warpgroup, so
+//   the warpgroups issue their two product groups in turns.  Where
+//   block_k % 128 != 0 a block owns 64 keys: both warpgroups own all of
+//   them, take the stages (of 32 q rows) in turn and add their sums in a
+//   fixed order at the end (one warpgroup, at the 232 registers two
+//   blocks an SM allow, spilled; so did two on 64-row stages with a mod).
+// * Both grids start their heaviest blocks first (bwd_block: an order the
+//   wrapper builds on the device from the lists' lengths): under a
+//   document mask the blocks' work differs up to ~32x, and in the grid's
+//   own order the longest started last.
+// * What was hard: registers.  dK/dV's consumers need 192 of them for dK,
+//   dV, S^T and dP^T alone; a producer that copied lse, delta and bits
+//   with its lanes needed 40 (its own spills, and the consumers' at 232),
+//   and one that did so with a single warp held every TMA issue behind
+//   those loads' latency.  Bulk copies keep the producer at one thread of
+//   24 registers and the consumers at 240, with no spill.  setmaxnreg:
+//   24 / 240 (dQ: 24 / 232 at 64 rows).  The descriptors are the
+//   forward's (K-major Q, K, V, dO as A or B of the ss products; MN-major
+//   K, Q, dO as B of the rs ones).
+// * Sums run in a fixed order and no atomics are used: the result is
+//   bitwise deterministic.  A wait on a stage traps after ~10 s instead of
+//   hanging the card, as in the forward.
+
 // Layouts: q, k, v, do (b, s, heads, d) read in place through their batch,
 // row and head strides; o and dq (b, sq, h, d), dk and dv (b, sk, hk, d)
-// contiguous; lse and delta (b, h, sq) fp32; bias (b|1, h|1, sq, sk) fp32
-// with stride 0 on a broadcast dimension, dbias (b, h, sq, sk).  Tables are
-// (b, th, n_major, len) int32, th = 1 or h; slot (b, th, nq, nk) numbers the
-// partial pairs, whose bits are (slot, bq, bk / 32) words.
+// contiguous; lse (b, h, sq) fp32 from the forward; the backward's lse (in
+// log2 units) and delta (b, h, sq rounded up to 64) fp32, +inf and 0 past
+// sq; bias (b|1, h|1, sq, sk) fp32 with stride 0 on a broadcast dimension,
+// dbias (b, h, sq, sk).  Tables are (b, th, n_major, len) int32, th = 1 or
+// h; slot (b, th, nq, nk) numbers the partial pairs, whose bits are (slot,
+// bq, bk / 32) words, for the dK/dV kernel (slot, bk / keys, bq, keys / 32)
+// with keys its block's.  In the backward, o carries a block order
+// (bwd_block).
 
 #include <cuda.h>
 
@@ -95,10 +142,7 @@ namespace {
 
 using namespace fa;
 
-constexpr int kTile = 64;          // backward: q rows and keys per tile
-constexpr int kThreads = 128;      // dQ: 4 warps x 16 rows
-constexpr int kDkvThreads = 256;   // dK/dV: 8 warps
-constexpr int kPStride = kTile + 8;  // shared P^T / dS^T row stride
+constexpr int kTile = 64;  // the smallest tile: block_q, block_k multiples
 
 enum { kModNone = 0, kModSoftcap = 1, kModRelPos = 2 };
 
@@ -107,7 +151,7 @@ struct FlexParams {
   const void* q;
   const void* k;
   const void* v;
-  void* o;
+  void* o;  // forward: the output; backward: the block order (see bwd_block)
   float* lse;
   const void* dout;
   const float* delta;
@@ -167,10 +211,6 @@ __device__ __forceinline__ float flex_score(const FlexParams& p, float s,
   return flex_mod(p, x, slope, row, col, dmod);
 }
 
-__device__ __forceinline__ bool bit_set(const uint32_t* row_words, int c) {
-  return (row_words[c >> 5] >> (c & 31)) & 1u;
-}
-
 // The kv list of (bb, hq, qi): n_full full blocks then n_part partial ones.
 struct KvList {
   const int* full;
@@ -193,7 +233,7 @@ __device__ __forceinline__ const float* bias_head(const FlexParams& p, int bb,
 }
 
 // ---------------------------------------------------------------------------
-// The forward's Hopper pieces: mbarriers, TMA tile loads, wgmma.
+// The Hopper pieces: mbarriers, TMA tile loads, wgmma.
 
 // Shared-memory address of a generic pointer into shared memory.
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -250,6 +290,17 @@ __device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -449,6 +500,32 @@ __device__ __forceinline__ void wgmma_rs<128, __half>(
       : FA_D8(0), FA_D8(8), FA_D8(16), FA_D8(24),
         FA_D8(32), FA_D8(40), FA_D8(48), FA_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32, __nv_bfloat16>(
+    float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;}\n"
+      : FA_D8(0), FA_D8(8)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32, __half>(
+    float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{.reg .pred p; setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;}\n"
+      : FA_D8(0), FA_D8(8)
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 #undef FA_D8
@@ -791,320 +868,667 @@ __global__ void __launch_bounds__(FwdCfg<D, kRows, kKeys>::kThreads,
   }
 }
 
-template <typename T, int D, bool kMods>
-__global__ void __launch_bounds__(kThreads)
-    flex_bwd_dq_kernel(const FlexParams p) {
-  constexpr int kStride = D + 8;
-  constexpr int kKSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + kTile * kStride;
-  T* sK = sdO + kTile * kStride;
-  T* sV = sK + kTile * kStride;
+// The backward's tiles and shared memory.  dQ: a block owns kRows q rows
+// (one consumer warpgroup per 64) and walks K/V in 64-key tiles through a
+// ring of kStages; Q and dO stay resident.  dK/dV: a block owns kKeys keys
+// (two consumer warpgroups), K and V resident, and walks Q/dO in tiles of
+// 64 (32 at 64 keys) rows through a ring whose stages also carry the
+// tile's lse (log2 units), delta and partial-block bit words.  Warpgroup 0
+// is the producer.
+// Tiles as the forward's: D / 64 column blocks of (rows, 64) in the 128-byte
+// swizzle, 1024-byte aligned.
+template <int D, int kRows>
+struct DqCfg {
+  static constexpr int kKeys = 64;
+  static constexpr int kConsumers = kRows / 64;
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kQBytes = kRows * D * 2;     // Q or dO
+  static constexpr int kTileBytes = kKeys * D * 2;  // K or V
+  static constexpr int kMinBlocks = kConsumers == 2 ? 1 : 2;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
+  static constexpr int kFit =
+      ((kMinBlocks == 2 ? 113 : 227) * 1024 - 1024 - 2 * kQBytes - 64) /
+      (2 * kTileBytes);
+  static constexpr int kStages = kFit < 2 ? 2 : kFit > 4 ? 4 : kFit;
+  static constexpr int kBarOffset = 2 * kQBytes + kStages * 2 * kTileBytes;
+  // barriers: Q and dO, then full[kStages], then empty[kStages]
+  static constexpr int kSmem = 1024 + kBarOffset + (1 + 2 * kStages) * 8;
+};
 
-  const int sub_q = p.bq / kTile;
-  const int qi = blockIdx.x / sub_q;
-  const int row0 = qi * p.bq + (blockIdx.x % sub_q) * kTile;
-  const int hq = blockIdx.y, bb = blockIdx.z;
+template <int D, int kKeys>
+struct DkvCfg {
+  // Two consumer warpgroups: at 128 keys each owns 64 of them; at 64 keys
+  // (kSplitQ) both own all of them, take the stages in turn and add their
+  // sums at the end, on stages of 32 q rows (one warpgroup of 64 keys at
+  // 232 registers, or two on 64-row stages, spilled with a score mod).
+  static constexpr bool kSplitQ = kKeys == 64;
+  static constexpr int kRows = kSplitQ ? 32 : 64;  // q rows of a stage
+  static constexpr int kWords = kKeys / 32;       // bit words of a row
+  static constexpr int kThreads = 3 * 128;
+  static constexpr int kKBytes = kKeys * D * 2;     // K or V
+  static constexpr int kTileBytes = kRows * D * 2;  // Q or dO
+  // a stage's lse (log2 units) and delta (kRows fp32 each), then its bits
+  static constexpr int kMetaBytes = (2 + kWords) * kRows * 4;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kFit =
+      (227 * 1024 - 1024 - 2 * kKBytes - 64) / (2 * kTileBytes + kMetaBytes);
+  static constexpr int kStages = kFit < 2 ? 2 : kFit > 4 ? 4 : kFit;
+  static constexpr int kMetaOffset = 2 * kKBytes + kStages * 2 * kTileBytes;
+  // kSplitQ adds the two warpgroups' dK, dV through the tile buffers
+  static_assert(!kSplitQ || D * 512 <= kStages * 2 * kTileBytes, "");
+  static constexpr int kBarOffset = kMetaOffset + kStages * kMetaBytes;
+  // barriers: K and V, then full[kStages], then empty[kStages]
+  static constexpr int kSmem = 1024 + kBarOffset + (1 + 2 * kStages) * 8;
+};
+
+// The (x, y, z) block a backward block runs: its own, or, given an order
+// in p.o (int32, built on the device by the wrapper from the lengths of
+// the lists each block walks, heaviest first), the order's entry at its
+// linear index (x fastest), so that the longest blocks start first and the
+// grid's tail is short.
+__device__ __forceinline__ dim3 bwd_block(const FlexParams& p) {
+  if (p.o == nullptr) return blockIdx;
+  const int lin = static_cast<const int*>(p.o)[
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)];
+  return dim3(lin % gridDim.x, lin / gridDim.x % gridDim.y,
+              lin / (gridDim.x * gridDim.y));
+}
+
+// The backward's TMA descriptors (built on the host by encode_bwd_maps):
+// q and do in boxes of the kernel's q rows, k and v of its keys.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// The low word of sw128_desc(tile, 16, 1024): the tile's shared address
+// (and lbo).  Its high word (sbo 1024, the 128-byte swizzle) is constant,
+// so the backward keeps descriptors in one register each; offsets within
+// a tile never carry into the high word (shared addresses are < 2^18).
+__device__ __forceinline__ uint32_t kmajor_lo(const void* tile) {
+  return static_cast<uint32_t>(sw128_desc(tile, 16, 1024));
+}
+
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t lo) {
+  return (static_cast<uint64_t>((1024 >> 4) | (1u << 30)) << 32) | lo;
+}
+
+// S = A B^T over d for one warpgroup: A (64 rows) and B (kN rows) K-major
+// in shared memory (descriptor lows a_lo, b_lo), their column blocks
+// a_rows * 128 and kN * 128 bytes apart.  The first k16 step overwrites S.
+template <int D, int kN, typename T>
+__device__ __forceinline__ void qk_product(float* s, uint32_t a_lo,
+                                           int a_rows, uint32_t b_lo) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // d columns [16 kk, 16 kk + 16): column block kk / 4, 32 bytes a step
+    const uint32_t a_off = (kk >> 2) * a_rows * 128 + (kk & 3) * 32;
+    const uint32_t b_off = (kk >> 2) * kN * 128 + (kk & 3) * 32;
+    wgmma_ss<kN, T>(s, kmajor_desc(a_lo + (a_off >> 4)),
+                    kmajor_desc(b_lo + (b_off >> 4)), kk > 0);
+  }
+}
+
+template <typename T, int D, bool kMods, int kRows>
+__global__ void __launch_bounds__(DqCfg<D, kRows>::kThreads,
+                                  DqCfg<D, kRows>::kMinBlocks)
+    flex_bwd_dq_kernel(const FlexParams p,
+                       const __grid_constant__ BwdMaps maps) {
+  using Cfg = DqCfg<D, kRows>;
+  constexpr int kKeys = Cfg::kKeys;
+  constexpr int kStages = Cfg::kStages;
+  constexpr int kDBlocks = D / 64;
+  constexpr bool kPingPong = Cfg::kConsumers == 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // aligned by an offset, so that its pointers stay shared (32-bit) ones
+  unsigned char* smem = smem_raw + (-smem_u32(smem_raw) & 1023);
+  T* sQ = reinterpret_cast<T*>(smem);
+  T* sdO = reinterpret_cast<T*>(smem + Cfg::kQBytes);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + Cfg::kBarOffset);
+  uint64_t* bar_full = bar_q + 1;
+  uint64_t* bar_empty = bar_full + kStages;
+  auto sK = [&](int stage) {
+    return reinterpret_cast<T*>(smem + 2 * Cfg::kQBytes +
+                                stage * 2 * Cfg::kTileBytes);
+  };
+  auto sV = [&](int stage) { return sK(stage) + kKeys * D; };
+
+  const dim3 blk = bwd_block(p);
+  const int sub_q = p.bq / kRows;
+  const int qi = blk.x / sub_q;
+  const int row0 = qi * p.bq + (blk.x % sub_q) * kRows;
+  const int hq = blk.y, bb = blk.z;
   if (row0 >= p.sq) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int hkv = hq / (p.h / p.hk);
   const KvList L = kv_list(p, bb, hq, qi);
+  const int n_list = L.n_full + L.n_part;
+  const int k_tiles = p.bk / kKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_empty[s], Cfg::kConsumers * 4);  // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer: one thread loads Q and dO once, then keeps the K/V ring
+    // full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Cfg::kProducerRegs));
+    if (threadIdx.x != 0 || n_list == 0) return;
+    const int hkv = hq / (p.h / p.hk);
+    mbar_expect_tx(bar_q, 2 * Cfg::kQBytes);
+#pragma unroll
+    for (int c = 0; c < kDBlocks; ++c) {
+      tma_load(&maps.q, sQ + c * kRows * 64, bar_q, c * 64, hq, row0, bb);
+      tma_load(&maps.dout, sdO + c * kRows * 64, bar_q, c * 64, hq, row0, bb);
+    }
+    int it = 0;
+    for (int j = 0; j < n_list; ++j) {
+      const int kb = j < L.n_full ? L.full[j] : L.part[j - L.n_full];
+      for (int u = 0; u < k_tiles; ++u, ++it) {
+        const int col0 = kb * p.bk + u * kKeys;
+        if (col0 >= p.sk) break;
+        const int stage = it % kStages;
+        mbar_wait(&bar_empty[stage], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&bar_full[stage], 2 * Cfg::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < kDBlocks; ++c) {
+          tma_load(&maps.k, sK(stage) + c * kKeys * 64, &bar_full[stage],
+                   c * 64, hkv, col0, bb);
+          tma_load(&maps.v, sV(stage) + c * kKeys * 64, &bar_full[stage],
+                   c * 64, hkv, col0, bb);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup cw owns rows [64 cw, 64 cw + 64) of the tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      Cfg::kConsumerRegs));
+  const int ct = threadIdx.x - 128;
+  const int cw = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  const int gid = lane >> 2, tig = lane & 3;
   const float* bias_bh = bias_head(p, bb, hq);
   float* dbias_bh =
       p.dbias ? p.dbias + ((size_t)bb * p.h + hq) * p.sq * p.sk : nullptr;
   const float slope = p.mod == kModRelPos ? p.slopes[hq] : 0.f;
+  // p = 2^(v sc - lse2): v the raw score without a mod, the modded score
+  // in natural units with one
+  const float sc = kMods ? kLog2e : p.scale * kLog2e;
 
-  const T* q = static_cast<const T*>(p.q) + bb * p.q_sb + hq * p.q_sh;
-  const T* dout = static_cast<const T*>(p.dout) + bb * p.do_sb + hq * p.do_sh;
-  const T* k = static_cast<const T*>(p.k) + bb * p.k_sb + hkv * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + bb * p.v_sb + hkv * p.v_sh;
-  load_rows<T, D, kTile, kThreads>(sQ, q + row0 * p.q_ss, p.sq - row0,
-                                   (int)p.q_ss);
-  load_rows<T, D, kTile, kThreads>(sdO, dout + row0 * p.do_ss, p.sq - row0,
-                                   (int)p.do_ss);
-
-  const int r_lo = warp * 16 + gid;
+  const int r_lo = cw * 64 + warp * 16 + gid;
   const int rows[2] = {row0 + r_lo, row0 + r_lo + 8};
   const int brow[2] = {rows[0] - qi * p.bq, rows[1] - qi * p.bq};
-  const size_t loff = ((size_t)bb * p.h + hq) * p.sq;
+  // lse (log2 units) and delta rows, padded by the wrapper
+  const size_t loff = ((size_t)bb * p.h + hq) * ((p.sq + 63) & ~63);
   float lse2[2], dlt[2];
+  const float* bias_row[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const bool in = rows[i] < p.sq;
-    lse2[i] = in ? p.lse[loff + rows[i]] * kLog2e : INFINITY;
+    lse2[i] = in ? p.lse[loff + rows[i]] : INFINITY;
     dlt[i] = in ? p.delta[loff + rows[i]] : 0.f;
+    bias_row[i] =
+        bias_bh != nullptr && in ? bias_bh + rows[i] * p.bias_ss : nullptr;
   }
 
-  float acc[kDTiles][4];
+  float acc[D / 2];  // dQ: the m64nD accumulator
 #pragma unroll
-  for (int n = 0; n < kDTiles; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+  const uint32_t q_lo = kmajor_lo(sQ + cw * 64 * 64);
+  const uint32_t do_lo = kmajor_lo(sdO + cw * 64 * 64);
+  if (n_list > 0) {
+    mbar_wait(bar_q, 0);
+    if (cw == 1) their_turn<kPingPong>(cw);  // warpgroup 0 goes first
+  }
 
-  const T* sQw = sQ + warp * 16 * kStride;
-  const T* sdOw = sdO + warp * 16 * kStride;
-  for (int j = 0; j < L.n_full + L.n_part; ++j) {
+  // dS of the previous tile (the A operand of its dS K, issued beside the
+  // next tile's S and dP) and its stage; -1 before the first tile.
+  uint32_t pa[kKeys / 16][4];
+  int prev = -1;
+  int it = 0;
+  for (int j = 0; j < n_list; ++j) {
     const bool partial = j >= L.n_full;
     const int kb = partial ? L.part[j - L.n_full] : L.full[j];
     const uint32_t* bits =
         partial ? p.bits + (size_t)L.slot[kb] * p.bq * p.words : nullptr;
-    for (int u = 0; u < p.bk / kTile; ++u) {
-      const int col0 = kb * p.bk + u * kTile;
+    for (int u = 0; u < k_tiles; ++u, ++it) {
+      const int col0 = kb * p.bk + u * kKeys;
       if (col0 >= p.sk) break;
-      __syncthreads();
-      load_rows<T, D, kTile, kThreads>(sK, k + col0 * p.k_ss, p.sk - col0,
-                                       (int)p.k_ss);
-      load_rows<T, D, kTile, kThreads>(sV, v + col0 * p.v_ss, p.sk - col0,
-                                       (int)p.v_ss);
-      __syncthreads();
-
-      float s[kTile / 8][4], dp[kTile / 8][4];
+      const int stage = it % kStages;
+      // the tile's bias, loaded before the wait so that its latency hides
+      // behind the products
+      float bv[kMods ? kKeys / 2 : 1];
+      if constexpr (kMods) {
 #pragma unroll
-      for (int jj = 0; jj < kTile / 8; ++jj)
+        for (int jj = 0; jj < kKeys / 8; ++jj)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[jj][e] = dp[jj][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t aq[4], ado[4];
-        load_a(aq, sQw + kk * 16, kStride, gid, tig);
-        load_a(ado, sdOw + kk * 16, kStride, gid, tig);
-#pragma unroll
-        for (int jj = 0; jj < kTile / 8; ++jj) {
-          uint32_t b[2];
-          load_b_t(b, sK + jj * 8 * kStride + kk * 16, kStride, gid, tig);
-          Mma<T>::mma(s[jj], aq, b);
-          load_b_t(b, sV + jj * 8 * kStride + kk * 16, kStride, gid, tig);
-          Mma<T>::mma(dp[jj], ado, b);
-        }
-      }
-
-      // dS = p (dP - delta) times the mod's derivative; it is also dbias.
-#pragma unroll
-      for (int jj = 0; jj < kTile / 8; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int c = u * kTile + jj * 8 + tig * 2 + (e & 1);
-          const int col = kb * p.bk + c;
-          float dm;
-          const float x = flex_score<kMods>(p, s[jj][e], bias_bh, slope,
-                                            rows[i], col, &dm);
-          bool keep = col < p.sk;
-          if (partial) keep = keep && bit_set(bits + brow[i] * p.words, c);
-          const float pe = keep ? exp2f(x * kLog2e - lse2[i]) : 0.f;
-          const float ds = pe * (dp[jj][e] - dlt[i]) * dm;
-          if constexpr (kMods) {
-            if (dbias_bh != nullptr && rows[i] < p.sq && col < p.sk)
-              dbias_bh[(size_t)rows[i] * p.sk + col] = ds;
+          for (int e = 0; e < 4; ++e) {
+            const int col = col0 + jj * 8 + tig * 2 + (e & 1);
+            bv[jj * 4 + e] = bias_row[e >> 1] != nullptr && col < p.sk
+                                 ? bias_row[e >> 1][col]
+                                 : 0.f;
           }
-          s[jj][e] = ds;
-        }
       }
+      mbar_wait(&bar_full[stage], (it / kStages) & 1);
 
-      // dQ += dS K (the scale is applied once at the end)
+      // S = Q K^T, dP = dO V^T, and dQ += dS K of the previous tile
+      float s[kKeys / 2], dp[kKeys / 2];
+      my_turn<kPingPong>(cw);
+      fence_regs<D / 2>(acc);
+      fence_regs<kKeys / 4>(&pa[0][0]);
+      wgmma_fence();
+      qk_product<D, kKeys, T>(s, q_lo, kRows, kmajor_lo(sK(stage)));
+      qk_product<D, kKeys, T>(dp, do_lo, kRows, kmajor_lo(sV(stage)));
+      if (prev >= 0) pv_product<D, kKeys>(acc, pa, sK(prev));
+      wgmma_commit();
+      their_turn<kPingPong>(cw);
+      wgmma_wait_all();
+      fence_regs<kKeys / 2>(s);
+      fence_regs<kKeys / 2>(dp);
+      fence_regs<D / 2>(acc);
+      fence_regs<kKeys / 4>(&pa[0][0]);
+      if (prev >= 0 && lane == 0) mbar_arrive(&bar_empty[prev]);
+
+      // dS = p (dP - delta) times the mod's derivative, also dbias.
+      // Element e of n8-block jj: row rows[e >> 1], key
+      // col0 + 8 jj + 2 tig + (e & 1).  Full tiles inside sk with no mod
+      // take the plain branch.
+      if (kMods || partial || col0 + kKeys > p.sk) {
+        uint32_t w[2][kKeys / 32];  // the two rows' bits of this tile
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int n = 0; n < kDTiles; ++n) {
-          uint32_t b[2];
-          load_b(b, sK + kk * 16 * kStride + n * 8, kStride, gid, tig);
-          Mma<T>::mma(acc[n], a, b);
+          for (int k = 0; k < kKeys / 32; ++k)
+            w[i][k] = partial ? bits[brow[i] * p.words + u * (kKeys / 32) + k]
+                              : ~0u;
+#pragma unroll
+        for (int jj = 0; jj < kKeys / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const int c = jj * 8 + tig * 2 + (e & 1);  // in the tile
+            const int col = col0 + c;
+            float x = s[jj * 4 + e], dm = 1.f;
+            if constexpr (kMods)
+              x = flex_mod(p, x * p.scale + bv[jj * 4 + e], slope, rows[i],
+                           col, &dm);
+            const bool keep = col < p.sk && ((w[i][c >> 5] >> (c & 31)) & 1);
+            const float pe = keep ? fast_exp2(fmaf(x, sc, -lse2[i])) : 0.f;
+            const float ds = pe * (dp[jj * 4 + e] - dlt[i]) * dm;
+            if constexpr (kMods) {
+              if (dbias_bh != nullptr && rows[i] < p.sq && col < p.sk)
+                dbias_bh[(size_t)rows[i] * p.sk + col] = ds;
+            }
+            s[jj * 4 + e] = ds;
+          }
         }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < kKeys / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            s[jj * 4 + e] = fast_exp2(fmaf(s[jj * 4 + e], sc, -lse2[i])) *
+                            (dp[jj * 4 + e] - dlt[i]);
+          }
       }
+      // dS as the A operand of dQ += dS K (the forward's P trick)
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = Mma<T>::pack(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      prev = stage;
     }
   }
+  if (prev >= 0) {  // the last tile's dS K
+    my_turn<kPingPong>(cw);
+    fence_regs<D / 2>(acc);
+    fence_regs<kKeys / 4>(&pa[0][0]);
+    wgmma_fence();
+    pv_product<D, kKeys>(acc, pa, sK(prev));
+    wgmma_commit();
+    if (cw == 0) their_turn<kPingPong>(cw);  // 1 takes the last turn
+    wgmma_wait_all();
+    fence_regs<D / 2>(acc);
+    fence_regs<kKeys / 4>(&pa[0][0]);
+    if (lane == 0) mbar_arrive(&bar_empty[prev]);
+  }
 
+  // dQ = scale * sum dS K (the scale applied once, here)
   T* dq = static_cast<T*>(p.dq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rows[i] >= p.sq) continue;
     T* drow = dq + (((size_t)bb * p.sq + rows[i]) * p.h + hq) * D + tig * 2;
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8) =
-          Mma<T>::pack(acc[n][2 * i] * p.scale, acc[n][2 * i + 1] * p.scale);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(drow + n * 8) = Mma<T>::pack(
+          acc[4 * n + 2 * i] * p.scale, acc[4 * n + 2 * i + 1] * p.scale);
   }
 }
 
-template <typename T, int D, bool kMods>
-__global__ void __launch_bounds__(kDkvThreads)
-    flex_bwd_dkv_kernel(const FlexParams p) {
-  constexpr int kStride = D + 8;
-  constexpr int kKSteps = D / 16;
-  constexpr int kHTiles = D / 16;  // n-tiles of 8 columns in half of d
-  extern __shared__ __align__(16) unsigned char smem[];
+template <typename T, int D, bool kMods, int kKeys>
+__global__ void __launch_bounds__(DkvCfg<D, kKeys>::kThreads, 1)
+    flex_bwd_dkv_kernel(const FlexParams p,
+                        const __grid_constant__ BwdMaps maps) {
+  using Cfg = DkvCfg<D, kKeys>;
+  constexpr int kRows = Cfg::kRows;
+  constexpr int kWords = Cfg::kWords;
+  constexpr int kStages = Cfg::kStages;
+  constexpr int kDBlocks = D / 64;
+  constexpr bool kSplitQ = Cfg::kSplitQ;
+  // the tile's bias fits in registers beside dK, dV, S^T and dP^T at d = 64
+  constexpr bool kBiasRegs = kMods && D == 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // aligned by an offset, so that its pointers stay shared (32-bit) ones
+  unsigned char* smem = smem_raw + (-smem_u32(smem_raw) & 1023);
   T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kTile * kStride;
-  T* sQ = sV + kTile * kStride;
-  T* sdO = sQ + kTile * kStride;
-  T* sP = sdO + kTile * kStride;     // P^T (keys x q rows)
-  T* sdS = sP + kTile * kPStride;    // dS^T
-  float* sLse2 = reinterpret_cast<float*>(sdS + kTile * kPStride);
-  float* sDelta = sLse2 + kTile;
-  uint32_t* sBits = reinterpret_cast<uint32_t*>(sDelta + kTile);  // 64 x 2
+  T* sV = reinterpret_cast<T*>(smem + Cfg::kKBytes);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + Cfg::kBarOffset);
+  uint64_t* bar_full = bar_kv + 1;
+  uint64_t* bar_empty = bar_full + kStages;
+  auto sQ = [&](int stage) {
+    return reinterpret_cast<T*>(smem + 2 * Cfg::kKBytes +
+                                stage * 2 * Cfg::kTileBytes);
+  };
+  auto sdO = [&](int stage) { return sQ(stage) + kRows * D; };
+  // lse2[kRows], delta[kRows], then bits[kRows][kWords] of a stage
+  auto meta = [&](int stage) {
+    return reinterpret_cast<float*>(smem + Cfg::kMetaOffset +
+                                    stage * Cfg::kMetaBytes);
+  };
 
-  const int sub_k = p.bk / kTile;
-  const int kb = blockIdx.x / sub_k;
-  const int c_in = (blockIdx.x % sub_k) * kTile;  // first key in the block
-  const int col0 = kb * p.bk + c_in;
-  const int hkv = blockIdx.y, bb = blockIdx.z;
-  if (col0 >= p.sk) return;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+  const dim3 blk = bwd_block(p);
+  const int sub_k = p.bk / kKeys;
+  const int kb = blk.x / sub_k;
+  const int c_in = (blk.x % sub_k) * kKeys;  // first key in the block
+  const int key0 = kb * p.bk + c_in;
+  const int hkv = blk.y, bb = blk.z;
+  if (key0 >= p.sk) return;
   const int g = p.h / p.hk;
+  const int sq_pad = (p.sq + 63) & ~63;  // lse and delta rows (the wrapper's)
 
-  const T* k = static_cast<const T*>(p.k) + bb * p.k_sb + hkv * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + bb * p.v_sb + hkv * p.v_sh;
-  load_rows<T, D, kTile, kDkvThreads>(sK, k + col0 * p.k_ss, p.sk - col0,
-                                      (int)p.k_ss);
-  load_rows<T, D, kTile, kDkvThreads>(sV, v + col0 * p.v_ss, p.sk - col0,
-                                      (int)p.v_ss);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_full[s], 1);
+      // one arrival per consuming warp
+      mbar_init(&bar_empty[s], kSplitQ ? 4 : 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // Phase A: this warp's 16 keys x 32 q rows of S^T and dP^T.
-  const int kw = (warp & 3) * 16;
-  const int qw = (warp >> 2) * 32;
-  // Phase B: this warp's 16 keys x d/2 columns of dK and dV.
-  const int dcol = (warp >> 2) * (D / 2);
-  float dk_acc[kHTiles][4], dv_acc[kHTiles][4];
+  if (threadIdx.x < 128) {
+    // Producer: one thread loads K and V once, then keeps the ring of
+    // (Q, dO) stages full: the two tiles by TMA, and the rows' lse (log2
+    // units) and delta and, for a partial block, the bit words of the
+    // block's keys by bulk copies, all completing on the stage's barrier.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Cfg::kProducerRegs));
+    if (threadIdx.x != 0) return;
+    mbar_expect_tx(bar_kv, 2 * Cfg::kKBytes);
 #pragma unroll
-  for (int n = 0; n < kHTiles; ++n)
+    for (int c = 0; c < kDBlocks; ++c) {
+      tma_load(&maps.k, sK + c * kKeys * 64, bar_kv, c * 64, hkv, key0, bb);
+      tma_load(&maps.v, sV + c * kKeys * 64, bar_kv, c * 64, hkv, key0, bb);
+    }
+    int it = 0;
+    for (int hq = hkv * g; hq < (hkv + 1) * g; ++hq) {
+      // (bb, table head, kb) and (bb, table head) as flat indices
+      const int bt = bb * p.th + (p.th == 1 ? 0 : hq);
+      const int t = bt * p.nk + kb;
+      const int n_full = p.full_q_num[t], n_list = n_full + p.q_num[t];
+      const size_t loff = ((size_t)bb * p.h + hq) * sq_pad;
+      for (int j = 0; j < n_list; ++j) {
+        const bool partial = j >= n_full;
+        const int qi =
+            partial ? p.q_idx[(size_t)t * p.l_q_part + j - n_full]
+                    : p.full_q_idx[(size_t)t * p.l_q_full + j];
+        // the bits of (slot, key chunk), kRows * kWords words a stage
+        const uint32_t* bits =
+            partial ? p.bits + ((size_t)p.slot[((size_t)bt * p.nq + qi) *
+                                                   p.nk + kb] * sub_k +
+                                c_in / kKeys) * p.bq * kWords
+                    : nullptr;
+        for (int tq = 0; tq < p.bq / kRows; ++tq, ++it) {
+          const int row0 = qi * p.bq + tq * kRows;
+          if (row0 >= p.sq) break;
+          const int stage = it % kStages;
+          mbar_wait(&bar_empty[stage], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&bar_full[stage],
+                         2 * Cfg::kTileBytes + 8 * kRows +
+                             (partial ? 4 * kRows * kWords : 0));
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int gi = 0; gi < g; ++gi) {
-    const int hq = hkv * g + gi;
-    const int ht = p.th == 1 ? 0 : hq;
-    const size_t t = ((size_t)bb * p.th + ht) * p.nk + kb;
-    const int n_full = p.full_q_num[t], n_part = p.q_num[t];
-    const int* full = p.full_q_idx + t * p.l_q_full;
-    const int* part = p.q_idx + t * p.l_q_part;
-    const int* slot = p.slot + ((size_t)bb * p.th + ht) * p.nq * p.nk + kb;
-    const float* bias_bh = bias_head(p, bb, hq);
-    const float slope = p.mod == kModRelPos ? p.slopes[hq] : 0.f;
-    const size_t loff = ((size_t)bb * p.h + hq) * p.sq;
-    const T* q = static_cast<const T*>(p.q) + bb * p.q_sb + hq * p.q_sh;
-    const T* dout =
-        static_cast<const T*>(p.dout) + bb * p.do_sb + hq * p.do_sh;
-    for (int j = 0; j < n_full + n_part; ++j) {
-      const bool partial = j >= n_full;
-      const int qi = partial ? part[j - n_full] : full[j];
-      const uint32_t* bits =
-          partial ? p.bits + (size_t)slot[(size_t)qi * p.nk] * p.bq * p.words
-                  : nullptr;
-      for (int tq = 0; tq < p.bq / kTile; ++tq) {
-        const int row0 = qi * p.bq + tq * kTile;
-        if (row0 >= p.sq) break;
-        __syncthreads();  // every warp is done with the previous tiles
-        load_rows<T, D, kTile, kDkvThreads>(sQ, q + row0 * p.q_ss,
-                                            p.sq - row0, (int)p.q_ss);
-        load_rows<T, D, kTile, kDkvThreads>(sdO, dout + row0 * p.do_ss,
-                                            p.sq - row0, (int)p.do_ss);
-        for (int r = threadIdx.x; r < kTile; r += kDkvThreads) {
-          const bool in = row0 + r < p.sq;
-          sLse2[r] = in ? p.lse[loff + row0 + r] * kLog2e : INFINITY;
-          sDelta[r] = in ? p.delta[loff + row0 + r] : 0.f;
-        }
-        if (partial) {
-          for (int r = threadIdx.x; r < 2 * kTile; r += kDkvThreads)
-            sBits[r] = bits[(size_t)(tq * kTile + (r >> 1)) * p.words +
-                            (c_in >> 5) + (r & 1)];
-        }
-        __syncthreads();
-
-        float st[4][4], dpt[4][4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[jj][e] = dpt[jj][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kKSteps; ++kk) {
-          uint32_t ak[4], av[4];
-          load_a(ak, sK + kw * kStride + kk * 16, kStride, gid, tig);
-          load_a(av, sV + kw * kStride + kk * 16, kStride, gid, tig);
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            uint32_t b[2];
-            load_b_t(b, sQ + (qw + jj * 8) * kStride + kk * 16, kStride, gid,
-                     tig);
-            Mma<T>::mma(st[jj], ak, b);
-            load_b_t(b, sdO + (qw + jj * 8) * kStride + kk * 16, kStride, gid,
-                     tig);
-            Mma<T>::mma(dpt[jj], av, b);
+          for (int c = 0; c < kDBlocks; ++c) {
+            tma_load(&maps.q, sQ(stage) + c * kRows * 64, &bar_full[stage],
+                     c * 64, hq, row0, bb);
+            tma_load(&maps.dout, sdO(stage) + c * kRows * 64,
+                     &bar_full[stage], c * 64, hq, row0, bb);
           }
-        }
-
-        // Element e of n-tile jj: key kw + gid (+8 for e >= 2), q row
-        // qw + jj*8 + tig*2 (+1 for odd e).
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int qc = qw + jj * 8 + tig * 2;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qr = qc + (e & 1);
-            const int kr = kw + gid + 8 * (e >> 1);
-            const int row = row0 + qr, col = col0 + kr;
-            float dm;
-            const float x = flex_score<kMods>(p, st[jj][e], bias_bh, slope,
-                                              row, col, &dm);
-            bool keep = col < p.sk;
-            if (partial) keep = keep && bit_set(sBits + qr * 2, kr);
-            const float pe = keep ? exp2f(x * kLog2e - sLse2[qr]) : 0.f;
-            st[jj][e] = pe;
-            dpt[jj][e] = pe * (dpt[jj][e] - sDelta[qr]) * dm;
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int key = kw + gid + 8 * i;
-            *reinterpret_cast<uint32_t*>(sP + key * kPStride + qc) =
-                Mma<T>::pack(st[jj][2 * i], st[jj][2 * i + 1]);
-            *reinterpret_cast<uint32_t*>(sdS + key * kPStride + qc) =
-                Mma<T>::pack(dpt[jj][2 * i], dpt[jj][2 * i + 1]);
-          }
-        }
-        __syncthreads();
-
-        // Phase B: dV += P^T dO and dK += dS^T Q over the tile's 64 q rows.
-#pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-          uint32_t ap[4], ads[4];
-          load_a(ap, sP + kw * kPStride + kk * 16, kPStride, gid, tig);
-          load_a(ads, sdS + kw * kPStride + kk * 16, kPStride, gid, tig);
-#pragma unroll
-          for (int n = 0; n < kHTiles; ++n) {
-            uint32_t b[2];
-            load_b(b, sdO + kk * 16 * kStride + dcol + n * 8, kStride, gid,
-                   tig);
-            Mma<T>::mma(dv_acc[n], ap, b);
-            load_b(b, sQ + kk * 16 * kStride + dcol + n * 8, kStride, gid,
-                   tig);
-            Mma<T>::mma(dk_acc[n], ads, b);
-          }
+          float* m = meta(stage);
+          bulk_load(m, p.lse + loff + row0, 4 * kRows, &bar_full[stage]);
+          bulk_load(m + kRows, p.delta + loff + row0, 4 * kRows,
+                    &bar_full[stage]);
+          if (partial)
+            bulk_load(m + 2 * kRows, bits + tq * kRows * kWords,
+                      4 * kRows * kWords, &bar_full[stage]);
         }
       }
     }
+    return;
   }
 
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
+  // Consumers: warpgroup cw owns keys [64 cw, 64 cw + 64) of the block
+  // (kSplitQ: all 64, and the stages it % 2 == cw); this thread keys
+  // key_lo and key_lo + 8, bits bsh and bsh + 8 of bit word wsel; vm has
+  // those two bits set where the key is below sk.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      Cfg::kConsumerRegs));
+  const int ct = threadIdx.x - 128;
+  const int cw = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int kw = kSplitQ ? 0 : cw * 64;  // the warpgroup's first key
+  const int kl = kw + warp * 16 + gid;   // key in the block
+  const int key_lo = key0 + kl;
+  const int wsel = kl >> 5, bsh = kl & 31;
+  const uint32_t vm = (key_lo < p.sk ? 1u << bsh : 0u) |
+                      (key_lo + 8 < p.sk ? 1u << (bsh + 8) : 0u);
+  const float sc = kMods ? kLog2e : p.scale * kLog2e;
+
+  float dk[D / 2], dv[D / 2];  // m64nD accumulators
+#pragma unroll
+  for (int n = 0; n < D / 2; ++n) dk[n] = dv[n] = 0.f;
+  // K, V: this warpgroup's 64 rows, K-major (the A operands of S^T and
+  // dP^T); Q, dO of a stage: K-major as B of those, MN-major as B of
+  // dK += dS^T Q and dV += P^T dO.
+  const uint32_t k_lo = kmajor_lo(sK + kw * 64);
+  const uint32_t v_lo = kmajor_lo(sV + kw * 64);
+  mbar_wait(bar_kv, 0);
+  if (cw == 1) their_turn<true>(cw);  // warpgroup 0 goes first
+
+  int it = 0;
+  for (int hq = hkv * g; hq < (hkv + 1) * g; ++hq) {
+    const int t = (bb * p.th + (p.th == 1 ? 0 : hq)) * p.nk + kb;
+    const int n_full = p.full_q_num[t], n_list = n_full + p.q_num[t];
+    const float* bias_bh = bias_head(p, bb, hq);
+    const float slope = p.mod == kModRelPos ? p.slopes[hq] : 0.f;
+    for (int j = 0; j < n_list; ++j) {
+      const bool partial = j >= n_full;
+      const int qi = partial ? p.q_idx[(size_t)t * p.l_q_part + j - n_full]
+                             : p.full_q_idx[(size_t)t * p.l_q_full + j];
+      for (int tq = 0; tq < p.bq / kRows; ++tq, ++it) {
+        const int row0 = qi * p.bq + tq * kRows;
+        if (row0 >= p.sq) break;
+        if (kSplitQ && (it & 1) != cw) continue;
+        const int stage = it % kStages;
+        // Element e of n8-block jj: key key_lo + 8 (e >> 1), q row
+        // row0 + 8 jj + 2 tig + (e & 1).
+        float bv[kBiasRegs ? kRows / 2 : 1];
+        if constexpr (kBiasRegs) {
+#pragma unroll
+          for (int jj = 0; jj < kRows / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = row0 + jj * 8 + tig * 2 + (e & 1);
+              const int col = key_lo + 8 * (e >> 1);
+              bv[jj * 4 + e] =
+                  bias_bh != nullptr && row < p.sq && col < p.sk
+                      ? bias_bh[row * p.bias_ss + col]
+                      : 0.f;
+            }
+        }
+        mbar_wait(&bar_full[stage], (it / kStages) & 1);
+
+        // S^T = K Q^T, dP^T = V dO^T
+        float st[kRows / 2], dpt[kRows / 2];
+        my_turn<true>(cw);
+        wgmma_fence();
+        qk_product<D, kRows, T>(st, k_lo, kKeys, kmajor_lo(sQ(stage)));
+        qk_product<D, kRows, T>(dpt, v_lo, kKeys, kmajor_lo(sdO(stage)));
+        wgmma_commit();
+        their_turn<true>(cw);
+        wgmma_wait_all();
+        fence_regs<kRows / 2>(st);
+        fence_regs<kRows / 2>(dpt);
+
+        // P^T and dS^T = P^T (dP^T - delta) times the mod's derivative,
+        // packed into the A operands one k16 step (two n8 blocks) at a time
+        const float* ml = meta(stage);
+        const uint32_t* mb = reinterpret_cast<const uint32_t*>(ml + 2 * kRows);
+        uint32_t pa[kRows / 16][4], pds[kRows / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+#pragma unroll
+          for (int jj = 2 * kk; jj < 2 * kk + 2; ++jj) {
+            const int qc = jj * 8 + tig * 2;  // q row in the tile
+            const float2 l2 = *reinterpret_cast<const float2*>(ml + qc);
+            const float2 dl =
+                *reinterpret_cast<const float2*>(ml + kRows + qc);
+            uint32_t w[2] = {vm, vm};
+            if (partial) {
+              w[0] &= mb[qc * kWords + wsel];
+              w[1] &= mb[(qc + 1) * kWords + wsel];
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = e & 1, i = e >> 1;
+              float x = st[jj * 4 + e], dm = 1.f;
+              if constexpr (kBiasRegs)
+                x = flex_mod(p, x * p.scale + bv[jj * 4 + e], slope,
+                             row0 + qc + c, key_lo + 8 * i, &dm);
+              else if constexpr (kMods)
+                x = flex_score<true>(p, x, bias_bh, slope, row0 + qc + c,
+                                     key_lo + 8 * i, &dm);
+              const bool keep = (w[c] >> (bsh + 8 * i)) & 1;
+              const float pe =
+                  keep ? fast_exp2(fmaf(x, sc, -(c ? l2.y : l2.x))) : 0.f;
+              st[jj * 4 + e] = pe;
+              dpt[jj * 4 + e] =
+                  pe * (dpt[jj * 4 + e] - (c ? dl.y : dl.x)) * dm;
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] =
+                Mma<T>::pack(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+            pds[kk][r] =
+                Mma<T>::pack(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+          }
+        }
+
+        // dV += P^T dO, dK += dS^T Q
+        my_turn<true>(cw);
+        fence_regs<D / 2>(dk);
+        fence_regs<D / 2>(dv);
+        fence_regs<kRows / 4>(&pa[0][0]);
+        fence_regs<kRows / 4>(&pds[0][0]);
+        wgmma_fence();
+        pv_product<D, kRows>(dv, pa, sdO(stage));
+        pv_product<D, kRows>(dk, pds, sQ(stage));
+        wgmma_commit();
+        their_turn<true>(cw);
+        wgmma_wait_all();
+        fence_regs<D / 2>(dk);
+        fence_regs<D / 2>(dv);
+        fence_regs<kRows / 4>(&pa[0][0]);
+        fence_regs<kRows / 4>(&pds[0][0]);
+        if (lane == 0) mbar_arrive(&bar_empty[stage]);
+      }
+    }
+  }
+  if constexpr (kSplitQ) {
+    // warpgroup 1 took one stage fewer where the count is odd: it gives
+    // that stage's two turns without products
+    if (cw == 1 && (it & 1)) {
+      my_turn<true>(cw);
+      their_turn<true>(cw);
+      my_turn<true>(cw);
+      their_turn<true>(cw);
+    }
+  }
+  if (cw == 0) my_turn<true>(cw);  // the turn 1 gave first
+  if constexpr (kSplitQ) {
+    // dK, dV = warpgroup 0's sums + warpgroup 1's, through the stages'
+    // tile buffers (free once both are done: named barrier 3)
+    float4* red = reinterpret_cast<float4*>(smem + 2 * Cfg::kKBytes);
+    const int t = ct & 127;
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+    if (cw == 1) {
+      // the buffers' last writes came through the async proxy (TMA)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        red[n * 128 + t] =
+            make_float4(dk[4 * n], dk[4 * n + 1], dk[4 * n + 2], dk[4 * n + 3]);
+        red[(D / 8 + n) * 128 + t] =
+            make_float4(dv[4 * n], dv[4 * n + 1], dv[4 * n + 2], dv[4 * n + 3]);
+      }
+    }
+    asm volatile("bar.sync 3, 256;\n" ::: "memory");
+    if (cw == 1) return;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float4 a = red[n * 128 + t];
+      dk[4 * n] += a.x;
+      dk[4 * n + 1] += a.y;
+      dk[4 * n + 2] += a.z;
+      dk[4 * n + 3] += a.w;
+    }
+    // warpgroup 0 alone: keeps dV's loads behind dK's adds (registers)
+    asm volatile("bar.sync 4, 128;\n" ::: "memory");
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float4 b = red[(D / 8 + n) * 128 + t];
+      dv[4 * n] += b.x;
+      dv[4 * n + 1] += b.y;
+      dv[4 * n + 2] += b.z;
+      dv[4 * n + 3] += b.w;
+    }
+  }
+
+  T* dkp = static_cast<T*>(p.dk);
+  T* dvp = static_cast<T*>(p.dv);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int key = col0 + kw + gid + 8 * i;
+    const int key = key_lo + 8 * i;
     if (key >= p.sk) continue;
-    const size_t base = (((size_t)bb * p.sk + key) * p.hk + hkv) * D + dcol +
-                        tig * 2;
+    const size_t base =
+        (((size_t)bb * p.sk + key) * p.hk + hkv) * D + tig * 2;
 #pragma unroll
-    for (int n = 0; n < kHTiles; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + base + n * 8) = Mma<T>::pack(
-          dk_acc[n][2 * i] * p.scale, dk_acc[n][2 * i + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dv + base + n * 8) =
-          Mma<T>::pack(dv_acc[n][2 * i], dv_acc[n][2 * i + 1]);
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(dkp + base + n * 8) = Mma<T>::pack(
+          dk[4 * n + 2 * i] * p.scale, dk[4 * n + 2 * i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvp + base + n * 8) =
+          Mma<T>::pack(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
     }
   }
 }
@@ -1201,31 +1625,68 @@ int launch_fwd(const FlexParams& p, cudaStream_t stream) {
   return launch_fwd_tiles<T, D, kMods, 64, 64>(p, stream);
 }
 
-template <typename T, int D, bool kMods>
-cudaError_t launch_dq(const FlexParams& p, cudaStream_t stream) {
-  const int smem = 4 * kTile * (D + 8) * (int)sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      flex_bwd_dq_kernel<T, D, kMods>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(p.nq * (p.bq / kTile), p.h, p.b);
-  flex_bwd_dq_kernel<T, D, kMods><<<grid, kThreads, smem, stream>>>(p);
+// The backward's descriptors: q and do in boxes of q_rows rows, k and v of
+// k_rows.
+template <typename T>
+int encode_bwd_maps(BwdMaps* m, const FlexParams& p, int d, int q_rows,
+                    int k_rows) {
+  int err = encode_map<T>(&m->q, p.q, d, p.h, p.sq, p.b, p.q_sh, p.q_ss,
+                          p.q_sb, q_rows);
+  if (!err)
+    err = encode_map<T>(&m->dout, p.dout, d, p.h, p.sq, p.b, p.do_sh,
+                        p.do_ss, p.do_sb, q_rows);
+  if (!err)
+    err = encode_map<T>(&m->k, p.k, d, p.hk, p.sk, p.b, p.k_sh, p.k_ss,
+                        p.k_sb, k_rows);
+  if (!err)
+    err = encode_map<T>(&m->v, p.v, d, p.hk, p.sk, p.b, p.v_sh, p.v_ss,
+                        p.v_sb, k_rows);
+  return err;
+}
+
+template <typename T, int D, bool kMods, int kRows>
+int launch_dq_tiles(const FlexParams& p, cudaStream_t stream) {
+  using Cfg = DqCfg<D, kRows>;
+  BwdMaps maps;
+  const int err = encode_bwd_maps<T>(&maps, p, D, kRows, Cfg::kKeys);
+  if (err) return err;
+  auto kernel = flex_bwd_dq_kernel<T, D, kMods, kRows>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(p.nq * (p.bq / kRows), p.h, p.b);
+  kernel<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kMods>
-cudaError_t launch_dkv(const FlexParams& p, cudaStream_t stream) {
-  const int smem = (4 * kTile * (D + 8) + 2 * kTile * kPStride) *
-                       (int)sizeof(T) +
-                   2 * kTile * (int)sizeof(float) +
-                   2 * kTile * (int)sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      flex_bwd_dkv_kernel<T, D, kMods>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(p.nk * (p.bk / kTile), p.hk, p.b);
-  flex_bwd_dkv_kernel<T, D, kMods><<<grid, kDkvThreads, smem, stream>>>(p);
+template <typename T, int D, bool kMods, int kKeys>
+int launch_dkv_tiles(const FlexParams& p, cudaStream_t stream) {
+  using Cfg = DkvCfg<D, kKeys>;
+  BwdMaps maps;
+  const int err = encode_bwd_maps<T>(&maps, p, D, Cfg::kRows, kKeys);
+  if (err) return err;
+  auto kernel = flex_bwd_dkv_kernel<T, D, kMods, kKeys>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(p.nk * (p.bk / kKeys), p.hk, p.b);
+  kernel<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p, maps);
   return cudaGetLastError();
+}
+
+// The backward's tiles (kernels/flex.py::bwd_tile mirrors this rule): dQ
+// 128 q rows when block_q allows, else 64; dK/dV 128 keys when block_k
+// allows, else 64.
+template <typename T, int D, bool kMods>
+int launch_dq(const FlexParams& p, cudaStream_t stream) {
+  if (p.bq % 128 == 0) return launch_dq_tiles<T, D, kMods, 128>(p, stream);
+  return launch_dq_tiles<T, D, kMods, 64>(p, stream);
+}
+
+template <typename T, int D, bool kMods>
+int launch_dkv(const FlexParams& p, cudaStream_t stream) {
+  if (p.bk % 128 == 0) return launch_dkv_tiles<T, D, kMods, 128>(p, stream);
+  return launch_dkv_tiles<T, D, kMods, 64>(p, stream);
 }
 
 enum { kFwd, kDq, kDkv };

@@ -67,6 +67,7 @@ from flash_attn_tpu_torch.kernels.flash_fwd import HEAD_DIMS, _DTYPE_CODE
 
 KERNEL = "flex"
 TILE = 64  # the CUDA kernels' smallest tile: block_q, block_k multiples
+_LOG2E = math.log2(math.e)
 _MASK_CHUNK = 1 << 24  # elements of one mask evaluation (bounds its memory)
 TABLES = ("kv_num", "kv_idx", "full_kv_num", "full_kv_idx", "q_num", "q_idx",
           "full_q_num", "full_q_idx")
@@ -670,6 +671,45 @@ def fwd_tile(block_q: int, block_k: int) -> tuple[int, int]:
             128 if block_k % 128 == 0 else 64)
 
 
+def bwd_tile(block_q: int, block_k: int) -> tuple[int, int]:
+    """(dQ q rows, dK/dV keys) of the CUDA backward's blocks, the rule of
+    `csrc/flex.cu::launch_dq` / `launch_dkv`, which is the forward's: 128
+    q rows when block_q is a multiple of 128, else 64; 128 keys when
+    block_k is a multiple of 128, else 64."""
+    return fwd_tile(block_q, block_k)
+
+
+def _bits_by_key_block(words, keys: int):
+    """`MaskBits.words` (P, block_q, block_k / 32) as (P, block_k / keys,
+    block_q, keys / 32): the dK/dV kernel's layout, in which the bits of
+    one block of `keys` keys and 64 q rows are contiguous (a view where
+    keys == block_k)."""
+    n, bq, w = words.shape
+    return (words.view(n, bq, w * 32 // keys, keys // 32).transpose(1, 2)
+            .contiguous())
+
+
+def _bwd_orders(bm: BlockMask, b: int, h: int, hk: int):
+    """int32 block orders of the dK/dV and dQ grids (`csrc/flex.cu::
+    bwd_block`: linear block index, x fastest), heaviest blocks first, so
+    that the grid's tail is short under masks of very unequal work.  A
+    dK/dV block's work is the length of its kv block's q lists summed over
+    its GQA group, a dQ block's that of its q block's kv list; ties keep
+    the grid's order.  Built on the device, with no host sync."""
+    rows, keys = bwd_tile(bm.block_q, bm.block_k)
+    n = bm.full_q_num + bm.q_num  # (b, th, nk)
+    w_dkv = (n.expand(b, hk, -1) if n.shape[1] == 1
+             else n.view(b, hk, h // hk, -1).sum(2))
+    w_dq = (bm.full_kv_num + bm.kv_num).expand(b, h, -1)
+    # each block's work for its blk // tile sub-blocks (an expand, not
+    # repeat_interleave, which may read the repeats back to the host)
+    return tuple(
+        torch.argsort(w.unsqueeze(-1).expand(-1, -1, -1, blk // tile)
+                      .reshape(-1), descending=True, stable=True).int()
+        for w, blk, tile in ((w_dkv, bm.block_k, keys),
+                             (w_dq, bm.block_q, rows)))
+
+
 def _params(q, k, v, block_mask, bits, score_mod, scale, bias):
     b, sq, h, d, sk, hk, bq, bk, nq, nk = _geometry(q, k, v, block_mask,
                                                      bias)
@@ -761,7 +801,8 @@ def flex_attn_bwd(do, q, k, v, o, lse, block_mask: BlockMask,
     blocks it never visits (`:1223-1239`); broadcast dimensions are then
     summed back.  CPU tensors run the plain version; CUDA tensors launch
     `flex_bwd_dkv_kernel` then `flex_bwd_dq_kernel` (deterministic bit for
-    bit: no atomics) or raise."""
+    bit: no atomics; their blocks start heaviest first, `_bwd_orders`) or
+    raise."""
     global launches_dq, launches_dkv
     if q.device.type == "cpu":
         return flex_attn_bwd_ref(do, q, k, v, o, lse, block_mask, bits,
@@ -776,8 +817,12 @@ def flex_attn_bwd(do, q, k, v, o, lse, block_mask: BlockMask,
     do = _kernel_ready(do.to(q.dtype))
     p.dout = do.data_ptr()
     p.do_sb, p.do_ss, p.do_sh, _ = do.stride()
-    lse = lse.float().contiguous()
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    # lse in log2 units and delta, (b, h, sq) padded to a multiple of 64 rows
+    # (+inf and 0), so that the dK/dV kernel copies a tile's rows in bulk
+    pad = (0, round_up(p.sq, TILE) - p.sq)
+    lse = F.pad(lse.float() * _LOG2E, pad, value=math.inf).contiguous()
+    delta = F.pad((do.float() * o.float()).sum(-1).transpose(1, 2),
+                  pad).contiguous()
     dq = torch.empty(p.b, p.sq, p.h, q.shape[-1], dtype=q.dtype,
                      device=q.device)
     dk = torch.empty(p.b, p.sk, p.hk, k.shape[-1], dtype=k.dtype,
@@ -790,11 +835,15 @@ def flex_attn_bwd(do, q, k, v, o, lse, block_mask: BlockMask,
         p.dbias = dbias.data_ptr()
     p.lse, p.delta = lse.data_ptr(), delta.data_ptr()
     p.dq, p.dk, p.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
+    order_dkv, order_dq = _bwd_orders(block_mask, p.b, p.h, p.hk)
+    words_dkv = _bits_by_key_block(bits.words, bwd_tile(p.bq, p.bk)[1])
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (ctypes.byref(p), q.shape[-1], _DTYPE_CODE[q.dtype], stream)
+    p.o, p.bits = order_dkv.data_ptr(), words_dkv.data_ptr()
     _build.check(lib, lib.flex_bwd_dkv(*args), KERNEL)
     launches_dkv += 1
+    p.o, p.bits = order_dq.data_ptr(), bits.words.data_ptr()
     _build.check(lib, lib.flex_bwd_dq(*args), KERNEL)
     launches_dq += 1
     if dbias is not None:

@@ -18,6 +18,7 @@ the JAX package, on the same seeded numpy inputs.
 
 import functools
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from flash_attn_tpu import blocksparse as jax_bs
 from flash_attn_tpu.kernels import flex as jax_flex
 from flash_attn_tpu.kernels import varlen_packed as jax_vp
 from flash_attn_tpu_torch import blocksparse
+from flash_attn_tpu_torch.diag import flex_ab
 from flash_attn_tpu_torch.kernels import flex, varlen_packed
 from flash_attn_tpu_torch.utils.testing import check_close
 
@@ -590,6 +592,64 @@ def test_fwd_tile_rule(block_q, block_k, tile):
     `csrc/flex.cu::launch_fwd`: 128 q rows and 128 keys where the blocks
     are multiples of 128, else 64."""
     assert flex.fwd_tile(block_q, block_k) == tile
+
+
+@pytest.mark.parametrize("block_q,block_k,tile", [
+    (128, 64, (128, 64)), (64, 64, (64, 64)), (512, 512, (128, 128)),
+    (192, 192, (64, 64)), (128, 128, (128, 128)), (64, 128, (64, 128)),
+    (1024, 1024, (128, 128)), (320, 384, (64, 128)), (384, 320, (128, 64)),
+])
+def test_bwd_tile_rule(block_q, block_k, tile):
+    """The CUDA backward's blocks for (block_q, block_k), the rule of
+    `csrc/flex.cu::launch_dq` / `launch_dkv`: dQ 128 q rows and dK/dV 128
+    keys where the blocks are multiples of 128, else 64."""
+    assert flex.bwd_tile(block_q, block_k) == tile
+
+
+@pytest.mark.parametrize("b,h,hk,s,block_q,block_k,inv", [
+    (2, 4, 2, 300, 128, 64, False), (1, 8, 2, 640, 128, 128, True),
+    (2, 4, 2, 500, 192, 192, True), (1, 4, 4, 1100, 512, 512, False),
+])
+def test_bwd_orders_heaviest_first(b, h, hk, s, block_q, block_k, inv):
+    """`_bwd_orders` permutes each backward grid's linear block indices (x
+    fastest) so that a block's work, the length of the lists it walks (the
+    q lists of its kv block over its GQA group; its q block's kv list),
+    never rises, ties in the grid's order."""
+    bm = flex.create_block_mask(lambda b_, h_, qi, ki: qi >= ki, b, h, s, s,
+                                block_q=block_q, block_k=block_k,
+                                head_invariant=inv, device="cpu")
+    order_dkv, order_dq = flex._bwd_orders(bm, b, h, hk)
+    rows, keys = flex.bwd_tile(block_q, block_k)
+    g = h // hk
+    nq_, nk_ = bm.kv_num.shape[-1], bm.q_num.shape[-1]
+    n_q = (bm.full_q_num + bm.q_num).expand(b, h, nk_)
+    n_kv = (bm.full_kv_num + bm.kv_num).expand(b, h, nq_)
+    grids = ((order_dkv, nk_ * (block_k // keys), hk, block_k // keys,
+              lambda z, y, blk: int(n_q[z, y * g:(y + 1) * g, blk].sum())),
+             (order_dq, nq_ * (block_q // rows), h, block_q // rows,
+              lambda z, y, blk: int(n_kv[z, y, blk])))
+    for order, gx, gy, sub, work in grids:
+        assert order.dtype == torch.int32
+        lin = order.tolist()
+        assert sorted(lin) == list(range(gx * gy * b))
+        w = [work(i // (gx * gy), i // gx % gy, i % gx // sub) for i in lin]
+        assert all(a > c or (a == c and i < j) for a, c, i, j in
+                   zip(w, w[1:], lin, lin[1:]))
+
+
+@pytest.mark.parametrize("variant", list(flex_ab.VARIANTS))
+def test_flex_ab_variant_edits_only_its_kernel(variant):
+    """Each `diag/flex_ab.py` variant finds its anchor inside the kernel it
+    names in `csrc/flex.cu` and changes nothing outside that kernel's
+    text, so that no forward variant edits a backward kernel or back."""
+    src = (Path(flex_ab.__file__).parents[2] / flex_ab.KERNEL_SOURCE
+           ).read_text()
+    out = flex_ab.edit_source(src, variant)
+    assert out is not None and out != src
+    kernel = flex_ab.VARIANTS[variant][0]
+    start, end = flex_ab.kernel_span(src, kernel)
+    start2, end2 = flex_ab.kernel_span(out, kernel)
+    assert out[:start2] == src[:start] and out[end2:] == src[end:]
 
 
 def test_kernel_ready_reads_strided_views_in_place():

@@ -654,13 +654,14 @@ _TILE_CASES = {
 }
 
 
-def _flex_tile_inputs(case, dtype, d, mods, gen, dev):
-    """(q, k, v, block mask, bits, score mod, bias, aux) of one forward tile
-    case: a causal mask (rows < 200 empty and keys <= row + 500 for
+def _flex_tile_inputs(case, dtype, d, mods, gen, dev, hole=False):
+    """(q, k, v, block mask, bits, score mod, bias, aux) of one tile case: a
+    causal mask (rows < 200 empty and keys <= row + 500 for
     `ragged_empty`, causal documents through aux for `gqa_head_invariant`);
     q, k, v strided views of one (b, s, 3, h, d) tensor for `packed_qkv`, k
     and v transposed (b, h, s, d) tensors for `transposed_kv`; with `mods`,
-    softcap 20 and a (1, h, sq, sk) bias."""
+    softcap 20 and a (1, h, sq, sk) bias; with `hole`, keys 64-127 masked
+    for every row (no query sees them)."""
     from flash_attn_tpu_torch.kernels import flex
 
     b, h, hk, sq, sk, bq, bk = _TILE_CASES[case]
@@ -678,6 +679,12 @@ def _flex_tile_inputs(case, dtype, d, mods, gen, dev):
 
         def mask(b_, h_, qi, ki, qa, ka):
             return (qa == ka) & (qi >= ki)
+    if hole:
+        case_mask = mask
+
+        def mask(*args):
+            ki = args[3]
+            return case_mask(*args) & ((ki < 64) | (ki >= 128))
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -734,6 +741,45 @@ def test_flex_fwd_tiles_match_plain(cuda, case, d, dtype, mods):
     assert not o[empty].any()
     if case == "ragged_empty":
         assert empty[:, :200].all() and not empty[:, 200:].any()
+
+
+@pytest.mark.parametrize("mods", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", list(_TILE_CASES))
+def test_flex_bwd_tiles_match_plain(cuda, case, d, dtype, mods):
+    """Each block instantiation of the backward (`flex.bwd_tile`: dQ 128 or
+    64 q rows, dK/dV 128 or 64 keys), inputs read in place through their
+    strides, ragged lengths and GQA: dq, dk, dv and dbias against the plain
+    version (fp32 oracle, low-precision yardstick); one launch of each
+    kernel a call; a second call bitwise equal; keys no query sees (64-127,
+    a whole kv block at block_k 64, part of a partial one above) give
+    exactly 0."""
+    from flash_attn_tpu_torch.kernels import flex
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, bm, bits, smod, bias, aux = _flex_tile_inputs(
+        case, dtype, d, mods, gen, cuda, hole=True)
+    kw = (bm, bits, smod, d ** -0.5, aux, aux, bias)
+    o, lse = flex.flex_attn_fwd(q, k, v, *kw)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    before = flex.launches_dq, flex.launches_dkv
+    grads = flex.flex_attn_bwd(do, q, k, v, o, lse, *kw)
+    torch.cuda.synchronize()
+    assert (flex.launches_dq, flex.launches_dkv) == (before[0] + 1,
+                                                     before[1] + 1)
+    f32 = [x.float() for x in (do, q, k, v, o)]
+    ref = flex.flex_attn_bwd_ref(*f32, lse, *kw)
+    pt = flex.flex_attn_bwd_ref(do, q, k, v, o, lse, *kw)
+    for name, x, r, y in zip(("dq", "dk", "dv", "dbias"), grads, ref, pt):
+        if x is not None:
+            check_close(x, r, y, label=name)
+    again = flex.flex_attn_bwd(do, q, k, v, o, lse, *kw)
+    for x, y in zip(grads, again):
+        assert x is None or torch.equal(x, y)
+    dk, dv = grads[1:3]
+    assert not dk[:, 64:128].any() and not dv[:, 64:128].any()
+    assert dk[:, :64].any() and dv[:, 128:].any()
 
 
 @pytest.mark.parametrize("scale", [-0.1, 0.0])
