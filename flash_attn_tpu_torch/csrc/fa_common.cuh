@@ -1,13 +1,14 @@
-// Helpers shared by the flash-attention forward and backward kernels
-// (flash_fwd.cu, flash_bwd.cu): the mma.sync.m16n8k16 wrappers, fragment
-// loads, quad reductions, tile copies, the dense and packed varlen layouts
-// (SeqLayout), and the score transform.
+// Helpers shared by the flash-attention kernels (flash_fwd.cu; flash_bwd.cu,
+// flex.cu and flash_decode_ref.cu use some): the mma.sync.m16n8k16
+// wrappers, fragment loads, quad reductions, tile copies, the dense and
+// packed varlen layouts (SeqLayout), and the score transform.
 //
-// ScoreMod is the one place where a raw Q K^T score becomes the exponent of
-// the softmax.  The backward recomputes p = exp2(score - lse * log2(e)) with
-// the same arithmetic as the forward, in the same order (scale, softcap,
-// ALiBi, masks, then the log2(e) factor), so its probabilities are the
-// forward's; this is the role of the JAX backward's `folded` mode
+// ScoreMod is where the forward turns a raw Q K^T score into the exponent
+// of the softmax.  The backward (flash_bwd.cu's modded) recomputes p =
+// exp2(score - lse * log2(e)) in the same order (scale, softcap, ALiBi,
+// masks, then the log2(e) factor), its tanh on the special function unit,
+// so its probabilities are the forward's to within that tanh's rounding;
+// this is the role of the JAX backward's `folded` mode
 // (flash_attn_tpu/kernels/flash_bwd.py:75-81).
 
 #pragma once

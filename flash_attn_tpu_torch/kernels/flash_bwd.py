@@ -4,19 +4,22 @@ Pallas kernels are `_bwd_dq_kernel:121`, `_bwd_dkv_kernel:232`,
 `_bwd_fused_kernel:507` and `_bwd_fused_sched_kernel:851`).
 
 `flash_attn_bwd_bhsd` launches the hand-written Hopper kernels of
-`csrc/flash_bwd.cu` (`flash_bwd_dkv_kernel`, then `flash_bwd_dq_kernel`)
-for CUDA tensors and runs `flash_attn_bwd_bhsd_ref`, the plain PyTorch
-version with the same signature, for CPU tensors.  The two-kernel split
-serves every call the JAX package sends to any of its four kernels, and is
-deterministic bit for bit (no atomics; see the note in the source).  Its
-packed varlen mode (`flash_bwd_varlen`) is launched by `kernels/varlen.py`.
+`csrc/flash_bwd.cu` (`flash_bwd_dq_kernel`, then `flash_bwd_dkv_kernel`,
+which reads the lse and delta rows the first one writes) for CUDA tensors
+and runs `flash_attn_bwd_bhsd_ref`, the plain PyTorch version with the same
+signature, for CPU tensors.  The two-kernel split serves every call the
+JAX package sends to any of its four kernels, and is deterministic bit for
+bit (no atomics; see the note in the source).  Its packed varlen mode
+(`flash_bwd_varlen`) is launched by `kernels/varlen.py`.
 
-The dO.O preprocess stays plain torch, as the JAX package leaves it to XLA
-(`:1063-1067`): delta = rowsum(dO * O) - dlse, in float32.  Masks, windows,
-GQA, softcap and ALiBi follow the forward (`kernels/flash_fwd.py`); rows at
-or past seqused_q contribute nothing (callers pass do = 0 there), keys at or
-past seqused_k get dk = dv = 0, and a row with lse = +inf gets dq = 0.
-dk and dv come back reduced over each GQA group.
+The dO.O preprocess, which the JAX package leaves to XLA (`:1063-1067`),
+is folded into the dQ kernel on CUDA: delta = rowsum(dO * O) - dlse, in
+float32; the plain version computes it in torch (`_delta`).  Masks,
+windows, GQA, softcap and ALiBi follow the forward
+(`kernels/flash_fwd.py`); rows at or past seqused_q contribute nothing
+(callers pass do = 0 there), keys at or past seqused_k get dk = dv = 0, and
+a row with lse = +inf gets dq = 0.  dk and dv come back reduced over each
+GQA group.
 """
 
 from __future__ import annotations
@@ -36,11 +39,57 @@ KERNEL = "flash_bwd"
 # Launches of each CUDA kernel (plain CPU runs do not count).
 launches_dq = 0
 launches_dkv = 0
+# q tiles each block of the last dQ launch owned (`dq_items`).
+last_dq_items = 0
 
 
 def _delta(do, o, dlse):
     delta = (do.float() * o.float()).sum(-1)
     return delta if dlse is None else delta - dlse.float()
+
+
+STATS_TILE = 128  # the dQ kernel's q rows
+STATS_GAP = 132   # `csrc/flash_bwd.cu::kStatsGap`
+
+
+def stats_row0(cu_q_i: int, i: int) -> int:
+    """Row 0 of varlen sequence i's stats within a head, the rule of
+    `csrc/flash_bwd.cu::stats_row0`: cu_q[i] rounded up to 4, plus
+    `STATS_GAP` * i."""
+    return (cu_q_i + 3) // 4 * 4 + STATS_GAP * i
+
+
+def stats_rows(sq: int) -> int:
+    """Rows of one head's stats (lse in log2 units, then delta: the rows
+    the dQ kernel writes and the dK/dV kernel reads) of a dense call: sq
+    rounded up to the dQ kernel's 128-row tile."""
+    return -(-sq // STATS_TILE) * STATS_TILE
+
+
+def varlen_stats_rows(b: int, total_q: int) -> int:
+    """The same for a varlen call of b sequences packed into total_q rows:
+    room for every sequence's `stats_row0` and its rows rounded up to 128,
+    a multiple of 4."""
+    return -(-(total_q + STATS_GAP * b) // 4) * 4
+
+
+def dq_items(d: int, q_tiles: int, heads: int, b: int,
+             sm_count: int) -> int:
+    """q tiles of 128 rows each block of the CUDA dQ kernel owns
+    (`csrc/flash_bwd.cu::DqTiles`): 2 at d = 64 where the grid of one-tile
+    blocks (q_tiles x heads x b) holds at least 4 an SM, so that half as
+    many blocks still fill the card twice over; else 1.  A second tile
+    hides its loads and start behind the first one's products; on a grid of
+    fewer blocks the halved grid leaves SMs idle in its last wave."""
+    return 2 if d == 64 and q_tiles * heads * b >= 4 * sm_count else 1
+
+
+def _dq_items_for(device, d, q_tiles, heads, b):
+    """`dq_items` on `device`'s SM count, recorded in `last_dq_items`."""
+    global last_dq_items
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    last_dq_items = dq_items(d, q_tiles, heads, b, sms)
+    return last_dq_items
 
 
 def flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, seqused_q, seqused_k, *,
@@ -149,7 +198,14 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     wl, wr = normalize_window(window_size, causal, sk)
     has_upper, wr, has_lower, wl = mask_params(causal, wl, wr)
     lse = lse.contiguous()
-    delta = _delta(do, o, dlse).contiguous()
+    if dlse is not None:
+        if dlse.shape != lse.shape or dlse.device != q.device:
+            raise ValueError(f"dlse: {tuple(dlse.shape)} on {dlse.device}")
+        dlse = dlse.float().contiguous()
+    do, q, k, v, o = (_aligned(x) for x in (do, q, k, v, o))
+    rows = stats_rows(sq)
+    stats = torch.empty(2 * b * h * rows, dtype=torch.float32,
+                        device=q.device)
 
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -157,23 +213,33 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     lib = _lib()
     err = lib.flash_bwd(
         do.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), seqused_q.data_ptr(), seqused_k.data_ptr(),
+        o.data_ptr(), lse.data_ptr(),
+        dlse.data_ptr() if dlse is not None else None, stats.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), seqused_q.data_ptr(),
+        seqused_k.data_ptr(),
         slopes.data_ptr() if slopes is not None else None,
         b, h, hk, sq, sk, d, _DTYPE_CODE[q.dtype], float(softmax_scale),
-        int(has_upper), wr, int(has_lower), wl, float(softcap),
+        int(has_upper), wr, int(has_lower), wl, float(softcap), rows,
+        _dq_items_for(q.device, d, -(-sq // STATS_TILE), h, b),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL)
-    launches_dkv += 1
     launches_dq += 1
+    launches_dkv += 1
     return dq, dk, dv
+
+
+def _aligned(x):
+    """x, or a copy of it where its data does not start 16-byte aligned
+    (the kernels' tensor maps need it)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _lib():
     lib = _build.load(KERNEL)
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_bwd.argtypes = [P] * 12 + [I] * 7 + [F, I, I, I, I, F, P]
+        lib.flash_bwd.argtypes = ([P] * 14 + [I] * 7
+                                  + [F, I, I, I, I, F, I, I, P])
         lib.flash_bwd.restype = I
         _build.declare_error_string(lib)
         lib._typed = True

@@ -14,12 +14,13 @@ does a token outside every sequence (past cu_seqlens_q[-1]).
 
 `varlen_attn_fwd` / `varlen_attn_bwd` launch the varlen modes of the
 hand-written Hopper kernels `csrc/flash_fwd.cu` (`flash_fwd_varlen`) and
-`csrc/flash_bwd.cu` (`flash_bwd_varlen`: the dK/dV kernel, then the dQ
-kernel; deterministic bit for bit) on CUDA tensors, and run their plain
-versions `varlen_attn_fwd_ref` / `varlen_attn_bwd_ref`, which loop over the
-sequences, on CPU tensors.  They read and write the packed streams in
-place: the JAX wrapper's `swapaxes` to (h, total, d) (`:380-382`) is a
-layout need of the TPU, not part of the function.
+`csrc/flash_bwd.cu` (`flash_bwd_varlen`: the dQ kernel, which also forms
+the dO.O preprocess, then the dK/dV kernel; deterministic bit for bit) on
+CUDA tensors, and run their plain versions `varlen_attn_fwd_ref` /
+`varlen_attn_bwd_ref`, which loop over the sequences, on CPU tensors.
+They read and write the packed streams in place: the JAX wrapper's
+`swapaxes` to (h, total, d) (`:380-382`) is a layout need of the TPU, not
+part of the function.
 
 The TPU's way of skipping tile pairs has no counterpart here: `token_aux`
 (per-token segment words), `build_varlen_schedule`,
@@ -41,7 +42,10 @@ import math
 import torch
 
 from flash_attn_tpu_torch.kernels import _build
-from flash_attn_tpu_torch.kernels.flash_bwd import flash_attn_bwd_bhsd_ref
+from flash_attn_tpu_torch.kernels.flash_bwd import (STATS_TILE, _aligned,
+                                                    _dq_items_for,
+                                                    flash_attn_bwd_bhsd_ref,
+                                                    varlen_stats_rows)
 from flash_attn_tpu_torch.kernels.flash_fwd import (HEAD_DIMS, _DTYPE_CODE,
                                                     flash_attn_fwd_bhsd_ref,
                                                     mask_params,
@@ -215,9 +219,9 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
     lse = +inf get dq = 0, keys no query sees get dk = dv = 0, and tokens
     outside every sequence get 0.
 
-    The dO.O preprocess delta = rowsum(dO * O) is plain torch on the packed
-    layout, as in `flash_bwd.py`.  CPU tensors run the plain version; CUDA
-    tensors launch `csrc/flash_bwd.cu`'s varlen mode or raise."""
+    CPU tensors run the plain version; CUDA tensors launch
+    `csrc/flash_bwd.cu`'s varlen mode, whose dQ kernel also forms the dO.O
+    preprocess delta = rowsum(dO * O), or raise."""
     global launches_dq, launches_dkv
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap,
@@ -237,26 +241,29 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
                          f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse: {lse.dtype} on {lse.device}")
-    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    q, k, v, o, do = (_aligned(x.contiguous()) for x in (q, k, v, o, do))
     lse = lse.contiguous()
     b, slopes, (has_upper, wr, has_lower, wl) = _cuda_common(
         q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_k, causal, window_size,
         alibi_slopes)
-    delta = (do.float() * o.float()).sum(-1).t().contiguous()  # (h, total_q)
+    rows = varlen_stats_rows(b, total_q)
+    stats = torch.empty(2 * h * rows, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
     lib = _lib_bwd()
     err = lib.flash_bwd_varlen(
         do.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), cu_seqlens_q.data_ptr(), cu_seqlens_k.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), cu_seqlens_q.data_ptr(),
+        cu_seqlens_k.data_ptr(),
         slopes.data_ptr() if slopes is not None else None,
-        b, h, k.shape[1], int(max_seqlen_q), int(max_seqlen_k), total_q, d,
-        _DTYPE_CODE[q.dtype], float(softmax_scale), int(has_upper), wr,
-        int(has_lower), wl, float(softcap),
+        b, h, k.shape[1], int(max_seqlen_q), int(max_seqlen_k), total_q,
+        k.shape[0], d, _DTYPE_CODE[q.dtype], float(softmax_scale),
+        int(has_upper), wr, int(has_lower), wl, float(softcap), rows,
+        _dq_items_for(q.device, d, -(-int(max_seqlen_q) // STATS_TILE), h, b),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL_BWD)
-    launches_dkv += 1
     launches_dq += 1
+    launches_dkv += 1
     return dq, dk, dv
 
 
@@ -342,8 +349,8 @@ def _lib_bwd():
     lib = _build.load(KERNEL_BWD)
     if not getattr(lib, "_typed_varlen", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_bwd_varlen.argtypes = [P] * 12 + [I] * 8 + [F, I, I, I, I,
-                                                             F, P]
+        lib.flash_bwd_varlen.argtypes = ([P] * 13 + [I] * 9
+                                         + [F, I, I, I, I, F, I, I, P])
         lib.flash_bwd_varlen.restype = I
         _build.declare_error_string(lib)
         lib._typed_varlen = True

@@ -222,3 +222,43 @@ def test_packed_variants_match_flash_attn_func():
     torch.testing.assert_close(
         flash_attn_kvpacked_func(qkv[:, :, 0], qkv[:, :, 1:], causal=True),
         out, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bwd_stats_layout(seed):
+    """The rows the CUDA dQ kernel writes for the dK/dV kernel (lse in log2
+    units, then delta, `kernels.flash_bwd.stats_rows` / `varlen_stats_rows`,
+    `stats_row0`): each sequence's 128-row tiles stay inside the head's
+    allocation and clear of the next sequence's rows, and every 64-row
+    stage starts 16-byte aligned, for seeded packed lengths of 0-600 tokens
+    (and the dense rule at the same lengths)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 601, size=int(rng.integers(1, 40))).tolist()
+    cu = np.concatenate([[0], np.cumsum(lens)]).tolist()
+    total = cu[-1] + int(rng.integers(0, 5))  # rows past the last sequence
+    rows = port_bwd.varlen_stats_rows(len(lens), total)
+    assert rows % 4 == 0
+    end = 0
+    for i, n in enumerate(lens):
+        start = port_bwd.stats_row0(cu[i], i)
+        assert start % 4 == 0 and start >= end
+        tiles = -(-n // port_bwd.STATS_TILE) * port_bwd.STATS_TILE
+        end = start + tiles
+        assert end <= rows
+    for n in lens + [1, 127, 128, 129]:
+        dense = port_bwd.stats_rows(n)
+        assert dense % port_bwd.STATS_TILE == 0 and n <= dense < n + 128
+
+
+@pytest.mark.parametrize("d,q_tiles,heads,b,want", [
+    (64, 8, 12, 8, 2),    # GPT-2 small's training shape: 768 blocks
+    (64, 8, 12, 3, 1),    # 288 blocks: half would not fill 132 SMs twice
+    (64, 4, 12, 11, 2),   # 528 blocks: exactly 4 an SM
+    (64, 4, 12, 10, 1),   # 480 blocks: fewer
+    (128, 16, 32, 2, 1),  # d = 128: one set of Q, dO, O fits
+])
+def test_dq_items_rule(d, q_tiles, heads, b, want):
+    """`kernels.flash_bwd.dq_items`, the q tiles each CUDA dQ block owns,
+    on the H100's 132 SMs: two at d = 64 where the one-tile grid holds at
+    least 4 blocks an SM."""
+    assert port_bwd.dq_items(d, q_tiles, heads, b, 132) == want

@@ -502,6 +502,135 @@ def test_varlen_kernels_match_plain(cuda, dtype, d, case):
         assert not dq[130:200].any()
 
 
+_BWD_TILE_CASES = (
+    [f"{sq}x{sk}_{'causal' if c else 'full'}"
+     for sq, sk in ((1, 1), (63, 63), (127, 127), (129, 129), (1000, 1500))
+     for c in (True, False)]
+    + ["window_left", "seqused_k0", "gqa4", "dlse", "softcap_alibi",
+       "two_items_causal", "two_items_full"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", _BWD_TILE_CASES)
+def test_bwd_tiles_match_plain(cuda, case, d, dtype):
+    """The dense backward's tiles (128-row dQ blocks, 128-key dK/dV blocks,
+    64-row and 64-key stages) at lengths on and off their edges, causal and
+    not, a one-sided window, seqused_k = 0 on one batch, GQA with g = 4, a
+    dlse cotangent (folded into delta by the dQ kernel), the softcap +
+    ALiBi instantiation, and a grid large enough for dQ blocks of two q
+    tiles at d = 64 (`flash_bwd.dq_items`; 9 tiles a head, so one block
+    owns one): dq (rows < seqused_q), dk and dv against the plain version
+    (fp32 oracle, low-precision yardstick); a second call bitwise equal;
+    keys past seqused_k give exactly 0."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    b, h, hk, sq, sk = 2, 4, 4, 300, 300
+    kw = dict(softmax_scale=d ** -0.5, causal=True)
+    if case.startswith("two_items"):
+        b, h, hk, sq, sk = 8, 8, 8, 1100, 1100
+        kw["causal"] = case.endswith("causal")
+    elif "x" in case:
+        size, mask = case.split("_")
+        sq, sk = (int(n) for n in size.split("x"))
+        kw["causal"] = mask == "causal"
+    elif case == "window_left":
+        kw.update(causal=False, window_size=(100, -1))
+    elif case == "gqa4":
+        h, hk = 8, 2
+    elif case == "softcap_alibi":
+        kw.update(softcap=30.0,
+                  alibi_slopes=torch.rand(b, h, generator=gen, device=cuda))
+    sku = [sk, 0] if case == "seqused_k0" else [sk] * b
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    do = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    squ = torch.tensor([sq] * b, dtype=torch.int32, device=cuda)
+    sku = torch.tensor(sku, dtype=torch.int32, device=cuda)
+    o, lse = flash_fwd.flash_attn_fwd_bhsd(q, k, v, squ, sku, **kw)
+    if case == "dlse":
+        kw["dlse"] = torch.randn(b, h, sq, generator=gen, device=cuda)
+    before = flash_bwd.launches_dq, flash_bwd.launches_dkv
+    grads = flash_bwd.flash_attn_bwd_bhsd(do, q, k, v, o, lse, squ, sku, **kw)
+    torch.cuda.synchronize()
+    assert (flash_bwd.launches_dq, flash_bwd.launches_dkv) == (
+        before[0] + 1, before[1] + 1)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert flash_bwd.last_dq_items == flash_bwd.dq_items(
+        d, -(-sq // 128), h, b, sms)
+    if case.startswith("two_items") and d == 64:
+        assert flash_bwd.last_dq_items == 2, f"{sms} SMs"
+    ref = flash_bwd.flash_attn_bwd_bhsd_ref(
+        do.float(), q.float(), k.float(), v.float(), o.float(), lse, squ, sku,
+        **kw)
+    pt = flash_bwd.flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, squ, sku, **kw)
+    for name, x, r, y in zip(("dq", "dk", "dv"), grads, ref, pt):
+        check_close(x, r, y, label=name)
+    again = flash_bwd.flash_attn_bwd_bhsd(do, q, k, v, o, lse, squ, sku, **kw)
+    for x, y in zip(grads, again):
+        assert torch.equal(x, y)
+    if case == "seqused_k0":
+        assert not grads[0][1].any()
+        assert not grads[1][1].any() and not grads[2][1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["full", "causal", "gqa_causal",
+                                  "two_items"])
+def test_varlen_bwd_tiles_match_plain(cuda, case, d, dtype):
+    """The packed varlen backward over sequences of 1-300 tokens, lengths
+    on and off the tiles' edges, one with no query and one with no key, so
+    that tiles run past their sequence into the next one's rows (with
+    `two_items`, 64 seeded sequences of 0-300 tokens, enough for dQ blocks
+    of two q tiles at d = 64): dq, dk, dv against the plain version; a
+    second call bitwise equal; keys no query sees, rows with no key and
+    tokens outside every sequence give 0."""
+    from flash_attn_tpu_torch.kernels import varlen
+
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    lens_q = [1, 300, 0, 77, 128, 129, 255, 64]
+    lens_k = [1, 300, 50, 0, 128, 129, 200, 300]
+    if case == "two_items":
+        rng = np.random.default_rng(14)
+        lens_q += rng.integers(0, 301, 56).tolist()
+        lens_k += rng.integers(0, 301, 56).tolist()
+    h, hk = (8, 2) if case in ("gqa_causal", "two_items") else (4, 4)
+    kw = dict(softmax_scale=d ** -0.5, causal=case != "full")
+
+    def stream(lens, heads):  # 3 rows past the last sequence
+        return torch.randn(sum(lens) + 3, heads, d, generator=gen,
+                           device=cuda).to(dtype)
+
+    def cu(lens):
+        return torch.tensor([0] + lens, device=cuda).cumsum(0).int()
+
+    q, k, v = stream(lens_q, h), stream(lens_k, hk), stream(lens_k, hk)
+    args = (cu(lens_q), cu(lens_k), max(lens_q), max(lens_k))
+    o, lse = varlen.varlen_attn_fwd(q, k, v, *args, **kw)
+    do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    before = varlen.launches_dq, varlen.launches_dkv
+    grads = varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+    torch.cuda.synchronize()
+    assert (varlen.launches_dq, varlen.launches_dkv) == (before[0] + 1,
+                                                         before[1] + 1)
+    if case == "two_items" and d == 64:
+        assert flash_bwd.last_dq_items == 2
+    ref = varlen.varlen_attn_bwd_ref(do.float(), q.float(), k.float(),
+                                     v.float(), o.float(), lse, *args, **kw)
+    pt = varlen.varlen_attn_bwd_ref(do, q, k, v, o, lse, *args, **kw)
+    for name, x, r, y in zip(("dq", "dk", "dv"), grads, ref, pt):
+        check_close(x, r, y, label=name)
+    again = varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+    for x, y in zip(grads, again):
+        assert torch.equal(x, y)
+    dq, dk, dv = grads
+    kq, kk = sum(lens_q[:3]), sum(lens_k[:2])  # sequence 2: keys, no query
+    assert not dk[kk:kk + 50].any() and not dv[kk:kk + 50].any()
+    assert not dq[kq:kq + 77].any()  # sequence 3: no key
+    assert not dq[-3:].any() and not dk[-3:].any() and not dv[-3:].any()
+
+
 def test_varlen_func_gradient_on_cuda(cuda):
     """flash_attn_varlen_func's packed route on CUDA launches the varlen
     kernels and its gradient the varlen backward; float32 q and head dim 96

@@ -224,7 +224,7 @@ def test_kernel_depends_on_its_source_and_headers_only(monkeypatch,
     from flash_attn_tpu_torch.kernels import _build
 
     names = {p.name for p in _build.sources("flash_decode_ref")}
-    assert names == {"flash_decode_ref.cu", "fa_common.cuh"}
+    assert names == {"flash_decode_ref.cu", "fa_common.cuh", "hopper.cuh"}
     assert all((_build.CSRC_DIR / f"{n}.cu").exists() for n in _build.KERNELS)
     for f in ("k.cu", "k_other.cu", "shared.cuh"):
         (tmp_path / f).write_text("")
