@@ -205,6 +205,9 @@ def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     kernel_ms = time_ms(lambda *a: ff.flash_attn_fwd_bhsd(*a, **kw), args)
     kernel_call_ms = call_ms(lambda *a: ff.flash_attn_fwd_bhsd(*a, **kw),
                              args)
+    kernel_device = kernel_device_ms(
+        lambda *a: ff.flash_attn_fwd_bhsd(*a, **kw), args,
+        ("flash_fwd_kernel",))["flash_fwd_kernel"]
     plain_ms = time_ms(lambda *a: ff.flash_attn_fwd_bhsd_ref(*a, **kw), args)
     ff.launches = before  # timing launches are not the main path's
     library_ms = None
@@ -215,6 +218,7 @@ def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
                alibi=alibi, max_abs_err_o=err_o, plain_bf16_err_o=err_o_pt,
                max_abs_err_lse=err_l, plain_bf16_err_lse=err_l_pt,
                kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               kernel_device_ms=kernel_device, rows=ff.fwd_rows(d),
                plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, library_ms=library_ms, flops=flops,
                bytes=bytes_, share_of_bound=bound_ms / kernel_ms)
@@ -1200,6 +1204,16 @@ def sdpa_prefill_ms(q, kc, vc, table, cu_q, lens_q, lens_k):
         input_copies(qq, kq, vq, mask))
 
 
+def fwd_ptxas(varlen):
+    """`ptxas_summary` of the `flash_fwd_kernel` instantiations of one mode
+    (its first bool template argument is kVarlen)."""
+    import re
+
+    mode = re.compile(rf"Li\d+ELb{int(varlen)}E")
+    return {k: v for k, v in ptxas_summary("flash_fwd").items()
+            if k.startswith("flash_fwd_kernel") and mode.search(k)}
+
+
 def ptxas_summary(name):
     """Registers, static shared memory, spills and warnings of each
     instantiation of kernel library `name`, from `nvcc -Xptxas -v`
@@ -1570,6 +1584,7 @@ def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
     no key: o = 0, lse = +inf as the oracle).  Kernel, plain version and
     library timed beside the bound."""
     import torch
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
     from flash_attn_tpu_torch.kernels import varlen as vl
 
     dt = getattr(torch, dtype)
@@ -1603,6 +1618,9 @@ def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
     before = vl.launches_fwd
     kernel_ms = time_ms(fn, copies)
     kernel_call_ms = call_ms(fn, copies)
+    # the kernel alone: the whole call also zeroes o and fills lse with +inf
+    kernel_device = kernel_device_ms(fn, copies, ("flash_fwd_kernel",))[
+        "flash_fwd_kernel"]
     # the plain version reads the lengths on the host (one sync a call)
     plain_ms = call_ms(lambda *a: vl.varlen_attn_fwd_ref(*a, *args, **kw),
                        copies, iters=3, warmup=1)
@@ -1612,7 +1630,8 @@ def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
             window == (-1, -1):
         library_ms, library = sdpa_varlen_library(q, k, v, cu_q, cu_k,
                                                   lens_q, lens_k, causal)
-    tiles = sum(-(-n // 64) for n in lens_q) * h
+    rows = ff.fwd_rows(d)
+    tiles = sum(-(-n // rows) for n in lens_q) * h
     res = dict(phase="kernel_varlen", case=label, dtype=dtype, h=h, hk=hk,
                d=d, sequences=len(lens_q), total_q=sum(lens_q),
                total_k=sum(lens_k), max_seqlen_q=mq, max_seqlen_k=mk,
@@ -1620,12 +1639,13 @@ def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
                alibi=alibi, max_abs_err_o=err_o, plain_lowp_err_o=err_o_pt,
                max_abs_err_lse=err_l, plain_lowp_err_lse=err_l_pt,
                kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               kernel_device_ms=kernel_device,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, library=library,
                flops=4 * d * live_pairs_h, bytes=bytes_,
-               share_of_bound=bound_ms / kernel_ms,
-               blocks_live=tiles, blocks_launched=-(-mq // 64) * h
-               * len(lens_q))
+               share_of_bound=bound_ms / kernel_device,
+               rows=rows, blocks_live=tiles,
+               blocks_launched=-(-mq // rows) * h * len(lens_q))
     emit(res)
     return res
 
@@ -2814,9 +2834,10 @@ def main():
     info = _build.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=info))
-    spills = {k: v for name in ("flex", "flash_bwd")
+    spills = {k: v for name in ("flex", "flash_bwd", "flash_fwd")
               for k, v in ptxas_summary(name).items()
-              if k.startswith(("flex_fwd_kernel", "flex_bwd_", "flash_bwd_"))
+              if k.startswith(("flex_fwd_kernel", "flex_bwd_", "flash_bwd_",
+                               "flash_fwd_kernel"))
               and (v.get("spill_stores") or v.get("spill_loads"))}
     if spills:
         raise AssertionError(f"Hopper kernels spill registers: {spills}")
@@ -2882,9 +2903,17 @@ def main():
              launches_by_path=dict(serve=serve["flash_fwd_launches"],
                                    train=train["launches"]["flash_fwd"]),
              max_abs_err=fwd["a"]["max_abs_err_o"], ms=fwd["a"]["kernel_ms"],
+             kernel_device_ms=fwd["a"]["kernel_device_ms"],
              plain_ms=fwd["a"]["plain_ms"], bound_ms=fwd["a"]["bound_ms"],
              bound_by=fwd["a"]["bound_by"],
-             library_ms=fwd["a"]["library_ms"]),
+             library_ms=fwd["a"]["library_ms"], ptxas=fwd_ptxas(False),
+             by_case={k: dict(ms=r["kernel_ms"],
+                              kernel_device_ms=r["kernel_device_ms"],
+                              plain_ms=r["plain_ms"],
+                              bound_ms=r["bound_ms"],
+                              library_ms=r["library_ms"],
+                              max_abs_err=r["max_abs_err_o"])
+                      for k, r in fwd.items()}),
         dict(name="flash_decode", route="cuda",
              source="flash_attn_tpu_torch/csrc/flash_decode_ref.cu",
              kernel="flash_decode_ref_kernel, heads-first (bc, hk, smax, d) "
@@ -2947,13 +2976,18 @@ def main():
                  bert_forward=bert["launches"]["varlen_fwd"],
                  bert_grad=bert["grad_launches"]["varlen_fwd"]),
              case=vfwd["a"]["case"], max_abs_err=vfwd["a"]["max_abs_err_o"],
-             ms=vfwd["a"]["kernel_ms"], plain_ms=vfwd["a"]["plain_ms"],
+             ms=vfwd["a"]["kernel_device_ms"],
+             whole_call_ms=vfwd["a"]["kernel_ms"],
+             plain_ms=vfwd["a"]["plain_ms"],
              bound_ms=vfwd["a"]["bound_ms"], bound_by=vfwd["a"]["bound_by"],
              library_ms=vfwd["a"]["library_ms"],
-             library=vfwd["a"]["library"],
-             by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+             library=vfwd["a"]["library"], rows=vfwd["a"]["rows"],
+             ptxas=fwd_ptxas(True),
+             by_case={k: dict(ms=r["kernel_device_ms"],
+                              whole_call_ms=r["kernel_ms"],
+                              plain_ms=r["plain_ms"],
                               bound_ms=r["bound_ms"],
-                              library_ms=r["library_ms"],
+                              library_ms=r["library_ms"], rows=r["rows"],
                               max_abs_err=r["max_abs_err_o"])
                       for k, r in vfwd.items()}),
         dict(name="flash_bwd_varlen", route="cuda",

@@ -1,14 +1,14 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu; flash_bwd.cu,
+// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu;
 // flex.cu and flash_decode_ref.cu use some): the mma.sync.m16n8k16
-// wrappers, fragment loads, quad reductions, tile copies, the dense and
-// packed varlen layouts (SeqLayout), and the score transform.
+// wrappers (the decode's products; the others take Mma<T>::pack), quad
+// reductions, the dense and packed varlen layouts (SeqLayout), and the
+// bottom-right causal / window mask arithmetic (key_band, interior).
 //
-// ScoreMod is where the forward turns a raw Q K^T score into the exponent
-// of the softmax.  The backward (flash_bwd.cu's modded) recomputes p =
-// exp2(score - lse * log2(e)) in the same order (scale, softcap, ALiBi,
-// masks, then the log2(e) factor), its tanh on the special function unit,
-// so its probabilities are the forward's to within that tanh's rounding;
-// this is the role of the JAX backward's `folded` mode
+// The forward and the backward (flash_bwd.cu's modded) turn a raw Q K^T
+// score into the softmax's exponent in the same order (scale, softcap on
+// the special function unit, ALiBi, masks, then the log2(e) factor), so the
+// backward's p = exp2(score - lse * log2(e)) are the forward's
+// probabilities; this is the role of the JAX backward's `folded` mode
 // (flash_attn_tpu/kernels/flash_bwd.py:75-81).
 
 #pragma once
@@ -59,49 +59,6 @@ struct Mma<__half> {
   }
 };
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two 16-bit elements from different rows, lower address half = first.
-__device__ __forceinline__ uint32_t pack16(const void* lo, const void* hi) {
-  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-// The A fragment of a row-major 16x16 tile at `tile` (row stride `stride`
-// elements): rows gid and gid + 8, columns tig*2 and tig*2 + 8.
-template <typename T>
-__device__ __forceinline__ void load_a(uint32_t* a, const T* tile, int stride,
-                                       int gid, int tig) {
-  const T* r0 = tile + gid * stride + tig * 2;
-  const T* r1 = r0 + 8 * stride;
-  a[0] = ld32(r0);
-  a[1] = ld32(r1);
-  a[2] = ld32(r0 + 8);
-  a[3] = ld32(r1 + 8);
-}
-
-// The B fragment of B = X^T, for an 8x16 block of row-major X at `rows`
-// (n along X's rows, k along its columns): one 32-bit load per register.
-template <typename T>
-__device__ __forceinline__ void load_b_t(uint32_t* b, const T* rows, int stride,
-                                         int gid, int tig) {
-  const T* r = rows + gid * stride + tig * 2;
-  b[0] = ld32(r);
-  b[1] = ld32(r + 8);
-}
-
-// The B fragment of B = X, for a 16x8 block of row-major X at `block`
-// (k along X's rows, n along its columns): two rows per register.
-template <typename T>
-__device__ __forceinline__ void load_b(uint32_t* b, const T* block, int stride,
-                                       int gid, int tig) {
-  const T* c = block + (tig * 2) * stride + gid;
-  b[0] = pack16(c, c + stride);
-  b[1] = pack16(c + 8 * stride, c + 9 * stride);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -112,32 +69,14 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Copy kRows rows of D elements (row stride `src_stride` elements in global)
-// into shared rows of stride D + 8, 16 bytes per thread per step; rows at or
-// past `valid` are zero-filled and never read, so stale memory, another
-// sequence's rows or the end of the tensor never reach the math.
-template <typename T, int D, int kRows, int kThreads>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int valid,
-                                          int src_stride) {
-  constexpr int kStride = D + 8;
-  constexpr int kChunks = D / 8;
-  for (int idx = threadIdx.x; idx < kRows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < valid)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * src_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
-  }
-}
-
 // Where the rows of one batch entry live, in one of two layouts:
 // * dense: (b, h, s, d) tensors; lens_q/k are the per-batch seqused_q/k;
 // * varlen: packed (total, h, d) streams; lens_q/k are cu_seqlens_q/k
 //   (b + 1,), sequence bb owning the rows
 //   [cu_q[bb], cu_q[bb+1]) of q, o, do, dq and [cu_k[bb], cu_k[bb+1]) of k,
-//   v, dk, dv.  Its lengths are those of the sequence, and tiles never cross
-//   into the next one.
+//   v, dk, dv.  Its lengths are those of the sequence; a tile may run past
+//   it into the next one's rows, which the kernels mask out and never
+//   write.
 // Offsets and strides are in elements; lse and delta are (b, h, sq) dense
 // and (h, total_q) varlen.
 struct SeqLayout {
@@ -189,31 +128,28 @@ __device__ __forceinline__ SeqLayout seq_layout(
   return L;
 }
 
-// Scale, softcap, ALiBi and the bottom-right aligned masks of one
-// (batch, head): offset = sk_b - sq_b (seqused_k - seqused_q dense, len_k -
-// len_q of the sequence varlen).  |row + offset - col| is the distance of
-// the two tokens counted from their sequences' ends, the ALiBi distance of
-// the JAX packed kernel (|from_end_q - from_end_k|).
-struct ScoreMod {
-  float scale, softcap, slope;
-  bool alibi;
-  int offset, sk_b, has_upper, wr, has_lower, wl;
+// The bottom-right aligned causal / window masks of one (batch, head), for
+// a parameter struct P with has_upper, wr, has_lower, wl: offset = sk_b -
+// sq_b (seqused_k - seqused_q dense, len_k - len_q of the sequence varlen).
 
-  // The scaled and softcapped score, in natural units (before ALiBi).
-  __device__ __forceinline__ float capped(float s) const {
-    float x = s * scale;
-    if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-    return x;
-  }
+// The keys [lo, hi] that row attends under the masks: below seqused_k,
+// inside the bottom-right causal / window band.
+template <class P>
+__device__ __forceinline__ int2 key_band(const P& p, int row, int offset,
+                                         int sk_b) {
+  int hi = sk_b - 1;
+  if (p.has_upper) hi = min(hi, row + offset + p.wr);
+  return make_int2(p.has_lower ? row + offset - p.wl : 0, hi);
+}
 
-  // The capped score with ALiBi, in log2 units; -inf where masked.
-  __device__ __forceinline__ float log2_score(float x, int row, int col) const {
-    if (alibi) x -= slope * fabsf((float)(row + offset - col));
-    bool masked = col >= sk_b;
-    if (has_upper) masked |= col > row + offset + wr;
-    if (has_lower) masked |= col < row + offset - wl;
-    return masked ? -INFINITY : x * kLog2e;
-  }
-};
+// Whether every (row, key) of rows [r0, r0 + nr) and keys [c0, c0 + nc) is
+// live, so that the tile needs no mask test.
+template <class P>
+__device__ __forceinline__ bool interior(const P& p, int r0, int nr, int c0,
+                                         int nc, int offset, int sk_b) {
+  return c0 + nc <= sk_b &&
+         (!p.has_upper || c0 + nc - 1 <= r0 + offset + p.wr) &&
+         (!p.has_lower || c0 >= r0 + nr - 1 + offset - p.wl);
+}
 
 }  // namespace fa

@@ -65,9 +65,8 @@
 //   and the rows' lse of +inf keep out of every product; outputs are
 //   written only inside the block's own sequence.
 //
-// Semantics: scores are recomputed in the forward's order (fa_common.cuh's
-// ScoreMod: scale, softcap, ALiBi, masks; modded below), and p = exp2(score -
-// lse * log2(e)).  A row with
+// Semantics: scores are recomputed in the forward's order (scale, softcap,
+// ALiBi, masks; modded below), and p = exp2(score - lse * log2(e)).  A row with
 // lse = +inf gives dq = 0, keys at or past seqused_k get dk = dv = 0, and
 // rows at or past seqused_q take no part (the callers pass do = 0 there).
 // dS carries the softcap derivative 1 - tanh^2, and the softmax scale is
@@ -123,20 +122,18 @@ struct BwdParams {
   int dq_items;      // q tiles a dQ block owns, 1 or DqTiles::kMaxItems
 };
 
-// The modded score of raw score s, in the order of fa_common.cuh's ScoreMod
-// (scale, softcap, ALiBi; the masks are tested apart), in natural units:
-// dist = row + offset - col is its ALiBi distance, slope the head's slope
-// (0 without ALiBi); *dm is the softcap derivative 1 - tanh^2.  tanh(x /
-// cap) is 1 - 2 / (2^(x cap_k2) + 1), on the special function unit: with
-// ScoreMod's tanhf and its two divisions an element, the softcap + ALiBi
-// cases ran slower than the first version's kernels.  cap_k2 is computed
-// once, on the host.
+// The modded score of raw score s, in the forward's order (scale, softcap,
+// ALiBi; the masks are tested apart), in natural units: dist = row +
+// offset - col is its ALiBi distance, slope the head's slope (0 without
+// ALiBi); *dm is the softcap derivative 1 - tanh^2.  tanh is hopper.cuh's
+// tanh_ex2, on the special function unit; cap_k2 is computed once, on the
+// host.
 __device__ __forceinline__ float modded(const BwdParams& p, float slope,
                                         float s, int dist, float* dm) {
   float x = s * p.scale;
   *dm = 1.f;
   if (p.softcap > 0.f) {
-    const float t = 1.f - __fdividef(2.f, fast_exp2(x * p.cap_k2) + 1.f);
+    const float t = tanh_ex2(x, p.cap_k2);
     x = t * p.softcap;
     *dm = 1.f - t * t;
   }
@@ -163,31 +160,12 @@ __device__ __forceinline__ size_t stats_half(const BwdParams& p) {
   return (size_t)(kVarlen ? 1 : p.b) * p.h * p.stats_len;
 }
 
-// The keys [lo, hi] that row attends under the masks: below seqused_k,
-// inside the bottom-right causal / window band.
-__device__ __forceinline__ int2 key_band(const BwdParams& p, int row,
-                                         int offset, int sk_b) {
-  int hi = sk_b - 1;
-  if (p.has_upper) hi = min(hi, row + offset + p.wr);
-  return make_int2(p.has_lower ? row + offset - p.wl : 0, hi);
-}
-
 // The rows [lo, hi] that attend key col (none past seqused_k).
 __device__ __forceinline__ int2 row_band(const BwdParams& p, int col,
                                          int offset, int sk_b) {
   if (col >= sk_b) return make_int2(1, 0);
   return make_int2(p.has_upper ? col - offset - p.wr : INT_MIN,
                    p.has_lower ? col - offset + p.wl : INT_MAX);
-}
-
-// Whether every (row, key) of rows [r0, r0 + nr) and keys [c0, c0 + nc) is
-// live, so that the tile needs no mask test.
-__device__ __forceinline__ bool interior(const BwdParams& p, int r0, int nr,
-                                         int c0, int nc, int offset,
-                                         int sk_b) {
-  return c0 + nc <= sk_b &&
-         (!p.has_upper || c0 + nc - 1 <= r0 + offset + p.wr) &&
-         (!p.has_lower || c0 >= r0 + nr - 1 + offset - p.wl);
 }
 
 // p = exp2(score - lse2) of one raw score s, 0 where !keep, and *ds = p (dp

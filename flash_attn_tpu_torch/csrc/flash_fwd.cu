@@ -1,70 +1,89 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 / fp16 in, fp32 accumulate.
+// Flash-attention forward for Hopper (sm_90a), bf16 / fp16 in, fp32
+// accumulate.
 //
-// Replaces the Pallas TPU kernel flash_attn_tpu/kernels/flash_fwd.py::_fwd_kernel
-// (launched at flash_fwd.py:1517 by flash_attn_fwd_bhsd), and serves the
-// full-length causal/local calls that the JAX package sends to
-// _fwd_sched_kernel (flash_fwd.py:870).  Its varlen mode (flash_fwd_varlen)
-// replaces the packed varlen kernel
+// Replaces the Pallas TPU kernel flash_attn_tpu/kernels/flash_fwd.py::
+// _fwd_kernel (:200, launched at :1517 by flash_attn_fwd_bhsd), and serves
+// the full-length causal/local calls that the JAX package sends to
+// _fwd_sched_kernel (:870, launched at :1377).  Its varlen mode
+// (flash_fwd_varlen) replaces the packed varlen kernel
 // flash_attn_tpu/kernels/varlen_sched.py::_varlen_sched_kernel (:211,
-// launched at :440).
+// launched at :440).  Each computes o and lse (natural log, fp32).
 //
-// What bounds it on the H100: operations.  Prefill at the serving shapes does
-// 4*sq*sk*d FLOPs per head (about half of it for causal) against 2*(sq+2*sk)*d
-// bytes, far above the card's ~295 FLOP/byte balance point, so the tensor cores
-// are the limit.
+// What bounds it on the H100: operations.  The forward does 4*d FLOPs per
+// live (row, key) pair against q, k, v, o bytes read or written about once;
+// at the serving and training shapes that is far above the card's ~295
+// FLOP/byte balance point.  So the tensor cores must not wait.
 //
-// What the design does about it:
-// * Both products run on the tensor cores with mma.sync.m16n8k16 (bf16/fp16 ->
-//   fp32).  One block of 4 warps owns a 64-row Q tile of one (batch, head);
-//   each warp owns 16 rows, so S = Q K^T and O += P V stay in registers and P
-//   goes from the S accumulators straight into the A operand of the second
-//   product without touching shared memory.
-// * The KV loop runs only over the 64-key tiles the masks leave
-//   ([n_min, n_max] from the causal/window bounds and seqused_k, as
-//   _kv_block_bounds at flash_fwd.py:176 does), so a causal call does about
-//   half the work and a cache read stops at seqused_k, not at max_seqlen.
-// * Online softmax in fp32 on exp2: each score is scaled (and softcapped,
-//   ALiBi-biased) in natural units, then multiplied by log2(e) once, so the
-//   exponent is a bare exp2.  A masked element is -inf and its p is exactly 0.
-//   That transform is fa_common.cuh's ScoreMod, which the backward
-//   (flash_bwd.cu) shares, so both see the same scores.
-// * Shared-memory rows are padded by 8 elements so the 32-bit fragment loads
-//   are free of bank conflicts.
-// This first version loads K/V tiles synchronously (no cp.async/TMA pipeline,
-// no wgmma); overlapping loads with math is later work.
+// The design (that of flex.cu's forward, with arithmetic masks in place of
+// its block lists and bits, as flash_bwd.cu's backward has them):
+// * Tiles: at d = 128 a block owns 128 q rows of one (head, batch): two
+//   consumer warpgroups of 64 rows that share every K/V tile and take the
+//   tensor cores in turns (named barriers, hopper.cuh's my_turn /
+//   their_turn), so that one's softmax runs while the other's products
+//   run.  At d = 64 a block owns 64 rows, one consumer warpgroup, and two
+//   blocks share an SM: one's loads, start and stores overlap the other's
+//   products, where at d = 64 they weigh more against the products
+//   (FwdTiles; kernels/flash_fwd.py::fwd_rows has the numbers that chose
+//   it).  Key tiles are 128 wide.
+// * Loads: warpgroup 0 is the producer.  One thread loads Q once by TMA,
+//   then keeps a ring of K/V stages full (as many as the shared memory
+//   holds: 3 at d = 64, two blocks an SM; 3 at d = 128), through full /
+//   empty mbarriers.  4-D tensor maps over (d, heads, s, b) (dense) or
+//   (d, heads, total, 1) (varlen) are built on the host from the strides
+//   (hopper.cuh's encode_map); rows past s read as zeros.  setmaxnreg moves the
+//   producer's registers to the consumers (24 / 240 at 128 rows, 24 / 232
+//   at 64).
+// * Products on wgmma: S = Q K^T from shared memory, both K-major; P,
+//   converted to bf16 / fp16 in registers, is the A operand of O += P V,
+//   V read MN-major.  Each consumer issues tile j's Q K^T beside tile
+//   j - 1's P V in one commit group.
+// * Masks by arithmetic: a block's key tiles are bounded by [n_min, n_max]
+//   from the causal / window band and seqused_k (as _kv_block_bounds at
+//   flash_fwd.py:176 does), so a causal call does about half the work and a
+//   cache read stops at seqused_k.  A warpgroup's tile wholly inside
+//   seqused_k and the band takes no mask test; only the diagonal and edge
+//   tiles test each element against the band of keys its row sees.
+// * Calls with neither softcap nor ALiBi (and a positive scale) run kernels
+//   compiled apart (kMods = false): the raw score's scale is folded into
+//   the exponent, and the element loop is a bare max.  The mod kernels
+//   compute tanh on the special function unit (hopper.cuh's tanh_ex2), as
+//   the backward does, so both see the same scores.
+// * Order: under a causal or right-windowed mask the blocks run in reverse
+//   order of their q tile, heaviest first.  Dense: the tile is the grid's
+//   slowest dimension, so every head's heaviest tiles start before any
+//   lighter one; varlen: its fastest (see below).
+// * Stores: o and lse go from registers to device memory with per-row
+//   guards: in varlen mode a tile can run past its sequence into the
+//   neighbour's rows, which a whole-tile store would overwrite.
 //
-// GQA: q head h reads kv head h / g.  Rows at or past seqused_q are computed
-// like any other row (the JAX kernel does not mask them either); rows past the
-// tensor's sq are not written.  A row with no valid key writes o = 0 and
-// lse = +inf.
+// Semantics: GQA reads kv head h / g.  Scores are scaled, softcapped (tanh),
+// ALiBi-biased (slope times |row + offset - col|, the distance from the
+// sequences' ends) and masked bottom-right (offset = seqused_k - seqused_q,
+// len_k - len_q of the sequence varlen), then the online softmax runs in
+// fp32 on exp2.  Rows at or past seqused_q are computed like any other row
+// (the JAX kernel does not mask them either); rows past the tensor's sq are
+// not written.  A row with no valid key writes o = 0 and lse = +inf.
 //
-// Varlen mode: q, o are packed (total_q, h, d) streams and k, v (total_k, hk,
-// d), read in place with token strides h*d and hk*d (no transpose copy); lse
-// is (h, total_q).  The TPU kernel walks a device-built table of (q tile, kv
-// tile) pairs over the whole stream and masks tiles that straddle two
-// sequences with per-token segment words.  Here the grid is (cdiv(max_seqlen_q,
-// 64), h, b): a block owns a 64-row tile of one sequence and head, and blocks
-// past that sequence's length exit at once.  A tile never crosses a sequence
-// boundary, so no segment compare is needed, the masks run on per-sequence
-// coordinates (offset len_k - len_q, bottom-right), and the KV loop visits the
-// sequence's own key tiles only, within the causal and window bounds.  The
-// grid was chosen over a compact (sequence, tile) work list for simplicity:
-// an idle block costs one load of cu_seqlens, and a batch whose lengths vary
-// by 32x (BERT's 16-512) leaves about half the blocks idle.  Bounded like
-// the dense mode, by operations: the live (row, key) pairs of each sequence.
+// Varlen mode: q, o are packed (total_q, h, d) streams and k, v (total_k,
+// hk, d), read in place with token strides h*d and hk*d (fa_common.cuh's
+// SeqLayout); lse is (h, total_q).  The grid is (cdiv(max_seqlen_q, rows),
+// h, b): a block owns one tile of one sequence and head, one sequence's
+// blocks run together (a tile-major order would start the long sequences'
+// last tiles, which only they have, last), and blocks past that
+// sequence's length exit at once.  A tile that runs past its sequence
+// reads the neighbour's rows and keys: the per-sequence key masks keep the
+// keys out, and rows outside the sequence are not written.  Tokens outside
+// every sequence are not written.
 
 #include "fa_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace fa;
 
-constexpr int kBlockM = 64;   // q rows per block
-constexpr int kBlockN = 64;   // keys per KV tile
-constexpr int kThreads = 128; // 4 warps x 16 rows
-
 struct FwdParams {
-  const void* q;
+  const void* q;  // q, k, v: read by the tensor maps, built from these
   const void* k;
   const void* v;
   void* o;
@@ -74,200 +93,391 @@ struct FwdParams {
   const int* lens_k;
   const float* alibi;  // (b, h) or null
   // varlen: sq, sk are the max lengths and total_q the lse's head stride.
-  // The struct keeps the dense kernel's size (112 bytes): three more
-  // fields made the dense forward ~20 % slower on an H100.
+  // The struct keeps its size (112 bytes): three more fields made the first
+  // version's kernel ~20 % slower on an H100.  A new mode is a template
+  // argument, never a field.
   int b, h, hk, total_q, sq, sk;
   float scale;
   int has_upper, wr, has_lower, wl;
   float softcap;
 };
 
-template <typename T, int D, bool kVarlen>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const FwdParams p) {
-  constexpr int kStride = D + 8;
-  constexpr int kKSteps = D / 16;  // k-steps of S = Q K^T
-  constexpr int kOTiles = D / 8;   // n-tiles of O
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kBlockM * kStride;
-  T* sV = sK + kBlockN * kStride;
+// The TMA descriptors (built on the host by launch), passed beside
+// FwdParams so that it keeps its layout: q in boxes of the kernel's rows,
+// k and v of its keys.
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
 
-  const int qblk = blockIdx.x, hq = blockIdx.y, bb = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int hkv = hq / (p.h / p.hk);
+// The tiles and shared memory of head dim D: a block owns kRows q rows (one
+// consumer warpgroup per 64) and walks K/V in kKeys-key tiles through a
+// ring of kStages; warpgroup 0 is the producer.  Tiles as hopper.cuh's: D /
+// 64 column blocks of (rows, 64) in the 128-byte swizzle, 1024-byte
+// aligned.
+template <int D>
+struct FwdTiles {
+  // kernels/flash_fwd.py::fwd_rows mirrors this rule
+  static constexpr int kRows = D == 64 ? 64 : 128;
+  static constexpr int kConsumers = kRows / 64;
+  // 128; 64 where a 64-row block would otherwise not fit twice an SM (d =
+  // 128 at 64 rows: diag/flash_ab.py's rows64 variant)
+  static constexpr int kKeys = kRows == 64 && D == 128 ? 64 : 128;
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kTileBytes = kKeys * D * 2;  // K or V
+  // launch registers a thread, and what setmaxnreg moves them to: exactly
+  // the block's share of the SM's 65536 (one block of 384 threads, or two
+  // of 256)
+  static constexpr int kMinBlocks = kConsumers == 2 ? 1 : 2;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 232;
+  // as many K/V stages (2 to 4) as the shared memory of kMinBlocks blocks
+  // an SM holds (227 KB a block at most)
+  static constexpr int kFit =
+      ((kMinBlocks == 2 ? 113 : 227) * 1024 - 1024 - kQBytes - 64) /
+      (2 * kTileBytes);
+  static constexpr int kStages = kFit < 2 ? 2 : kFit > 4 ? 4 : kFit;
+  static constexpr int kBarOffset = kQBytes + kStages * 2 * kTileBytes;
+  // barriers: Q, then full[kStages], then empty[kStages]; 1024 bytes of
+  // slack to align the dynamic buffer
+  static constexpr int kSmem = 1024 + kBarOffset + (1 + 2 * kStages) * 8;
+};
+
+// The scores of one key tile for one consumer thread, in place: s (the
+// m64nK accumulator: element e of n8 block jj is row rows[e >> 1], key col0
+// + 8 jj + 2 tig + (e & 1)) becomes the exponent's argument, and mx the
+// two rows' maxima of it.  kMods: s becomes the modded score in log2 units
+// (scale, softcap, ALiBi); else it stays raw, the scale folded into the
+// exponent by the caller.  kMask: each element is tested against its row's
+// band of keys (-inf outside).
+template <bool kMods, bool kMask, int kKeys>
+__device__ __forceinline__ void score_tile(const FwdParams& p, float* s,
+                                           float* mx, int col0,
+                                           const int* rows, int offset,
+                                           int sk_b, float slope,
+                                           float cap_k2, int tig) {
+  int2 band[2];
+  if constexpr (kMask) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) band[i] = key_band(p, rows[i], offset, sk_b);
+  }
+#pragma unroll
+  for (int jj = 0; jj < kKeys / 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      const int col = col0 + jj * 8 + tig * 2 + (e & 1);
+      float x = s[jj * 4 + e];
+      if constexpr (kMods) {
+        x *= p.scale;
+        if (p.softcap > 0.f) x = tanh_ex2(x, cap_k2) * p.softcap;
+        x = (x - slope * fabsf((float)(rows[i] + offset - col))) * kLog2e;
+      }
+      if constexpr (kMask)
+        x = col >= band[i].x && col <= band[i].y ? x : -INFINITY;
+      s[jj * 4 + e] = x;
+      mx[i] = fmaxf(mx[i], x);
+    }
+}
+
+template <typename T, int D, bool kVarlen, bool kMods>
+__global__ void __launch_bounds__(FwdTiles<D>::kThreads,
+                                  FwdTiles<D>::kMinBlocks)
+    flash_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
+  using Cfg = FwdTiles<D>;
+  constexpr int kRows = Cfg::kRows;
+  constexpr int kKeys = Cfg::kKeys;
+  constexpr int kStages = Cfg::kStages;
+  constexpr int kDBlocks = D / 64;
+  constexpr bool kPingPong = Cfg::kConsumers == 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // aligned by an offset, so that its pointers stay shared (32-bit) ones
+  unsigned char* smem = smem_raw + (-smem_u32(smem_raw) & 1023);
+  T* sQ = reinterpret_cast<T*>(smem);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + Cfg::kBarOffset);
+  uint64_t* bar_full = bar_q + 1;
+  uint64_t* bar_empty = bar_full + kStages;
+  auto sK = [&](int stage) {
+    return reinterpret_cast<T*>(smem + Cfg::kQBytes +
+                                stage * 2 * Cfg::kTileBytes);
+  };
+  auto sV = [&](int stage) { return sK(stage) + kKeys * D; };
+
+  // The block's q tile, heaviest first under a causal or right-windowed
+  // mask (a q tile sees more keys the later its rows); the grids' orders
+  // are the note's (dense tile-major, varlen sequence-major).
+  const int hq = kVarlen ? blockIdx.y : blockIdx.x;
+  const int bb = kVarlen ? blockIdx.z : blockIdx.y;
+  const int n_q = kVarlen ? gridDim.x : gridDim.z;
+  const int tile_idx = kVarlen ? blockIdx.x : blockIdx.z;
+  const int tile = p.has_upper ? n_q - 1 - tile_idx : tile_idx;
+  const int row0 = tile * kRows;
   const SeqLayout L = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h, p.hk,
                                           p.sq, p.sk, p.total_q, D);
-  const int row0 = qblk * kBlockM;
-  if constexpr (kVarlen) {
-    if (row0 >= L.q_rows) return;  // past this sequence's rows
-  }
+  if (row0 >= L.q_rows) return;  // past this sequence's rows
   const int sk_b = L.sk_b;
   const int offset = sk_b - L.sq_b;
-  const ScoreMod sm{p.scale, p.softcap, p.alibi ? p.alibi[bb * p.h + hq] : 0.f,
-                    p.alibi != nullptr, offset, sk_b, p.has_upper, p.wr,
-                    p.has_lower, p.wl};
-
-  const T* q = static_cast<const T*>(p.q) + L.q_head(hq);
-  const T* k = static_cast<const T*>(p.k) + L.k_head(hkv);
-  const T* v = static_cast<const T*>(p.v) + L.k_head(hkv);
-
-  // KV tiles that any row of this q tile can see.
-  const int row_max = min(row0 + kBlockM, L.q_rows) - 1;
+  // the key tiles [n_lo, n_lo + n_tiles) that any row of this q tile
+  // present in memory sees
+  const int row_max = min(row0 + kRows, L.q_rows) - 1;
   int max_col = sk_b - 1;
   if (p.has_upper) max_col = min(max_col, row_max + offset + p.wr);
   const int min_col = p.has_lower ? max(0, row0 + offset - p.wl) : 0;
-  const int n_min = min_col / kBlockN;
-  const int n_max = max_col >= 0 ? max_col / kBlockN : -1;
+  const int n_lo = min_col / kKeys;
+  const int n_tiles = max_col >= min_col ? max_col / kKeys - n_lo + 1 : 0;
+  // TMA coordinates: a row of the packed stream in batch 0 (varlen), or a
+  // row of the batch's own tensor
+  const int q_start = kVarlen ? p.lens_q[bb] : 0;
+  const int k_start = kVarlen ? p.lens_k[bb] : 0;
+  const int tb = kVarlen ? 0 : bb;
 
-  load_rows<T, D, kBlockM, kThreads>(sQ, q + (size_t)row0 * L.q_rs,
-                                     L.q_rows - row0, L.q_rs);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_empty[s], Cfg::kConsumers * 4);  // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int r_lo = warp * 16 + gid;  // this thread's two rows in the tile
-  uint32_t qf[kKSteps][4];
+  if (threadIdx.x < 128) {
+    // Producer: one thread loads Q, then keeps the K/V ring full; the rest
+    // of the warpgroup gives its registers to the consumers and leaves.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Cfg::kProducerRegs));
+    if (threadIdx.x != 0 || n_tiles == 0) return;
+    const int hkv = hq / (p.h / p.hk);
+    mbar_expect_tx(bar_q, Cfg::kQBytes);
 #pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk)
-    load_a(qf[kk], sQ + warp * 16 * kStride + kk * 16, kStride, gid, tig);
+    for (int c = 0; c < kDBlocks; ++c)
+      tma_load(&maps.q, sQ + c * kRows * 64, bar_q, c * 64, hq,
+               q_start + row0, tb);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int col0 = (n_lo + t) * kKeys;
+      const int stage = t % kStages;
+      mbar_wait(&bar_empty[stage], ((t / kStages) & 1) ^ 1);
+      mbar_expect_tx(&bar_full[stage], 2 * Cfg::kTileBytes);
+#pragma unroll
+      for (int c = 0; c < kDBlocks; ++c) {
+        tma_load(&maps.k, sK(stage) + c * kKeys * 64, &bar_full[stage],
+                 c * 64, hkv, k_start + col0, tb);
+        tma_load(&maps.v, sV(stage) + c * kKeys * 64, &bar_full[stage],
+                 c * 64, hkv, k_start + col0, tb);
+      }
+    }
+    return;
+  }
 
-  float acc[kOTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOTiles; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // in log2 units of scaled scores
-  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
+  // Consumers: warpgroup cw owns rows [64 cw, 64 cw + 64) of the tile; this
+  // thread rows r_lo and r_lo + 8.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      Cfg::kConsumerRegs));
+  const int ct = threadIdx.x - 128;
+  const int cw = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r_lo = cw * 64 + warp * 16 + gid;
+  const int w_row0 = row0 + cw * 64;
   const int rows[2] = {row0 + r_lo, row0 + r_lo + 8};
+  const float slope = kMods && p.alibi ? p.alibi[bb * p.h + hq] : 0.f;
+  // tanh(x / softcap) = 1 - 2 / (2^(x cap_k2) + 1)
+  const float cap_k2 = kMods && p.softcap > 0.f ? 2.f * kLog2e / p.softcap
+                                                : 0.f;
+  // the exponent's factor on s: the scale in log2 units without a mod (the
+  // launcher sends a scale <= 0 to kMods), 1 with one
+  const float sc = kMods ? 1.f : p.scale * kLog2e;
 
-  for (int nb = n_min; nb <= n_max; ++nb) {
-    const int col0 = nb * kBlockN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<T, D, kBlockN, kThreads>(sK, k + (size_t)col0 * L.k_rs,
-                                       sk_b - col0, L.k_rs);
-    load_rows<T, D, kBlockN, kThreads>(sV, v + (size_t)col0 * L.k_rs,
-                                       sk_b - col0, L.k_rs);
-    __syncthreads();
-
-    float s[kBlockN / 8][4];
+  float acc[D / 2];  // O: the m64nD accumulator
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t bfrag[2];
-        load_b_t(bfrag, sK + j * 8 * kStride + kk * 16, kStride, gid, tig);
-        Mma<T>::mma(s[j], qf[kk], bfrag);
-      }
-    }
+  for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // log2 units
+  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
+  const uint32_t q_lo = kmajor_lo(sQ + cw * 64 * 64);
+  if (n_tiles > 0) {
+    mbar_wait(bar_q, 0);
+    if (cw == 1) their_turn<kPingPong>(cw);  // warpgroup 0 goes first
+  }
 
-    // scale, softcap, ALiBi and masks; then the tile's row max
+  // P of the previous tile (the A operand of its P V, issued beside the
+  // next tile's Q K^T)
+  uint32_t pa[kKeys / 16][4];
+  for (int t = 0; t < n_tiles; ++t) {
+    const int col0 = (n_lo + t) * kKeys;
+    const int stage = t % kStages;
+    const int prev = (t + kStages - 1) % kStages;
+    mbar_wait(&bar_full[stage], (t / kStages) & 1);
+
+    // S = Q K^T, and O += P V of the previous tile
+    float s[kKeys / 2];
+    my_turn<kPingPong>(cw);
+    fence_regs<D / 2>(acc);
+    fence_regs<kKeys / 4>(&pa[0][0]);
+    wgmma_fence();
+    qk_product<D, kKeys, T>(s, q_lo, kRows, kmajor_lo(sK(stage)));
+    if (t > 0) pv_product<D, kKeys>(acc, pa, sV(prev));
+    wgmma_commit();
+    their_turn<kPingPong>(cw);
+    wgmma_wait_all();
+    fence_regs<kKeys / 2>(s);
+    fence_regs<D / 2>(acc);
+    fence_regs<kKeys / 4>(&pa[0][0]);
+    if (t > 0 && lane == 0) mbar_arrive(&bar_empty[prev]);
+
     float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = rows[e >> 1];
-        const int col = col0 + j * 8 + tig * 2 + (e & 1);
-        const float x = sm.log2_score(sm.capped(s[j][e]), row, col);
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
+    if (interior(p, w_row0, 64, col0, kKeys, offset, sk_b))
+      score_tile<kMods, false, kKeys>(p, s, mx, col0, rows, offset, sk_b,
+                                      slope, cap_k2, tig);
+    else
+      score_tile<kMods, true, kKeys>(p, s, mx, col0, rows, offset, sk_b,
+                                     slope, cap_k2, tig);
 
     float alpha[2], m_use[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m_run[i], quad_max(mx[i]));
-      // A row with nothing valid so far keeps m = -inf; exponentiate against
-      // 0 then, so p = exp2(-inf) = 0 and no inf - inf appears.
+      const float m_new = fmaxf(m_run[i], quad_max(mx[i]) * sc);
+      // A row with nothing valid so far keeps m = -inf; exponentiate
+      // against 0 then, so p = exp2(-inf) = 0 and no inf - inf appears.
       m_use[i] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[i] = exp2f(m_run[i] - m_use[i]);
+      alpha[i] = fast_exp2(m_run[i] - m_use[i]);
       m_run[i] = m_new;
       l_run[i] *= alpha[i];
     }
 #pragma unroll
-    for (int n = 0; n < kOTiles; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+    for (int n = 0; n < D / 8; ++n) {
+      acc[4 * n] *= alpha[0];
+      acc[4 * n + 1] *= alpha[0];
+      acc[4 * n + 2] *= alpha[1];
+      acc[4 * n + 3] *= alpha[1];
     }
+    // P as the A operand: the accumulator of two adjacent n8 blocks is the
+    // A fragment of one k16 step.
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[j][e] - m_use[e >> 1]);
-        s[j][e] = pe;
-        l_run[e >> 1] += pe;
-      }
-    }
-
-    // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 are exactly the
-    // A fragment of k-step kk.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < kOTiles; ++n) {
-        uint32_t bfrag[2];
-        load_b(bfrag, sV + kk * 16 * kStride + n * 8, kStride, gid, tig);
-        Mma<T>::mma(acc[n], a, bfrag);
+      for (int r = 0; r < 4; ++r) {
+        const float p0 = fast_exp2(fmaf(s[8 * kk + 2 * r], sc, -m_use[r & 1]));
+        const float p1 =
+            fast_exp2(fmaf(s[8 * kk + 2 * r + 1], sc, -m_use[r & 1]));
+        l_run[r & 1] += p0 + p1;
+        pa[kk][r] = Mma<T>::pack(p0, p1);
       }
     }
   }
+  if (n_tiles > 0) {  // the last tile's P V
+    const int last = (n_tiles + kStages - 1) % kStages;
+    my_turn<kPingPong>(cw);
+    fence_regs<D / 2>(acc);
+    fence_regs<kKeys / 4>(&pa[0][0]);
+    wgmma_fence();
+    pv_product<D, kKeys>(acc, pa, sV(last));
+    wgmma_commit();
+    if (cw == 0) their_turn<kPingPong>(cw);  // 1 takes the last turn
+    wgmma_wait_all();
+    fence_regs<D / 2>(acc);
+    fence_regs<kKeys / 4>(&pa[0][0]);
+  }
 
-  T* o = static_cast<T*>(p.o) + L.q_head(hq);
-  float* lse = p.lse + L.l_head(hq);
+  // the layout read again: kept from the prologue, it held registers
+  // through the loop
+  const SeqLayout Lo = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h,
+                                           p.hk, p.sq, p.sk, p.total_q, D);
+  T* o = static_cast<T*>(p.o) + Lo.q_head(hq);
+  float* lse = p.lse + Lo.l_head(hq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float l = quad_sum(l_run[i]);
     const int row = rows[i];
-    if (row >= L.q_rows) continue;
+    if (row >= Lo.q_rows) continue;
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    T* orow = o + (size_t)row * L.q_rs + tig * 2;
+    T* orow = o + (size_t)row * Lo.q_rs + tig * 2;
 #pragma unroll
-    for (int n = 0; n < kOTiles; ++n) {
+    for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          Mma<T>::pack(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-    }
+          Mma<T>::pack(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
     if (tig == 0) lse[row] = l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : INFINITY;
   }
 }
 
-template <typename T, int D, bool kVarlen>
-cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
-  const int smem = 3 * kBlockM * (D + 8) * (int)sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, kVarlen>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.sq + kBlockM - 1) / kBlockM, p.h, p.b);
-  flash_fwd_kernel<T, D, kVarlen><<<grid, kThreads, smem, stream>>>(p);
+// Builds the tensor maps and launches the kernel.  Dense tensors are (b,
+// heads, s, d); a varlen stream (total, heads, d) is mapped as one batch of
+// `total` rows.  With no key at all (sk = 0) the K/V maps are built over q,
+// which the kernel then never reads through them.
+template <typename T, int D, bool kVarlen, bool kMods>
+int launch(const FwdParams& p, int total_k, cudaStream_t stream) {
+  using Cfg = FwdTiles<D>;
+  constexpr int kRows = Cfg::kRows;
+  const int nb = kVarlen ? 1 : p.b;
+  const int sq = kVarlen ? p.total_q : p.sq;
+  const int sk = kVarlen ? total_k : p.sk;
+  // element strides of a head, a row and a batch
+  const long long q_sh = kVarlen ? D : (long long)sq * D;
+  const long long q_ss = kVarlen ? (long long)p.h * D : D;
+  const long long q_sb = (long long)p.h * sq * D;
+  FwdMaps maps{};
+  int err = encode_map<T>(&maps.q, p.q, D, p.h, sq, nb, q_sh, q_ss, q_sb,
+                          kRows);
+  if (sk > 0) {
+    const long long k_sh = kVarlen ? D : (long long)sk * D;
+    const long long k_ss = kVarlen ? (long long)p.hk * D : D;
+    const long long k_sb = (long long)p.hk * sk * D;
+    if (!err)
+      err = encode_map<T>(&maps.k, p.k, D, p.hk, sk, nb, k_sh, k_ss, k_sb,
+                          Cfg::kKeys);
+    if (!err)
+      err = encode_map<T>(&maps.v, p.v, D, p.hk, sk, nb, k_sh, k_ss, k_sb,
+                          Cfg::kKeys);
+  } else {
+    maps.k = maps.v = maps.q;
+  }
+  if (err) return err;
+  auto kernel = flash_fwd_kernel<T, D, kVarlen, kMods>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (e != cudaSuccess) return e;
+  const int q_tiles = (p.sq + kRows - 1) / kRows;
+  const dim3 grid = kVarlen ? dim3(q_tiles, p.h, p.b)
+                            : dim3(p.h, p.b, q_tiles);
+  kernel<<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
+// Calls with neither softcap nor ALiBi, and a positive scale, run the
+// kMods = false kernels.
+template <typename T, int D, bool kVarlen>
+int launch_mods(const FwdParams& p, int total_k, cudaStream_t stream) {
+  if (p.softcap > 0.f || p.alibi != nullptr || !(p.scale > 0.f))
+    return launch<T, D, kVarlen, true>(p, total_k, stream);
+  return launch<T, D, kVarlen, false>(p, total_k, stream);
+}
+
 template <bool kVarlen>
-int dispatch(const FwdParams& p, int d, int dtype, void* stream) {
+int dispatch(const FwdParams& p, int total_k, int d, int dtype,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64) return launch<__nv_bfloat16, 64, kVarlen>(p, s);
+  if (dtype == 0 && d == 64)
+    return launch_mods<__nv_bfloat16, 64, kVarlen>(p, total_k, s);
   if (dtype == 0 && d == 128)
-    return launch<__nv_bfloat16, 128, kVarlen>(p, s);
-  if (dtype == 1 && d == 64) return launch<__half, 64, kVarlen>(p, s);
-  if (dtype == 1 && d == 128) return launch<__half, 128, kVarlen>(p, s);
+    return launch_mods<__nv_bfloat16, 128, kVarlen>(p, total_k, s);
+  if (dtype == 1 && d == 64)
+    return launch_mods<__half, 64, kVarlen>(p, total_k, s);
+  if (dtype == 1 && d == 128)
+    return launch_mods<__half, 128, kVarlen>(p, total_k, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" const char* fa_error_string(int err) {
+  if (err >= kTmaError)
+    return "cuTensorMapEncodeTiled failed (the code less 1 << 20 is its "
+           "CUresult)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = bf16, 1 = fp16.  Returns cudaGetLastError() after the launch.
+// dtype: 0 = bf16, 1 = fp16.  q, o (b, h, sq, d), k, v (b, hk, sk, d), all
+// contiguous and 16-byte aligned; lse (b, h, sq) fp32; seqused_q/k (b,)
+// int32; alibi (b, h) fp32 or null.  Returns cudaGetLastError() after the
+// launch (or a tensor-map error, see fa_error_string).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, const int* seqused_q, const int* seqused_k,
                          const float* alibi, int b, int h, int hk, int sq,
@@ -277,22 +487,23 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (b == 0 || h == 0 || sq == 0) return 0;
   FwdParams p{q, k, v, o, lse, seqused_q, seqused_k, alibi, b, h, hk, 0, sq,
               sk, scale, has_upper, wr, has_lower, wl, softcap};
-  return dispatch<false>(p, d, dtype, stream);
+  return dispatch<false>(p, sk, d, dtype, stream);
 }
 
-// The packed varlen mode: q, o (total_q, h, d), k, v (total_k, hk, d), lse
-// (h, total_q); cu_q, cu_k (b + 1,) int32 offsets; max_sq, max_sk the
-// longest sequence (they size the grid).  Tokens outside every sequence are
-// not written.
+// The packed varlen mode: q, o (total_q, h, d), k, v (total_k, hk, d),
+// contiguous and 16-byte aligned; lse (h, total_q); cu_q, cu_k (b + 1,)
+// int32 offsets; max_sq, max_sk the longest sequence (they size the grid).
+// Tokens outside every sequence are not written.
 extern "C" int flash_fwd_varlen(const void* q, const void* k, const void* v,
                                 void* o, float* lse, const int* cu_q,
                                 const int* cu_k, const float* alibi, int b,
                                 int h, int hk, int max_sq, int max_sk,
-                                int total_q, int d, int dtype, float scale,
-                                int has_upper, int wr, int has_lower, int wl,
-                                float softcap, void* stream) {
+                                int total_q, int total_k, int d, int dtype,
+                                float scale, int has_upper, int wr,
+                                int has_lower, int wl, float softcap,
+                                void* stream) {
   if (b == 0 || h == 0 || max_sq == 0) return 0;
   FwdParams p{q, k, v, o, lse, cu_q, cu_k, alibi, b, h, hk, total_q, max_sq,
               max_sk, scale, has_upper, wr, has_lower, wl, softcap};
-  return dispatch<true>(p, d, dtype, stream);
+  return dispatch<true>(p, total_k, d, dtype, stream);
 }

@@ -1,8 +1,9 @@
 // The Hopper (sm_90a) pieces shared by the hand-written kernels that run on
-// TMA rings and wgmma (flex.cu, flash_bwd.cu): mbarriers, TMA tile and bulk
-// copies, wgmma shared-memory descriptors and products, the turns of two
-// consumer warpgroups, and the host-side encoding of TMA tensor maps through
-// the runtime (no -lcuda).
+// TMA rings and wgmma (flex.cu, flash_bwd.cu, flash_fwd.cu): mbarriers, TMA
+// tile and bulk copies, wgmma shared-memory descriptors and products, the
+// turns of two consumer warpgroups, tanh on the special function unit, and
+// the host-side encoding of TMA tensor maps through the runtime (no
+// -lcuda).
 //
 // Tiles are stored as the TMA writes them: column blocks of (rows, 64)
 // 16-bit elements in the 128-byte swizzle, each 1024-byte aligned; a
@@ -105,6 +106,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// tanh(x / cap) as 1 - 2 / (2^(x k2) + 1), with k2 = 2 log2(e) / cap computed
+// once: on the special function unit, where tanhf and a division an element
+// made the softcap kernels slower than the first versions'.
+__device__ __forceinline__ float tanh_ex2(float x, float k2) {
+  return 1.f - __fdividef(2.f, fast_exp2(x * k2) + 1.f);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -30,8 +30,8 @@ import torch
 
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.flash_fwd import (HEAD_DIMS, _DTYPE_CODE,
-                                                    _lengths, _unsupported,
-                                                    mask_params,
+                                                    _aligned, _lengths,
+                                                    _unsupported, mask_params,
                                                     normalize_window)
 
 KERNEL = "flash_bwd"
@@ -226,12 +226,6 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     launches_dq += 1
     launches_dkv += 1
     return dq, dk, dv
-
-
-def _aligned(x):
-    """x, or a copy of it where its data does not start 16-byte aligned
-    (the kernels' tensor maps need it)."""
-    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _lib():

@@ -3,7 +3,8 @@
 general path runs the Pallas `_fwd_kernel:200`, launched at `:1517`).
 
 `flash_attn_fwd_bhsd` launches the hand-written Hopper kernel
-`csrc/flash_fwd.cu` for CUDA tensors and runs `flash_attn_fwd_bhsd_ref`, the
+`csrc/flash_fwd.cu` (`wgmma`, a TMA ring of K/V stages, 64- or 128-row
+tiles by head dim, arithmetic masks) for CUDA tensors and runs `flash_attn_fwd_bhsd_ref`, the
 plain PyTorch version with the same signature, for CPU tensors.  The same
 kernel also serves the JAX package's full-length causal/local forward
 (`_fwd_sched_kernel:870`): its per-q-tile loop bounds skip the KV tiles a
@@ -34,6 +35,25 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 
 # Number of times the CUDA kernel was launched (plain CPU runs do not count).
 launches = 0
+
+
+def fwd_rows(d: int) -> int:
+    """q rows a block of the CUDA forward owns, dense and varlen
+    (`csrc/flash_fwd.cu::FwdTiles` states the same rule): 64 at d = 64 (one
+    consumer warpgroup, two blocks an SM, so that one block's loads, start
+    and stores overlap the other's products), 128 at d = 128 (two consumer
+    warpgroups taking the tensor cores in turns).
+
+    Chosen by `diag/flash_ab.py --variants rows64,rows128` (kernel device
+    ms, medians of two runs, NVIDIA H100 80GB HBM3, 700.00 W).  d = 64,
+    64 / 128 rows: f2 (training shape) 0.05579 / 0.05839, f1 (serving
+    prefill) 0.02350 / 0.02419, fd (window + softcap + ALiBi) 0.02544 /
+    0.02843, f10 (the BERT batch, varlen) 0.08845 / 0.10367, fvd 0.12993 /
+    0.14257, fvw 0.07934 / 0.09075, fvm 0.22496 / 0.24677.  d = 128: fb
+    (full-length causal) 0.09621 / 0.08373, fvb (packed causal GQA) 0.98483
+    / 0.87038; fc (GQA, ragged seqused_k) 0.04116 / 0.04484 is the one case
+    against the rule."""
+    return 64 if d == 64 else 128
 
 
 def normalize_window(window_size, causal: bool, sk: int):
@@ -167,6 +187,7 @@ def flash_attn_fwd_bhsd(q, k, v, seqused_q, seqused_k, *,
     wl, wr = normalize_window(window_size, causal, sk)
     has_upper, wr, has_lower, wl = mask_params(causal, wl, wr)
 
+    q, k, v = (_aligned(x) for x in (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -182,6 +203,12 @@ def flash_attn_fwd_bhsd(q, k, v, seqused_q, seqused_k, *,
     return o, lse
 
 
+def _aligned(x):
+    """x, or a copy of it where its data does not start 16-byte aligned
+    (the kernels' tensor maps need it)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _lengths(x, b, device):
     t = torch.as_tensor(x, dtype=torch.int32, device=device)
     if t.shape != (b,):
@@ -189,12 +216,17 @@ def _lengths(x, b, device):
     return t.contiguous()
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The C entry point's parameters, in order (a pointer must be c_void_p, or
+# ctypes cuts it to 32 bits).
+FWD_ARGTYPES = (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _I, _I, _F, _P)
+
+
 def _lib():
     lib = _build.load(KERNEL)
     if not getattr(lib, "_typed", False):
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [P] * 8 + [I] * 7 + [F, I, I, I, I, F, P]
-        lib.flash_fwd.restype = I
+        lib.flash_fwd.argtypes = list(FWD_ARGTYPES)
+        lib.flash_fwd.restype = ctypes.c_int
         _build.declare_error_string(lib)
         lib._typed = True
     return lib

@@ -25,10 +25,19 @@ part of the function.
 The TPU's way of skipping tile pairs has no counterpart here: `token_aux`
 (per-token segment words), `build_varlen_schedule`,
 `build_varlen_bwd_schedule` (device-built tables of live tile pairs) and
-`block_sizes.varlen_block_sizes` are not ported, because the CUDA grid over
-per-sequence 64-row tiles does their work (see the note in
-`csrc/flash_fwd.cu`).  `block_q`, `block_k` and `block_h` are accepted and
-ignored.  Nor is the JAX backward's fallback to the padded dense backward
+`block_sizes.varlen_block_sizes` are not ported, because the CUDA grids over
+per-sequence q tiles do their work (see the notes in `csrc/flash_fwd.cu`
+and `csrc/flash_bwd.cu`).  `block_q`, `block_k` and `block_h` are accepted
+and ignored.
+
+The forward's row tile is the dense forward's, `flash_fwd.fwd_rows`: 64
+rows at d = 64, 128 at d = 128.  Measured against one tile for every d
+(`diag/flash_ab.py --variants rows64,rows128`, kernel device ms, NVIDIA
+H100 80GB HBM3, 700.00 W): the BERT batch (d = 64, 64 sequences of 16-512
+tokens) 0.08845 at 64 rows against 0.10367 at 128, 128-row tiles pad its
+short sequences more; packed causal GQA documents of 128-4096 tokens (d =
+128) 0.87038 at 128 against 0.98483 at 64 rows (64-key tiles there, so
+that two blocks fit an SM).  Nor is the JAX backward's fallback to the padded dense backward
 when its whole-stream dQ scratch outgrows VMEM (`:983-1037`,
 `_PACKED_BWD_DQ_LIMIT:506`): that is a TPU memory limit, and the CUDA
 kernels cover every size.
@@ -42,11 +51,12 @@ import math
 import torch
 
 from flash_attn_tpu_torch.kernels import _build
-from flash_attn_tpu_torch.kernels.flash_bwd import (STATS_TILE, _aligned,
+from flash_attn_tpu_torch.kernels.flash_bwd import (STATS_TILE,
                                                     _dq_items_for,
                                                     flash_attn_bwd_bhsd_ref,
                                                     varlen_stats_rows)
 from flash_attn_tpu_torch.kernels.flash_fwd import (HEAD_DIMS, _DTYPE_CODE,
+                                                    _aligned,
                                                     flash_attn_fwd_bhsd_ref,
                                                     mask_params,
                                                     normalize_window)
@@ -186,7 +196,7 @@ def varlen_attn_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
     if q.device.type != "cuda":
         raise RuntimeError(f"varlen_attn_fwd: no kernel for {q.device}")
     _check_cuda(q, k, v, cu_seqlens_q, cu_seqlens_k)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
     total_q, h, d = q.shape
     b, slopes, (has_upper, wr, has_lower, wl) = _cuda_common(
         q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_k, causal, window_size,
@@ -200,9 +210,9 @@ def varlen_attn_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), cu_seqlens_q.data_ptr(), cu_seqlens_k.data_ptr(),
         slopes.data_ptr() if slopes is not None else None,
-        b, h, k.shape[1], int(max_seqlen_q), int(max_seqlen_k), total_q, d,
-        _DTYPE_CODE[q.dtype], float(softmax_scale), int(has_upper), wr,
-        int(has_lower), wl, float(softcap),
+        b, h, k.shape[1], int(max_seqlen_q), int(max_seqlen_k), total_q,
+        k.shape[0], d, _DTYPE_CODE[q.dtype], float(softmax_scale),
+        int(has_upper), wr, int(has_lower), wl, float(softcap),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL_FWD)
     launches_fwd += 1
@@ -333,13 +343,17 @@ def flash_attn_varlen_sched_func(q, k, v, cu_seqlens_q, cu_seqlens_k,
         float(softmax_scale), bool(causal), window, float(softcap), slopes)
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# `flash_fwd_varlen`'s parameters, in order: the dense entry point's with
+# total_q and total_k (the K/V tensor maps' rows) after the max lengths.
+VARLEN_FWD_ARGTYPES = (_P,) * 8 + (_I,) * 9 + (_F, _I, _I, _I, _I, _F, _P)
+
+
 def _lib_fwd():
     lib = _build.load(KERNEL_FWD)
     if not getattr(lib, "_typed_varlen", False):
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd_varlen.argtypes = [P] * 8 + [I] * 8 + [F, I, I, I, I,
-                                                            F, P]
-        lib.flash_fwd_varlen.restype = I
+        lib.flash_fwd_varlen.argtypes = list(VARLEN_FWD_ARGTYPES)
+        lib.flash_fwd_varlen.restype = ctypes.c_int
         _build.declare_error_string(lib)
         lib._typed_varlen = True
     return lib

@@ -41,7 +41,29 @@ CASES = {
                            seqused_k=[64, 10], causal=True),
     "d64": dict(h=4, hk=2, d=64, sq=24, sk=64, seqused_q=[21, 24],
                 seqused_k=[64, 48], causal=True),
+    # the masks and mods whose plain version the CUDA kernel is held
+    # against on the card: checked against the JAX kernel only
+    "causal_window_8_m1": dict(h=4, hk=4, d=32, sq=24, sk=64,
+                               seqused_q=[24, 20], seqused_k=[64, 50],
+                               causal=True, window=(8, -1), kernel_only=True),
+    "causal_window_8_4": dict(h=4, hk=2, d=32, sq=24, sk=64,
+                              seqused_q=[24, 24], seqused_k=[64, 37],
+                              causal=True, window=(8, 4), kernel_only=True),
+    "window_right_4": dict(h=4, hk=4, d=32, sq=24, sk=64, seqused_q=[24, 18],
+                           seqused_k=[64, 64], window=(-1, 4),
+                           kernel_only=True),
+    # sq > sk: the first rows of a causal call see no key
+    "sq_gt_sk_causal": dict(h=4, hk=4, d=32, sq=40, sk=24,
+                            seqused_q=[40, 33], seqused_k=[24, 24],
+                            causal=True, kernel_only=True),
+    "softcap_alibi": dict(h=4, hk=2, d=32, sq=24, sk=64, seqused_q=[24, 24],
+                          seqused_k=[64, 45], causal=True, softcap=30.0,
+                          alibi=True, kernel_only=True),
+    "window_0_0": dict(h=4, hk=4, d=32, sq=24, sk=64, seqused_q=[24, 24],
+                       seqused_k=[64, 30], window=(0, 0), kernel_only=True),
 }
+# the cases also held to JAX's attention_ref
+ORACLE_CASES = [name for name, c in CASES.items() if not c.get("kernel_only")]
 
 
 def make_inputs(c, seed=0):
@@ -90,7 +112,7 @@ def test_fwd_matches_jax_kernel(name):
     np.testing.assert_allclose(lse_t[fin], lse_j[fin], atol=LSE_ATOL, rtol=0)
     if name == "seqused_k_zero":
         assert np.all(o_t[1] == 0.0) and np.all(np.isposinf(lse_t[1]))
-    if name == "seqused_k_lt_q":
+    if name in ("seqused_k_lt_q", "sq_gt_sk_causal"):
         empty = c["seqused_q"][1] - c["seqused_k"][1]
         assert np.all(o_t[1, :, :empty] == 0.0)
         assert np.all(np.isposinf(lse_t[1, :, :empty]))
@@ -117,7 +139,7 @@ def _jax_oracle(c, q, k, v, slopes):
     return np.asarray(out).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", ORACLE_CASES)
 def test_fwd_matches_jax_oracle(name):
     c = CASES[name]
     q, k, v, slopes = make_inputs(c, seed=1)

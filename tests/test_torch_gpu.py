@@ -631,6 +631,123 @@ def test_varlen_bwd_tiles_match_plain(cuda, case, d, dtype):
     assert not dq[-3:].any() and not dk[-3:].any() and not dv[-3:].any()
 
 
+_FWD_TILE_CASES = (
+    [f"{sq}x{sk}_{'causal' if c else 'full'}"
+     for sq, sk in ((1, 1), (63, 63), (127, 127), (129, 129), (1000, 1500))
+     for c in (True, False)]
+    + ["sq_gt_sk_causal", "window_left", "window_0_0", "seqused_k0", "gqa4",
+       "softcap_alibi", "heavy_grid"])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", _FWD_TILE_CASES)
+def test_fwd_tiles_match_plain(cuda, case, d, dtype):
+    """The dense forward's tiles (64-row blocks at d = 64, 128-row at d =
+    128, 128-key stages) at lengths on and off their edges, causal and not; sq > sk causal, where the first
+    rows see no key; a one-sided window and window (0, 0); seqused_k = 0 on
+    one batch; GQA with g = 4; the softcap + ALiBi instantiation; and a
+    grid of many causal tiles, run heaviest first: o and lse against the
+    plain version (fp32 oracle, low-precision yardstick), identical +inf
+    lse rows, o = 0 exactly on rows with no key, a second call bitwise
+    equal."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    b, h, hk, sq, sk = 2, 4, 4, 300, 300
+    kw = dict(softmax_scale=d ** -0.5, causal=True)
+    if case == "heavy_grid":
+        b, h, hk, sq, sk = 8, 8, 8, 1100, 1100
+    elif "x" in case:
+        size, mask = case.split("_")
+        sq, sk = (int(n) for n in size.split("x"))
+        kw["causal"] = mask == "causal"
+    elif case == "sq_gt_sk_causal":
+        sq, sk = 300, 100
+    elif case == "window_left":
+        kw.update(causal=False, window_size=(100, -1))
+    elif case == "window_0_0":
+        kw.update(causal=False, window_size=(0, 0))
+    elif case == "gqa4":
+        h, hk = 8, 2
+    elif case == "softcap_alibi":
+        kw.update(softcap=30.0,
+                  alibi_slopes=torch.rand(b, h, generator=gen, device=cuda))
+    sku = [sk, 0] if case == "seqused_k0" else [sk] * b
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    squ = torch.tensor([sq] * b, dtype=torch.int32, device=cuda)
+    sku = torch.tensor(sku, dtype=torch.int32, device=cuda)
+    before = flash_fwd.launches
+    o, lse = flash_fwd.flash_attn_fwd_bhsd(q, k, v, squ, sku, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    o_ref, lse_ref = flash_fwd.flash_attn_fwd_bhsd_ref(
+        q.float(), k.float(), v.float(), squ, sku, **kw)
+    o_pt, lse_pt = flash_fwd.flash_attn_fwd_bhsd_ref(q, k, v, squ, sku, **kw)
+    check_close(o, o_ref, o_pt, label="o")
+    empty = torch.isinf(lse_ref)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert torch.isposinf(lse[empty]).all() and not o[empty].any()
+    check_close(lse[~empty], lse_ref[~empty], lse_pt[~empty], label="lse")
+    if case in ("sq_gt_sk_causal", "seqused_k0"):
+        assert empty.any()
+    again = flash_fwd.flash_attn_fwd_bhsd(q, k, v, squ, sku, **kw)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["full", "causal", "gqa_causal",
+                                  "window_softcap_alibi"])
+def test_varlen_fwd_tiles_match_plain(cuda, case, d, dtype):
+    """The packed varlen forward at both row tiles (64 rows at d = 64, 128
+    at d = 128: `flash_fwd.fwd_rows`), over sequences of 1-130 tokens
+    around the 64- and 128-row edges, with an empty q sequence and an empty
+    k sequence, so that tiles run past their sequence into the next one's
+    rows: o and lse against the plain version on every token (fp32 oracle,
+    low-precision yardstick), identical +inf lse rows, o = 0 exactly on rows
+    with no key, the rows past the last sequence untouched (0, +inf), a
+    second call bitwise equal."""
+    from flash_attn_tpu_torch.kernels import varlen
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    lens_q = [1, 63, 64, 65, 0, 127, 128, 129, 130, 77]
+    lens_k = [1, 63, 64, 65, 40, 0, 128, 129, 130, 100]
+    h, hk = (8, 2) if case == "gqa_causal" else (4, 4)
+    kw = dict(softmax_scale=d ** -0.5, causal=case != "full")
+    if case == "window_softcap_alibi":
+        kw.update(window_size=(40, 0), softcap=30.0,
+                  alibi_slopes=torch.rand(h, generator=gen, device=cuda))
+
+    def stream(lens, heads):  # 3 rows past the last sequence
+        return torch.randn(sum(lens) + 3, heads, d, generator=gen,
+                           device=cuda).to(dtype)
+
+    def cu(lens):
+        return torch.tensor([0] + lens, device=cuda).cumsum(0).int()
+
+    q, k, v = stream(lens_q, h), stream(lens_k, hk), stream(lens_k, hk)
+    args = (cu(lens_q), cu(lens_k), max(lens_q), max(lens_k))
+    before = varlen.launches_fwd
+    o, lse = varlen.varlen_attn_fwd(q, k, v, *args, **kw)
+    torch.cuda.synchronize()
+    assert varlen.launches_fwd == before + 1
+    o_ref, lse_ref = varlen.varlen_attn_fwd_ref(q.float(), k.float(),
+                                                v.float(), *args, **kw)
+    o_pt, lse_pt = varlen.varlen_attn_fwd_ref(q, k, v, *args, **kw)
+    check_close(o, o_ref, o_pt, label="o")
+    empty = torch.isinf(lse_ref)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert torch.isposinf(lse[empty]).all()
+    assert not o[empty.transpose(0, 1)].any()
+    check_close(lse[~empty], lse_ref[~empty], lse_pt[~empty], label="lse")
+    kq = sum(lens_q[:5])  # sequence 5: no key
+    assert empty[:, kq:kq + 127].all()
+    assert not o[-3:].any() and torch.isposinf(lse[:, -3:]).all()
+    again = varlen.varlen_attn_fwd(q, k, v, *args, **kw)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
 def test_varlen_func_gradient_on_cuda(cuda):
     """flash_attn_varlen_func's packed route on CUDA launches the varlen
     kernels and its gradient the varlen backward; float32 q and head dim 96

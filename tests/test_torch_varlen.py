@@ -339,3 +339,54 @@ def test_same_stream_and_block_sizes_change_nothing():
                                block_q=128, block_k=256, block_h=2))
     assert torch.equal(f(q, k, v, cu, cu, 13, 13, window_size=(2, -1)),
                        f(q, k, v, cu, cu, 13, 13, window_size=(2, 13)))
+
+
+def _c_argtypes(src, name):
+    """The ctypes types of C entry point `name`'s parameters in `src`: a
+    pointer is c_void_p, an int c_int, a float c_float."""
+    import ctypes
+    import re
+
+    params = re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+    kinds = []
+    for param in params.split(","):
+        param = " ".join(param.split())
+        kinds.append(ctypes.c_void_p if "*" in param else
+                     ctypes.c_float if param.startswith("float") else
+                     ctypes.c_int if param.startswith("int") else param)
+    return tuple(kinds)
+
+
+def test_fwd_entry_points_match_ctypes():
+    """The forward's ctypes signatures (`flash_fwd.FWD_ARGTYPES`,
+    `varlen.VARLEN_FWD_ARGTYPES`, the latter with total_k for the K/V
+    tensor maps) hold the C entry points' parameters of
+    `csrc/flash_fwd.cu` in order: a missing int shifts every argument after
+    it, and a pointer passed as an int is cut to 32 bits."""
+    from pathlib import Path
+
+    from flash_attn_tpu_torch.kernels import flash_fwd
+
+    src = (Path(flash_fwd.__file__).parents[1] / "csrc" /
+           "flash_fwd.cu").read_text()
+    assert _c_argtypes(src, "flash_fwd") == flash_fwd.FWD_ARGTYPES
+    assert _c_argtypes(src, "flash_fwd_varlen") == varlen.VARLEN_FWD_ARGTYPES
+    assert "int total_q, int total_k" in src
+
+
+def test_fwd_row_tile_rule():
+    """`flash_fwd.fwd_rows` (64 q rows a block at d = 64, 128 at d = 128,
+    dense and varlen) is the rule `csrc/flash_fwd.cu::FwdTiles` states, and
+    each row-tile variant of `diag/flash_ab.py` replaces that rule."""
+    from pathlib import Path
+
+    from flash_attn_tpu_torch.diag import flash_ab
+    from flash_attn_tpu_torch.kernels import flash_fwd
+
+    assert [flash_fwd.fwd_rows(d) for d in (64, 128)] == [64, 128]
+    src = (Path(flash_fwd.__file__).parents[2] /
+           flash_ab.KERNEL_SOURCE).read_text()
+    assert src.count(flash_ab.TILE_RULE) == 1
+    for variant, rule in flash_ab.VARIANTS.items():
+        edited = src.replace(flash_ab.TILE_RULE, rule)
+        assert edited != src and flash_ab.TILE_RULE not in edited, variant
