@@ -36,7 +36,17 @@ API, packed varlen) and `kernel_flex_bwd` (cases (a), (c)-(h), bitwise
 deterministic), and the
 `flex` path: forward and backward of Llama-3-8B's 32 attention layers
 over an 8192-token packed sequence under the causal document mask.  The
-last phase, `diag`, holds the diagnostic probes' kernels
+LLaMA family follows: `llama_serve` serves the serve phase's batch with a
+Llama at Meta-Llama-3-8B's widths (8 of its 32 layers, built through
+`llama_config_to_gpt2_config`), greedy tokens against fp32 on the CPU;
+`llama_train` trains the JAX package's llama-1b recipe (n_embd 2048, GQA
+16 over 4, seq_len 2048, batch 8; 13 of its 24 layers, which is what fits
+on the card), then holds a 2-layer model's gradients at full width to
+fp32 on the CPU; `families` runs a cached prefill and decode steps of
+Baichuan-7B, Pythia-1.4B, Falcon-7B and StarCoderBase-1B at their
+published widths (2 layers each) against fp32 on the CPU.  The kernel
+cases at those paths' shapes are forward (g), backward (e) and decode
+(e).  The last phase, `diag`, holds the diagnostic probes' kernels
 (`csrc/diag_*.cu`) against their plain twins and runs the three probes
 (`flash_attn_tpu_torch.diag`: the paged DMA stream, the decode-body ladder,
 the varlen tick bisect) at the JAX scripts' full shapes.  The kernel launch
@@ -398,9 +408,11 @@ def sdpa_backward_ms(q, k, v, do):
     import torch.nn.functional as F
 
     graphs = []
+    gqa = k.shape[1] != q.shape[1]
     for qc, kc, vc, dc in input_copies(q, k, v, do):
         qc, kc, vc = (t.detach().requires_grad_() for t in (qc, kc, vc))
-        out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True)
+        out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+                                             enable_gqa=gqa)
         graphs.append((out, (qc, kc, vc), dc))
     return time_ms(lambda out, ins, dc: torch.autograd.grad(
         out, ins, dc, retain_graph=True), graphs)
@@ -416,7 +428,8 @@ def sdpa_masked(q, k, v, live):
 def sdpa_causal(q, k, v, live):
     import torch.nn.functional as F
 
-    return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    return F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=k.shape[1] != q.shape[1])
 
 
 def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=0,
@@ -458,7 +471,8 @@ def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=0,
         mask = (torch.arange(smax, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
         library_ms = time_ms(
-            lambda *a: F.scaled_dot_product_attention(*a[:3], attn_mask=a[3]),
+            lambda *a: F.scaled_dot_product_attention(
+                *a[:3], attn_mask=a[3], enable_gqa=hk != h),
             input_copies(q, kc, vc, mask))
     blocks = fd.row_tiles(h // hk * sq) * ns * b * hk
     res = dict(phase="kernel_decode", case=label, b=b, h=h, hk=hk, sq=sq,
@@ -693,6 +707,41 @@ def cosine(a, b):
     return float(a @ b / (a.norm() * b.norm()))
 
 
+def card_vs_cpu_grads(gpu, cpu):
+    """One batch through the Trainers' loss and backward, `gpu` on the card
+    (kernels, bf16 autocast) and `cpu` in fp32 on the CPU (plain path), on
+    the same weights: the two losses, the cosine of the whole gradient and
+    the least cosine of a matrix's, with its name."""
+    import torch
+
+    batch = next(cpu.loader)
+    matrices = [n for n, p in cpu.model.named_parameters() if p.ndim == 2]
+    losses, grads = [], []
+    for t in (gpu, cpu):
+        loss = t.loss(batch)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu().flatten()
+                      for n, p in t.model.named_parameters()})
+        t.optimizer.zero_grad(set_to_none=True)
+    names = list(grads[0])
+    cos_all = cosine(torch.cat([grads[0][n] for n in names]),
+                     torch.cat([grads[1][n] for n in names]))
+    cos_2d = {n: cosine(grads[0][n], grads[1][n]) for n in matrices}
+    worst = min(cos_2d, key=cos_2d.get)
+    return dict(loss_gpu=losses[0], loss_cpu_fp32=losses[1],
+                loss_gap=abs(losses[0] - losses[1]), grad_cosine=cos_all,
+                min_matrix_grad_cosine=cos_2d[worst],
+                min_cosine_matrix=worst)
+
+
+def check_grads(label, res):
+    if not (res["loss_gap"] <= 0.02 and res["grad_cosine"] >= 0.999
+            and res["min_matrix_grad_cosine"] >= 0.99):
+        raise AssertionError(f"{label}: card gradients disagree with fp32 "
+                             "CPU")
+
+
 def train_check_phase():
     """(1) One batch (b=1, s=1024) through the Trainer's loss and backward
     on the card (kernels, bf16 autocast) and in fp32 on the CPU (plain
@@ -706,21 +755,8 @@ def train_check_phase():
     gpu = Trainer(train_config(data__batch_size=1))
     cpu = Trainer(train_config(data__batch_size=1, model__dtype="float32"),
                   device="cpu")
-    batch = next(cpu.loader)
-    matrices = [n for n, p in cpu.model.named_parameters() if p.ndim == 2]
-    losses, grads = [], []
-    for t in (gpu, cpu):
-        loss = t.loss(batch)
-        loss.backward()
-        losses.append(loss.item())
-        grads.append({n: p.grad.float().cpu().flatten()
-                      for n, p in t.model.named_parameters()})
+    grads = card_vs_cpu_grads(gpu, cpu)
     del gpu, cpu
-    names = list(grads[0])
-    cos_all = cosine(torch.cat([grads[0][n] for n in names]),
-                     torch.cat([grads[1][n] for n in names]))
-    cos_2d = {n: cosine(grads[0][n], grads[1][n]) for n in matrices}
-    worst = min(cos_2d, key=cos_2d.get)
 
     t = Trainer(train_config(scheduler__name="constant",
                              scheduler__warmup_steps=0))
@@ -728,15 +764,10 @@ def train_check_phase():
     curve = [float(t.train_step(one)[0]) for _ in range(OVERFIT_STEPS)]
     del t
     torch.cuda.empty_cache()
-    res = dict(phase="train_check", loss_gpu=losses[0],
-               loss_cpu_fp32=losses[1],
-               loss_gap=abs(losses[0] - losses[1]), grad_cosine=cos_all,
-               min_matrix_grad_cosine=cos_2d[worst], min_cosine_matrix=worst,
-               overfit_losses=curve, overfit_drop=curve[0] - curve[-1])
+    res = dict(phase="train_check", **grads, overfit_losses=curve,
+               overfit_drop=curve[0] - curve[-1])
     emit(res)
-    if not (res["loss_gap"] <= 0.02 and cos_all >= 0.999
-            and cos_2d[worst] >= 0.99):
-        raise AssertionError("card gradients disagree with fp32 CPU")
+    check_grads("train_check", res)
     if not all(math.isfinite(x) for x in curve) or \
             res["overfit_drop"] < OVERFIT_DROP:
         raise AssertionError(f"overfit drop {res['overfit_drop']} < "
@@ -2811,6 +2842,382 @@ def diag_phase():
         launches=launches)
 
 
+# The Llama paths.  `llama_serve` serves the serve phase's traffic with
+# Meta-Llama-3-8B's widths (HF meta-llama/Meta-Llama-3-8B config.json,
+# `serve_profile.LLAMA3_8B`) cut to LLAMA_SERVE_LAYERS of its 32 layers;
+# `llama_train` trains the JAX package's own llama recipe
+# (flash_attn_tpu/training/configs/experiment/pile-llama-1b.yaml) at full
+# width on one card, cut to LLAMA_TRAIN_LAYERS layers.
+LLAMA_SERVE_LAYERS = 8
+# A served token passes when its fp32 reference logit is within this share
+# of the reference logits' standard deviation of the maximum: GPT-2's
+# SERVE_MARGIN is 0.05 at a deviation of about 0.55, a share of 0.09.  At
+# these random weights the deviation is about 1.28 and bf16 rounding through
+# the 8 layers put picked tokens up to 0.066 of it below the maximum
+# (PERF.md); a wrong token from a broken kernel sits about a deviation
+# below it.
+LLAMA_MARGIN_SHARE = 0.1
+# The recipe's 24 layers do not fit on one 80 GB card: on the card (NVIDIA
+# H100 80GB HBM3, 700 W) a step's peak was 27.4, 43.0 and 58.6 GB at 2, 6
+# and 10 layers, 19.6 GB plus 3.9 GB a layer (weights, gradients and AdamW
+# state of 60.8 M parameters a layer, and the activations the backward
+# keeps, most of them float32 copies in the elementwise passes), so 24
+# layers would take about 113 GB.  The depth is cut to the most layers that
+# leave room on the card; width, seq_len and batch are the recipe's.
+LLAMA_TRAIN_LAYERS = 13
+LLAMA_TRAIN_STEPS = 5
+LLAMA_PROFILE_STEPS = 2
+LLAMA_CHECK_SEQ = 256
+
+
+def cpu_reference(model, dtype=None):
+    """A copy of `model` (its config and weights) on the CPU, in `dtype`
+    (None: float32): the plain path."""
+    import torch
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
+
+    ref = GPTLMHeadModel(model.config, device="cpu",
+                         dtype=dtype or torch.float32)
+    with torch.no_grad():
+        for (name, p), q in zip(ref.named_parameters(), model.parameters()):
+            p.copy_(q)
+    return ref.eval()
+
+
+def llama_serve_phase(gen_seed=0):
+    """`ServingEngine` on the Llama at Llama-3-8B widths: the serve phase's
+    16 requests, launch counts, greedy tokens against fp32 on the CPU, and
+    the batch once more under `torch.profiler`."""
+    import numpy as np
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.serve_profile import (MAX_NEW_TOKENS,
+                                                    llama3_8b, serve_batch,
+                                                    timed_run, warm_up)
+
+    t0 = time.perf_counter()
+    model = llama3_8b(gen_seed, LLAMA_SERVE_LAYERS)
+    cfg = model.config
+    init_s = time.perf_counter() - t0
+    warm_up(model, gen_seed)
+    eng, prompts, uids = serve_batch(model, gen_seed)
+    torch.cuda.reset_peak_memory_stats()
+    ff.launches = fd.launches = 0
+    results, wall = timed_run(eng)
+    fwd_launches, dec_launches = ff.launches, fd.launches
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    prof_eng, _, _ = serve_batch(model, gen_seed)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        timed_run(prof_eng)
+    profile = profile_summary(prof, 1, wall, "run", "attention", "flash_")
+    res = dict(phase="llama_serve",
+               model="Meta-Llama-3-8B widths (random weights, seed 0)",
+               reduced=f"{LLAMA_SERVE_LAYERS} of 32 layers",
+               params=sum(p.numel() for p in model.parameters()),
+               dtype="bfloat16", init_s=init_s, requests=len(prompts),
+               finished=st.finished, prefill_waves=st.prefill_waves,
+               prefill_tokens=st.prefill_tokens,
+               generated_tokens=st.generated_tokens,
+               decode_steps=st.decode_steps, wall_s=wall,
+               generated_tok_per_s=st.generated_tokens / wall,
+               max_memory_allocated=peak, flash_fwd_launches=fwd_launches,
+               flash_decode_launches=dec_launches, profile=profile)
+    if st.finished != len(prompts):
+        raise AssertionError(f"finished {st.finished} of {len(prompts)}")
+    for u in uids:
+        if len(results[u]) != MAX_NEW_TOKENS:
+            raise AssertionError(f"request {u}: {len(results[u])} tokens")
+    if fwd_launches != st.prefill_waves * cfg.n_layer:
+        raise AssertionError(f"flash_fwd launches {fwd_launches} != "
+                             f"{st.prefill_waves} waves x {cfg.n_layer}")
+    if dec_launches != st.decode_steps * cfg.n_layer:
+        raise AssertionError(f"flash_decode launches {dec_launches} != "
+                             f"{st.decode_steps} steps x {cfg.n_layer}")
+
+    # Greedy tokens teacher-forced through the same weights in fp32 on the
+    # CPU (the plain path).
+    t0 = time.perf_counter()
+    ref = cpu_reference(model)
+    del model, eng, prof_eng
+    torch.cuda.empty_cache()
+    gaps, stds = [], []
+    for i in (0, 1):
+        toks = results[uids[i]]
+        seq = torch.as_tensor(np.concatenate([prompts[i], toks[:-1]]))[None]
+        with torch.no_grad():
+            logits = ref(seq, num_last_tokens=len(toks)).logits[0].float()
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite reference logits")
+        picked = logits[torch.arange(len(toks)), torch.as_tensor(toks)]
+        gaps.append(float((logits.max(dim=-1).values - picked).max()))
+        stds.append(float(logits.std(dim=-1).mean()))
+    del ref
+    margin = LLAMA_MARGIN_SHARE * sum(stds) / 2
+    res.update(greedy_max_logit_gap=max(gaps), ref_logit_std=sum(stds) / 2,
+               greedy_margin=margin, reference_s=time.perf_counter() - t0)
+    emit(res)
+    if max(gaps) > margin:
+        raise AssertionError(f"greedy token logit gap {max(gaps):.4f} > "
+                             f"margin {margin:.4f}")
+    return res
+
+
+def llama_train_config(**over):
+    """The JAX package's llama recipe (pile-llama-1b.yaml): n_embd 2048, 24
+    layers, 16 heads over 4 kv heads, vocab 50257, RMSNorm, full rotary,
+    SwiGLU (n_inner 4 x 2048), untied head; bf16 over fp32 weights; AdamW
+    2e-4, wd 0.1, beta2 0.95, clip 1.0; cosine after 2000 warmup steps;
+    seq_len 2048, batch 8.  On one card: mesh 1x1 and no optimizer-state
+    sharding (not ported), synthetic tokens (The Pile is not in the
+    repository)."""
+    cfg = train_config()
+    m = cfg.model
+    m.name, m.n_embd, m.n_layer, m.n_head, m.n_head_kv = (
+        "llama-1b", 2048, 24, 16, 4)
+    m.vocab_size, m.max_position_embeddings = 50257, 2048
+    m.rms_norm, m.rotary_emb_fraction = True, 1.0
+    m.activation_function, m.tie_word_embeddings = "swiglu", False
+    m.dtype = "bfloat16"
+    o = cfg.optimizer
+    o.lr, o.weight_decay, o.beta2, o.grad_clip = 2e-4, 0.1, 0.95, 1.0
+    cfg.scheduler.name = "cosine"
+    cfg.scheduler.warmup_steps, cfg.scheduler.decay_steps = 2000, 300000
+    cfg.data.seq_len, cfg.data.batch_size = 2048, 8
+    for key, val in over.items():
+        section, field = key.split("__")
+        setattr(getattr(cfg, section), field, val)
+    return cfg
+
+
+def palm_flops_per_token(model, seq_len):
+    """Training FLOPs a token from the model's own parameters: 6 N (N the
+    parameters of every matrix product: all but the input embedding) plus
+    12 L h d s of attention (PaLM's formula, Chowdhery et al. 2022, App. B;
+    the causal mask is not discounted)."""
+    c = model.config
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if "embeddings" not in name)
+    head_dim = c.head_dim or c.n_embd // c.n_head
+    return 6 * n + 12 * c.n_layer * c.n_head * head_dim * seq_len
+
+
+def llama_train_phase():
+    """Trainer.train() on the llama recipe, cut to LLAMA_TRAIN_LAYERS
+    layers, for LLAMA_TRAIN_STEPS steps after
+    TRAIN_WARMUP_STEPS warm-up steps, launches counted on those steps, then
+    LLAMA_PROFILE_STEPS steps under `torch.profiler`; then `train_check` at
+    full width, 2 layers and LLAMA_CHECK_SEQ tokens: gradients on the card
+    against fp32 on the CPU."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    t = Trainer(llama_train_config(model__n_layer=LLAMA_TRAIN_LAYERS))
+    init_s = time.perf_counter() - t0
+    n_layer = t.gpt_config.n_layer
+    params = sum(p.numel() for p in t.model.parameters())
+    warm = [float(t.train_step(next(t.loader))[0])
+            for _ in range(TRAIN_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t.config.trainer.max_steps = t.step + LLAMA_TRAIN_STEPS
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    ff.launches = fb.launches_dq = fb.launches_dkv = 0
+    t0 = time.perf_counter()
+    t.train(log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(flash_fwd=ff.launches, flash_bwd_dq=fb.launches_dq,
+                  flash_bwd_dkv=fb.launches_dkv)
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + [m["loss"] for m in logs if "loss" in m]
+    seq, batch = t.config.data.seq_len, t.config.data.batch_size
+    tokens = t.speed.tokens_per_step * LLAMA_TRAIN_STEPS
+    flops = palm_flops_per_token(t.model, seq) * tokens
+    profile = profile_train_steps(t, LLAMA_PROFILE_STEPS,
+                                  wall / LLAMA_TRAIN_STEPS)
+    del t
+    torch.cuda.empty_cache()
+    res = dict(phase="llama_train",
+               model="llama-1b, pile-llama-1b.yaml (random weights, seed 0)",
+               reduced=f"{LLAMA_TRAIN_LAYERS} of 24 layers (memory); one "
+               "card: mesh 4x2 -> 1x1, optimizer-state sharding off; "
+               "synthetic tokens for The Pile",
+               params=params, param_dtype="float32",
+               compute_dtype="bfloat16", seq_len=seq,
+               batch_size=batch,
+               steps=LLAMA_TRAIN_STEPS, warmup_steps=TRAIN_WARMUP_STEPS,
+               init_s=init_s, wall_s=wall,
+               step_ms=wall / LLAMA_TRAIN_STEPS * 1e3,
+               tokens_per_s=tokens / wall, model_tflops=flops / wall / 1e12,
+               share_of_989_tflops=flops / wall / PEAK_FLOPS,
+               flops_formula="6 N + 12 L h d s a token (PaLM)",
+               max_memory_allocated=peak, losses=losses, launches=counts,
+               profile=profile)
+    emit(res)
+    want = n_layer * LLAMA_TRAIN_STEPS
+    if counts != dict(flash_fwd=want, flash_bwd_dq=want, flash_bwd_dkv=want):
+        raise AssertionError(f"llama_train launches {counts}, expected "
+                             f"{want} of each kernel")
+    if len(losses) != TRAIN_WARMUP_STEPS + LLAMA_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"llama_train losses {losses}")
+    if abs(losses[0] - LN_VOCAB) > 0.5:
+        raise AssertionError(f"llama_train first loss {losses[0]} not "
+                             f"within 0.5 of ln(50257)")
+
+    small = dict(model__n_layer=2, data__seq_len=LLAMA_CHECK_SEQ,
+                 data__batch_size=1)
+    gpu = Trainer(llama_train_config(**small))
+    cpu = Trainer(llama_train_config(model__dtype="float32", **small),
+                  device="cpu")
+    check = dict(phase="llama_train_check", layers=2,
+                 seq_len=LLAMA_CHECK_SEQ, **card_vs_cpu_grads(gpu, cpu))
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    emit(check)
+    check_grads("llama_train_check", check)
+    res["check"] = check
+    return res
+
+
+# The GPT-family models, each at its published widths (the values below;
+# the configs themselves are not in the repository), 2 layers, bf16,
+# random weights: a cached prefill, then decode steps, teacher-forced.
+def family_configs():
+    from types import SimpleNamespace as NS
+
+    from flash_attn_tpu_torch.models.baichuan import \
+        baichuan_config_to_gpt2_config
+    from flash_attn_tpu_torch.models.bigcode import \
+        bigcode_config_to_gpt2_config
+    from flash_attn_tpu_torch.models.falcon import \
+        falcon_config_to_gpt2_config
+    from flash_attn_tpu_torch.models.gpt_neox import \
+        gpt_neox_config_to_gpt2_config
+
+    return {
+        # HF baichuan-inc/Baichuan-7B config.json
+        "Baichuan-7B": baichuan_config_to_gpt2_config(NS(
+            vocab_size=64000, hidden_size=4096, intermediate_size=11008,
+            num_hidden_layers=32, num_attention_heads=32,
+            rms_norm_eps=1e-6)),
+        # HF EleutherAI/pythia-1.4b config.json (GPT-NeoX)
+        "Pythia-1.4B": gpt_neox_config_to_gpt2_config(NS(
+            vocab_size=50304, hidden_size=2048, intermediate_size=8192,
+            num_hidden_layers=24, num_attention_heads=16, hidden_act="gelu",
+            layer_norm_eps=1e-5, rotary_pct=0.25, rotary_emb_base=10000,
+            tie_word_embeddings=False, use_parallel_residual=True)),
+        # HF tiiuae/falcon-7b config.json
+        "Falcon-7B": falcon_config_to_gpt2_config(NS(
+            vocab_size=65024, hidden_size=4544, num_hidden_layers=32,
+            num_attention_heads=71, multi_query=True, parallel_attn=True,
+            new_decoder_architecture=False, bias=False,
+            layer_norm_epsilon=1e-5)),
+        # HF bigcode/starcoderbase-1b config.json
+        "StarCoderBase-1B": bigcode_config_to_gpt2_config(NS(
+            vocab_size=49152, n_positions=8192, n_embd=2048, n_layer=24,
+            n_head=16, n_inner=8192, multi_query=True,
+            activation_function="gelu_pytorch_tanh",
+            layer_norm_epsilon=1e-5)),
+    }
+
+
+FAMILY_LAYERS, FAMILY_BATCH, FAMILY_PREFILL, FAMILY_DECODE = 2, 2, 64, 8
+
+
+def cached_logits(model, ids, device):
+    """The logits of the last token of a cached prefill of FAMILY_PREFILL
+    tokens of `ids`, then of each one-token step through the rest, on
+    `device`: (prefill's, last step's)."""
+    import torch
+    from flash_attn_tpu_torch.modules.mha import InferenceParams
+
+    b, n = ids.shape
+    ip = InferenceParams(max_seqlen=n, max_batch_size=b,
+                         lengths_per_sample=torch.zeros(
+                             b, dtype=torch.int32, device=device))
+    ids = ids.to(device)
+    with torch.no_grad():
+        first = model(ids[:, :FAMILY_PREFILL], inference_params=ip,
+                      num_last_tokens=1).logits[:, 0]
+        for j in range(FAMILY_PREFILL, n):
+            last = model(ids[:, j:j + 1], inference_params=ip).logits[:, 0]
+    return first.float().cpu(), last.float().cpu()
+
+
+def families_phase():
+    """Each family of `family_configs` cut to FAMILY_LAYERS layers, bf16 on
+    the card: a cached prefill of FAMILY_PREFILL seeded tokens (the prefill
+    kernel), then FAMILY_DECODE one-token steps (the decode kernel).  The
+    prefill's and the last step's logits are held by the tolerance rule
+    (`check_close`: |card - fp32| <= 2 |bf16 plain - fp32| + 1e-5) to one
+    no-cache fp32 forward of the same tokens on the CPU, with the same
+    cached steps in bf16 on the CPU (the plain kernels) as the yardstick;
+    and the launch counts."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    out, counts = {}, dict(flash_fwd=0, flash_decode=0)
+    n = FAMILY_PREFILL + FAMILY_DECODE
+    for i, (name, cfg) in enumerate(family_configs().items()):
+        cfg.n_layer = FAMILY_LAYERS
+        model = GPTLMHeadModel(cfg, dtype=torch.bfloat16)
+        model.init_weights(torch.Generator(device="cuda").manual_seed(i))
+        model.eval()
+        ids = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH, n),
+                            generator=torch.Generator().manual_seed(i))
+        ff.launches = fd.launches = 0
+        card = cached_logits(model, ids, "cuda")
+        torch.cuda.synchronize()
+        launches = dict(flash_fwd=ff.launches, flash_decode=fd.launches)
+        plain = cached_logits(cpu_reference(model, torch.bfloat16), ids,
+                              "cpu")
+        ref = cpu_reference(model)
+        del model
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            logits = ref(ids).logits.float()
+        del ref
+        errs = [check_close(c, logits[:, j], p, label=f"{name} {what}")
+                for c, p, j, what in (
+                    (card[0], plain[0], FAMILY_PREFILL - 1, "prefill"),
+                    (card[1], plain[1], n - 1, "last step"))]
+        h, hk = cfg.n_head, cfg.n_head_kv or cfg.n_head
+        res = dict(phase="families", model=name, layers=FAMILY_LAYERS,
+                   n_embd=cfg.n_embd, heads=h, kv_heads=hk,
+                   head_dim=cfg.n_embd // h, rotary_dim=cfg.rotary_dim(),
+                   parallel_block=cfg.parallel_block,
+                   tied_norm=cfg.parallel_block_tied_norm,
+                   vocab=cfg.vocab_size, batch=FAMILY_BATCH,
+                   prefill=FAMILY_PREFILL, decode_steps=FAMILY_DECODE,
+                   max_abs_err_prefill=errs[0][0],
+                   plain_bf16_err_prefill=errs[0][1],
+                   max_abs_err_last=errs[1][0],
+                   plain_bf16_err_last=errs[1][1],
+                   ref_logit_std=float(logits.std(dim=-1).mean()),
+                   launches=launches)
+        emit(res)
+        want = dict(flash_fwd=FAMILY_LAYERS,
+                    flash_decode=FAMILY_LAYERS * FAMILY_DECODE)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}")
+        for k in counts:
+            counts[k] += launches[k]
+        out[name] = res
+    return dict(models=out, launches=counts)
+
+
 def main():
     import torch
 
@@ -2858,6 +3265,9 @@ def main():
                         [256, 256], [256, 0], gen)
     fwd["f"] = fwd_case("f: training shape", 8, 12, 12, 1024, 1024, 64,
                         [1024] * 8, [1024] * 8, gen, library=sdpa_causal)
+    fwd["g"] = fwd_case("g: llama-1b training shape", 8, 16, 4, 2048, 2048,
+                        128, [2048] * 8, [2048] * 8, gen,
+                        library=sdpa_causal)
     dec = {}
     dec["a"] = decode_case("a: serving decode", 8, 12, 12, 1, 1024, 64, gen,
                            library=True)
@@ -2865,6 +3275,8 @@ def main():
     dec["c"] = decode_case("c: sq = 4", 8, 12, 12, 4, 1024, 64, gen)
     dec["d"] = decode_case("d: num_splits = 4", 8, 12, 12, 1, 1024, 64, gen,
                            num_splits=4, block_k=256)
+    dec["e"] = decode_case("e: Llama-3-8B serving decode", 8, 32, 8, 1, 1024,
+                           128, gen, library=True)
 
     bwd = {}
     bwd["a"] = bwd_case("a: training shape", 8, 12, 12, 1024, 1024, 64,
@@ -2877,6 +3289,8 @@ def main():
                         softcap=30.0, alibi=True)
     bwd["d"] = bwd_case("d: ragged, seqused_k = 0", 3, 12, 12, 1024, 1024,
                         64, [1024, 700, 1024], [1024, 500, 0], gen)
+    bwd["e"] = bwd_case("e: llama-1b training shape", 8, 16, 4, 2048, 2048,
+                        128, [2048] * 8, [2048] * 8, gen, library=True)
 
     kvc = kernel_kvcache_phase(gen)
     vfwd, vbwd = kernel_varlen_phases()
@@ -2891,6 +3305,9 @@ def main():
     bert = bert_phase()
     ffwd, fbwd, fcompiled = kernel_flex_phases()
     flexpath = flex_phase()
+    lserve = llama_serve_phase()
+    ltrain = llama_train_phase()
+    fam = families_phase()
     dg = diag_phase()
 
     a = bwd["a"]
@@ -2899,9 +3316,16 @@ def main():
              source="flash_attn_tpu_torch/csrc/flash_fwd.cu",
              replaces="flash_attn_tpu/kernels/flash_fwd.py:200",
              launches=serve["flash_fwd_launches"]
-             + train["launches"]["flash_fwd"],
-             launches_by_path=dict(serve=serve["flash_fwd_launches"],
-                                   train=train["launches"]["flash_fwd"]),
+             + train["launches"]["flash_fwd"]
+             + lserve["flash_fwd_launches"]
+             + ltrain["launches"]["flash_fwd"]
+             + fam["launches"]["flash_fwd"],
+             launches_by_path=dict(
+                 serve=serve["flash_fwd_launches"],
+                 train=train["launches"]["flash_fwd"],
+                 llama_serve=lserve["flash_fwd_launches"],
+                 llama_train=ltrain["launches"]["flash_fwd"],
+                 families=fam["launches"]["flash_fwd"]),
              max_abs_err=fwd["a"]["max_abs_err_o"], ms=fwd["a"]["kernel_ms"],
              kernel_device_ms=fwd["a"]["kernel_device_ms"],
              plain_ms=fwd["a"]["plain_ms"], bound_ms=fwd["a"]["bound_ms"],
@@ -2919,30 +3343,63 @@ def main():
              kernel="flash_decode_ref_kernel, heads-first (bc, hk, smax, d) "
              "caches through decode_attn_bhsd",
              replaces="flash_attn_tpu/kernels/flash_decode.py:117",
-             launches=serve["flash_decode_launches"],
+             launches=serve["flash_decode_launches"]
+             + lserve["flash_decode_launches"]
+             + fam["launches"]["flash_decode"],
+             launches_by_path=dict(
+                 serve=serve["flash_decode_launches"],
+                 llama_serve=lserve["flash_decode_launches"],
+                 families=fam["launches"]["flash_decode"]),
              max_abs_err=dec["a"]["max_abs_err_o"], ms=dec["a"]["kernel_ms"],
              plain_ms=dec["a"]["plain_ms"], bound_ms=dec["a"]["bound_ms"],
              bound_by=dec["a"]["bound_by"],
              library_ms=dec["a"]["library_ms"],
              num_splits=dec["a"]["num_splits"], blocks=dec["a"]["blocks"],
-             sm_fill=dec["a"]["sm_fill"]),
+             sm_fill=dec["a"]["sm_fill"],
+             by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["bound_ms"],
+                              library_ms=r["library_ms"],
+                              num_splits=r["num_splits"],
+                              max_abs_err=r["max_abs_err_o"])
+                      for k, r in dec.items()}),
         dict(name="flash_bwd_dq", route="cuda",
              source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attn_tpu/kernels/flash_bwd.py:121",
-             launches=train["launches"]["flash_bwd_dq"],
+             launches=train["launches"]["flash_bwd_dq"]
+             + ltrain["launches"]["flash_bwd_dq"],
+             launches_by_path=dict(
+                 train=train["launches"]["flash_bwd_dq"],
+                 llama_train=ltrain["launches"]["flash_bwd_dq"]),
              max_abs_err=a["max_abs_err_dq"], ms=a["dq_kernel_ms"],
              plain_ms=a["plain_ms"], bound_ms=a["dq_bound_ms"],
              bound_by=a["dq_bound_by"], library_ms=a["library_ms"],
+             by_case={k: dict(ms=r["dq_kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["dq_bound_ms"],
+                              whole_ms=r["kernel_ms"],
+                              whole_bound_ms=r["bound_ms"],
+                              library_ms=r["library_ms"],
+                              max_abs_err=r["max_abs_err_dq"])
+                      for k, r in bwd.items()},
              ptxas={k: v for k, v in ptxas_summary("flash_bwd").items()
                     if k.startswith("flash_bwd_dq_kernel")}),
         dict(name="flash_bwd_dkv", route="cuda",
              source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attn_tpu/kernels/flash_bwd.py:232",
-             launches=train["launches"]["flash_bwd_dkv"],
+             launches=train["launches"]["flash_bwd_dkv"]
+             + ltrain["launches"]["flash_bwd_dkv"],
+             launches_by_path=dict(
+                 train=train["launches"]["flash_bwd_dkv"],
+                 llama_train=ltrain["launches"]["flash_bwd_dkv"]),
              max_abs_err=max(a["max_abs_err_dk"], a["max_abs_err_dv"]),
              ms=a["dkv_kernel_ms"], plain_ms=a["plain_ms"],
              bound_ms=a["dkv_bound_ms"], bound_by=a["dkv_bound_by"],
              library_ms=a["library_ms"],
+             by_case={k: dict(ms=r["dkv_kernel_ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["dkv_bound_ms"],
+                              library_ms=r["library_ms"],
+                              max_abs_err=max(r["max_abs_err_dk"],
+                                              r["max_abs_err_dv"]))
+                      for k, r in bwd.items()},
              ptxas={k: v for k, v in ptxas_summary("flash_bwd").items()
                     if k.startswith("flash_bwd_dkv_kernel")}),
         dict(name="flash_decode_ref", route="cuda",

@@ -31,13 +31,36 @@ def _expand(c, interleaved):
     return torch.stack([c, c], dim=-1).reshape(*c.shape[:-1], -1)
 
 
-def _rotate(x, c, sn, interleaved):
-    """x rotated on its first rd = 2 * c.shape[-1] features by float32 c, sn
-    (broadcast against x[..., :rd]); the rest passes through."""
+def apply_rotary_factors(x, c, sn, interleaved=False):
+    """x rotated on its first rd = c.shape[-1] features by float32 c, sn
+    (`rotary_factors`, or any factors that broadcast against x[..., :rd]);
+    the rest passes through."""
     rd = c.shape[-1]
     x_rot = x[..., :rd].float()
-    out = x_rot * c + rotate_half(x_rot, interleaved) * sn
-    return torch.cat([out.to(x.dtype), x[..., rd:]], dim=-1)
+    out = (x_rot * c + rotate_half(x_rot, interleaved) * sn).to(x.dtype)
+    if rd == x.shape[-1]:
+        return out
+    return torch.cat([out, x[..., rd:]], dim=-1)
+
+
+def rotary_factors(cos, sin, seqlen, interleaved=False, seqlen_offsets=0):
+    """The float32 factors (c, sn) that rotate a (b, seqlen, h, d) tensor at
+    positions seqlen_offsets + 0 .. seqlen - 1, each (1 or b, seqlen, 1,
+    rotary_dim): every table value repeated for its rotated pair.
+    `seqlen_offsets` is an int or a (b,) tensor; cos/sin are (s_max,
+    rotary_dim / 2)."""
+    if isinstance(seqlen_offsets, int):
+        c = cos[seqlen_offsets:seqlen_offsets + seqlen][None]
+        sn = sin[seqlen_offsets:seqlen_offsets + seqlen][None]
+        if c.shape[1] != seqlen:
+            raise IndexError(f"positions up to {seqlen_offsets + seqlen} "
+                             f"past the table's {cos.shape[0]} rows")
+    else:
+        off = torch.as_tensor(seqlen_offsets, device=cos.device).long()
+        idx = off[:, None] + torch.arange(seqlen, device=cos.device)[None, :]
+        c, sn = cos[idx], sin[idx]
+    return (_expand(c.float(), interleaved)[:, :, None, :],
+            _expand(sn.float(), interleaved)[:, :, None, :])
 
 
 def apply_rotary_emb(x, cos, sin, interleaved=False, seqlen_offsets=0,
@@ -62,17 +85,9 @@ def apply_rotary_emb(x, cos, sin, interleaved=False, seqlen_offsets=0,
         c = _expand(cos[pos].float(), interleaved)[:, None, :]
         sn = _expand(sin[pos].float(), interleaved)[:, None, :]
     else:
-        s = x.shape[1]
-        if isinstance(seqlen_offsets, int):
-            idx = seqlen_offsets + torch.arange(s, device=cos.device)
-            c = _expand(cos[idx].float(), interleaved)[None, :, None, :]
-            sn = _expand(sin[idx].float(), interleaved)[None, :, None, :]
-        else:
-            off = torch.as_tensor(seqlen_offsets, device=cos.device).long()
-            idx = off[:, None] + torch.arange(s, device=cos.device)[None, :]
-            c = _expand(cos[idx].float(), interleaved)[:, :, None, :]
-            sn = _expand(sin[idx].float(), interleaved)[:, :, None, :]
-    out = _rotate(x, c, sn, interleaved)
+        c, sn = rotary_factors(cos, sin, x.shape[1], interleaved,
+                               seqlen_offsets)
+    out = apply_rotary_factors(x, c, sn, interleaved)
     if inplace:
         x.copy_(out)
         return x
@@ -131,6 +146,7 @@ class RotaryEmbedding:
             if scale_base is not None else None)
         self._cached_len = 0
         self._cos = self._sin = self._cos_k = self._sin_k = None
+        self._by_len = {}
 
     def _tensor(self, a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
@@ -154,6 +170,30 @@ class RotaryEmbedding:
             self._sin = self._tensor(np.sin(freqs) * scale)
             self._cos_k = self._tensor(np.cos(freqs) / scale)
             self._sin_k = self._tensor(np.sin(freqs) / scale)
+
+    def tables(self, seqlen):
+        """(cos, sin) of q as the JAX `_update(seqlen)` leaves them on a
+        fresh object: at least `seqlen` rows, grown and kept across calls;
+        under xPos scaling, whose values depend on the table's length,
+        exactly `seqlen` rows, kept by length."""
+        if self.scale is None:
+            self._update(seqlen)
+            return self._cos, self._sin
+        if seqlen not in self._by_len:
+            fresh = RotaryEmbedding(
+                self.dim, self.base, self.interleaved, self.scale_base,
+                self.pos_idx_in_fp32, self.interpolation_factor,
+                device=self.device)
+            fresh._update(seqlen)
+            self._by_len[seqlen] = (fresh._cos, fresh._sin)
+        return self._by_len[seqlen]
+
+    def factors(self, seqlen, seqlen_offsets=0, table_len=None):
+        """`rotary_factors` of positions seqlen_offsets + 0 .. seqlen - 1
+        over `tables(table_len or seqlen)`."""
+        cos, sin = self.tables(table_len or seqlen)
+        return rotary_factors(cos, sin, seqlen, self.interleaved,
+                              seqlen_offsets)
 
     def cos_sin(self, seqlen):
         """The (cos, sin) tables of q for positions 0 .. seqlen - 1 or more,

@@ -1,12 +1,14 @@
-"""GPT model (counterpart of `flash_attn_tpu/models/gpt.py`: `GPTModel:178`,
-`GPTLMHeadModel:274`, the factories `create_mixer_cls:41`,
-`create_mlp_cls:81`, `create_block:120`).
+"""GPT model family (counterpart of `flash_attn_tpu/models/gpt.py`:
+`GPTModel:178`, `GPTLMHeadModel:274`, the factories `create_mixer_cls:41`,
+`create_mlp_cls:81`, `create_block:120`, `remap_state_dict_hf_gpt2:370`).
 
-`GPTConfig` carries the `transformers.GPT2Config` attribute names that the
-JAX model reads, so a GPT-2 config maps over field by field.  Features this
-slice does not cover raise `NotImplementedError`: rotary, grouped KV heads
-at model level, parallel blocks, post-norm, RMSNorm, muP and tensor
-parallelism.
+`GPTConfig` carries the `transformers.GPT2Config` attribute names, plus the
+extended ones, that the JAX model reads, so every family the JAX package
+maps onto this one skeleton (LLaMA, Baichuan, GPT-NeoX, Falcon, BigCode:
+`models/{llama,baichuan,gpt_neox,falcon,bigcode}.py`) maps onto the port's
+the same way: rotary (full or partial, interleaved or rotate-half), grouped
+and multi-query KV heads, RMSNorm, and parallel blocks with tied or untied
+norms.  Post-norm, muP and tensor parallelism raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -18,10 +20,14 @@ import torch
 from torch import nn
 
 from flash_attn_tpu_torch.env import default_device
-from flash_attn_tpu_torch.models.common import JaxParams, init_weights
-from flash_attn_tpu_torch.modules.block import Block, _Norm
+from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
+from flash_attn_tpu_torch.models.common import (JaxParams, as_tensors,
+                                                canonical_to_state_dict,
+                                                init_weights)
+from flash_attn_tpu_torch.modules.block import Block, ParallelBlock, _Norm
 from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
-from flash_attn_tpu_torch.modules.mha import MHA, InferenceParams
+from flash_attn_tpu_torch.modules.mha import (MHA, InferenceParams,
+                                              rotary_factors)
 from flash_attn_tpu_torch.modules.mlp import ACT2FN, GatedMlp, Mlp
 from flash_attn_tpu_torch.ops.activations import gelu_approx, swiglu_fwd
 
@@ -33,6 +39,8 @@ class GPTConfig:
     n_embd: int = 768
     n_layer: int = 12
     n_head: int = 12
+    n_head_kv: Optional[int] = None
+    head_dim: Optional[int] = None
     n_inner: Optional[int] = None
     activation_function: str = "gelu_new"
     layer_norm_epsilon: float = 1e-5
@@ -43,17 +51,20 @@ class GPTConfig:
     mlp_fc1_bias: bool = True
     mlp_fc2_bias: bool = True
     residual_in_fp32: bool = False
-    prenorm: bool = True
+    rms_norm: bool = False
+    rotary_emb_fraction: float = 0.0
+    rotary_emb_base: float = 10000.0
+    rotary_emb_scale_base: Optional[float] = None
+    rotary_emb_interleaved: bool = False
+    parallel_block: bool = False
+    parallel_block_tied_norm: bool = False
     window_size: tuple = (-1, -1)
     attn_softcap: float = 0.0
     use_alibi: bool = False
     no_abs_pos_emb: bool = False
     multiple_of: int = 128
-    # Not covered by this slice: any other value raises NotImplementedError.
-    n_head_kv: Optional[int] = None
-    rotary_emb_fraction: float = 0.0
-    parallel_block: bool = False
-    rms_norm: bool = False
+    # Not ported: any other value raises NotImplementedError.
+    prenorm: bool = True
     use_mup: bool = False
     tensor_parallel: bool = False
 
@@ -73,12 +84,14 @@ class GPTConfig:
     def max_position_embeddings(self):
         return self.n_positions
 
+    def rotary_dim(self) -> int:
+        """Rotated features of a head: the fraction of the head dim
+        (`create_mixer_cls:41`)."""
+        head_dim = self.head_dim or self.n_embd // self.n_head
+        return int(self.rotary_emb_fraction * head_dim)
+
     def check_supported(self):
         unsupported = {
-            "rotary_emb_fraction": self.rotary_emb_fraction > 0,
-            "n_head_kv": self.n_head_kv not in (None, self.n_head),
-            "parallel_block": self.parallel_block,
-            "rms_norm": self.rms_norm,
             "use_mup": self.use_mup,
             "tensor_parallel": self.tensor_parallel,
             "prenorm": not self.prenorm,  # GPTModel's post-norm path
@@ -95,6 +108,20 @@ class CausalLMOutput:
     inference_params: Optional[InferenceParams] = None
 
 
+def create_mixer(config: GPTConfig, layer_idx: int, device, dtype,
+                 rotary_emb: Optional[RotaryEmbedding] = None):
+    return MHA(config.n_embd, config.n_head, num_heads_kv=config.n_head_kv,
+               head_dim=config.head_dim, qkv_proj_bias=config.qkv_proj_bias,
+               out_proj_bias=config.out_proj_bias, causal=True,
+               layer_idx=layer_idx, rotary_emb_dim=config.rotary_dim(),
+               rotary_emb_base=config.rotary_emb_base,
+               rotary_emb_scale_base=config.rotary_emb_scale_base,
+               rotary_emb_interleaved=config.rotary_emb_interleaved,
+               window_size=config.window_size, softcap=config.attn_softcap,
+               use_alibi=config.use_alibi, rotary_emb=rotary_emb,
+               device=device, dtype=dtype)
+
+
 def create_mlp(config: GPTConfig, device, dtype):
     act = config.activation_function
     inner = config.n_inner or 4 * config.n_embd
@@ -109,23 +136,26 @@ def create_mlp(config: GPTConfig, device, dtype):
                **kw)
 
 
-def create_block(config: GPTConfig, layer_idx: int, device, dtype):
-    mixer = MHA(config.n_embd, config.n_head,
-                qkv_proj_bias=config.qkv_proj_bias,
-                out_proj_bias=config.out_proj_bias, causal=True,
-                layer_idx=layer_idx, window_size=config.window_size,
-                softcap=config.attn_softcap, use_alibi=config.use_alibi,
-                device=device, dtype=dtype)
-    return Block(config.n_embd, mixer, create_mlp(config, device, dtype),
-                 prenorm=config.prenorm,
-                 residual_in_fp32=config.residual_in_fp32,
-                 norm_eps=config.layer_norm_epsilon, device=device,
-                 dtype=dtype)
+def create_block(config: GPTConfig, layer_idx: int, device, dtype,
+                 rotary_emb: Optional[RotaryEmbedding] = None):
+    mixer = create_mixer(config, layer_idx, device, dtype, rotary_emb)
+    mlp = create_mlp(config, device, dtype)
+    kw = dict(residual_in_fp32=config.residual_in_fp32,
+              rms_norm=config.rms_norm, norm_eps=config.layer_norm_epsilon,
+              device=device, dtype=dtype)
+    if config.parallel_block:
+        return ParallelBlock(config.n_embd, mixer, mlp,
+                             tied_norm=config.parallel_block_tied_norm, **kw)
+    return Block(config.n_embd, mixer, mlp, prenorm=config.prenorm, **kw)
 
 
 class GPTModel(nn.Module):
-    """Embeddings, N pre-norm blocks, final norm.  `device=None` means CUDA
-    and raises RuntimeError when there is none."""
+    """Embeddings, N pre-norm (or parallel) blocks, final norm.
+    `device=None` means CUDA and raises RuntimeError when there is none.
+
+    Under rotary the layers share one `RotaryEmbedding` (tables built once,
+    on the model's device, grown to the longest length asked for) and each
+    forward computes its rotation factors once for all of them."""
 
     def __init__(self, config: GPTConfig, *, device=None, dtype=torch.float32):
         super().__init__()
@@ -133,15 +163,21 @@ class GPTModel(nn.Module):
         config.check_supported()
         self.config = config
         self.dtype = dtype
-        n_pos = (0 if config.use_alibi or config.no_abs_pos_emb
+        rotary = config.rotary_dim() > 0
+        n_pos = (0 if rotary or config.use_alibi or config.no_abs_pos_emb
                  else config.n_positions)
         self.embeddings = GPT2Embeddings(config.n_embd, config.vocab_size,
                                          n_pos, device=device, dtype=dtype)
+        self.rotary_emb = (RotaryEmbedding(
+            config.rotary_dim(), base=config.rotary_emb_base,
+            interleaved=config.rotary_emb_interleaved,
+            scale_base=config.rotary_emb_scale_base, device=device)
+            if rotary else None)
         self.layers = nn.ModuleList(
-            create_block(config, i, device, dtype)
+            create_block(config, i, device, dtype, self.rotary_emb)
             for i in range(config.n_layer))
         self.ln_f = _Norm(config.n_embd, config.layer_norm_epsilon,
-                          device=device, dtype=dtype)
+                          is_rms=config.rms_norm, device=device, dtype=dtype)
 
     def forward(self, input_ids, position_ids=None, inference_params=None):
         s = input_ids.shape[1]
@@ -150,13 +186,26 @@ class GPTModel(nn.Module):
             position_ids = lengths[:, None] + torch.arange(
                 s, device=input_ids.device, dtype=lengths.dtype)[None, :]
         hidden_states = self.embeddings(input_ids, position_ids)
-        residual = None
+        kw = {}
+        if self.rotary_emb is not None:
+            kw["rotary"] = rotary_factors(self.rotary_emb, s, inference_params)
+        parallel = self.config.parallel_block
+        residual = hidden_states2 = None
         for layer in self.layers:
-            hidden_states, residual = layer(hidden_states, residual,
-                                            inference_params=inference_params)
+            if parallel:
+                hidden_states, hidden_states2, residual = layer(
+                    hidden_states, hidden_states2, residual,
+                    inference_params=inference_params, **kw)
+            else:
+                hidden_states, residual = layer(
+                    hidden_states, residual,
+                    inference_params=inference_params, **kw)
         res_dtype = (torch.float32 if self.config.residual_in_fp32
                      else hidden_states.dtype)
-        residual = hidden_states.to(res_dtype) + residual
+        acc = hidden_states.to(res_dtype)
+        if hidden_states2 is not None:
+            acc = acc + hidden_states2.to(res_dtype)
+        residual = acc if residual is None else acc + residual
         hidden_states = self.ln_f(residual.to(self.dtype))
         if inference_params is not None:
             # once per forward, not per layer (gpt.py:265-269)
@@ -208,8 +257,9 @@ def state_dict_from_jax_params(params, config: GPTConfig):
     (nested dicts of numpy arrays, with or without the top "params" key).
 
     Dense kernels (in, out) are transposed to `nn.Linear.weight` (out, in).
-    Raises KeyError if an expected array is missing and ValueError if any
-    array of the tree is left unused."""
+    RMS norms have no bias, a tied parallel block no norm2.  Raises KeyError
+    if an expected array is missing and ValueError if any array of the
+    tree is left unused."""
     p = JaxParams(params)
     tr = "transformer"
     p.take(f"{tr}/embeddings/wte/embedding",
@@ -217,10 +267,12 @@ def state_dict_from_jax_params(params, config: GPTConfig):
     if p.has(f"{tr}/embeddings/wpe/embedding"):
         p.take(f"{tr}/embeddings/wpe/embedding",
                "transformer.embeddings.wpe.weight")
+    tied = config.parallel_block and config.parallel_block_tied_norm
     for i in range(config.n_layer):
         jp, tp = f"{tr}/layers_{i}", f"transformer.layers.{i}"
         p.norm(f"{jp}/norm1", f"{tp}.norm1")
-        p.norm(f"{jp}/norm2", f"{tp}.norm2")
+        if not tied:
+            p.norm(f"{jp}/norm2", f"{tp}.norm2")
         p.dense(f"{jp}/mixer/Wqkv", f"{tp}.mixer.Wqkv")
         p.dense(f"{jp}/mixer/out_proj", f"{tp}.mixer.out_proj")
         p.dense(f"{jp}/mlp/fc1", f"{tp}.mlp.fc1")
@@ -229,3 +281,30 @@ def state_dict_from_jax_params(params, config: GPTConfig):
     if not config.tie_word_embeddings:
         p.dense("lm_head", "lm_head")
     return p.state_dict()
+
+
+def remap_state_dict_hf_gpt2(state_dict, config: GPTConfig):
+    """A Hugging Face GPT-2 state dict (`GPT2LMHeadModel`, tensors or numpy
+    arrays) as the port's state_dict (`remap_state_dict_hf_gpt2:370`).
+    GPT-2's `Conv1D` weights are (in, out) and are transposed to
+    `nn.Linear`'s (out, in).  Raises ValueError on an unused key."""
+    sd = as_tensors(state_dict)
+    sd.pop("lm_head.weight", None)  # tied to wte
+    cd = {"transformer.embeddings.word_embeddings.weight":
+          sd.pop("transformer.wte.weight")}
+    if "transformer.wpe.weight" in sd:
+        cd["transformer.embeddings.position_embeddings.weight"] = sd.pop(
+            "transformer.wpe.weight")
+    for n in ("weight", "bias"):
+        cd[f"transformer.ln_f.{n}"] = sd.pop(f"transformer.ln_f.{n}")
+    for i in range(config.n_layer):
+        hf, our = f"transformer.h.{i}.", f"transformer.layers.{i}."
+        for src, dst in (("ln_1", "norm1"), ("ln_2", "norm2")):
+            for n in ("weight", "bias"):
+                cd[f"{our}{dst}.{n}"] = sd.pop(f"{hf}{src}.{n}")
+        for src, dst in (("attn.c_attn", "mixer.Wqkv"),
+                         ("attn.c_proj", "mixer.out_proj"),
+                         ("mlp.c_fc", "mlp.fc1"), ("mlp.c_proj", "mlp.fc2")):
+            cd[f"{our}{dst}.weight"] = sd.pop(f"{hf}{src}.weight").t()
+            cd[f"{our}{dst}.bias"] = sd.pop(f"{hf}{src}.bias")
+    return canonical_to_state_dict({**cd, **sd}, config)

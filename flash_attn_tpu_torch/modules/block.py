@@ -1,12 +1,13 @@
-"""Transformer block (counterpart of `flash_attn_tpu/modules/block.py`:
-`_Norm:19`, `Block:39`, pre-norm at `:85-112`, post-norm at `:113-127`).
+"""Transformer blocks (counterpart of `flash_attn_tpu/modules/block.py`:
+`_Norm:19`, `Block:39`, pre-norm at `:85-112`, post-norm at `:113-127`,
+`ParallelBlock:130`).
 
 Both kinds pass their mixer keyword arguments (`key_padding_mask`,
 `cu_seqlens`, `max_seqlen`) through to the mixer, as JAX's `**mixer_kwargs`
 does.  Dropout and stochastic depth are not ported: the blocks compute the
 JAX `deterministic=True` path (the trainer's GPT-2 runs with every dropout
 at 0, as the JAX `ModelConfig.to_gpt2_config` sets it, and BERT is driven
-in evaluation mode).  `ParallelBlock` is not ported yet.
+in evaluation mode).
 """
 
 from __future__ import annotations
@@ -44,14 +45,17 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, mixer: nn.Module, mlp: nn.Module, *,
                  prenorm: bool = True, residual_in_fp32: bool = False,
-                 norm_eps: float = 1e-5, device=None, dtype=torch.float32):
+                 rms_norm: bool = False, norm_eps: float = 1e-5, device=None,
+                 dtype=torch.float32):
         super().__init__()
         device = default_device(device)
         self.prenorm = prenorm
         self.dtype = dtype
         self.residual_in_fp32 = residual_in_fp32
-        self.norm1 = _Norm(dim, norm_eps, device=device, dtype=dtype)
-        self.norm2 = _Norm(dim, norm_eps, device=device, dtype=dtype)
+        self.norm1 = _Norm(dim, norm_eps, is_rms=rms_norm, device=device,
+                           dtype=dtype)
+        self.norm2 = _Norm(dim, norm_eps, is_rms=rms_norm, device=device,
+                           dtype=dtype)
         self.mixer = mixer
         self.mlp = mlp
 
@@ -71,3 +75,44 @@ class Block(nn.Module):
         residual = h.to(res_dtype) + residual
         h = self.mlp(self.norm2(residual.to(self.dtype)))
         return h, residual
+
+
+class ParallelBlock(nn.Module):
+    """GPT-J / NeoX / Falcon parallel block: (h1, h2, residual) -> (attn
+    out, mlp out, residual) with residual = h1 + h2 + residual (in float32
+    under `residual_in_fp32`), attn out = mixer(norm1(residual)) and mlp out
+    = mlp(norm2(residual)); with `tied_norm` the MLP takes norm1's output
+    and there is no norm2.  Pass h2 = residual = None to the first block.
+    With a cache the same triple comes back: the caches are updated in
+    place."""
+
+    def __init__(self, dim: int, mixer: nn.Module, mlp: nn.Module, *,
+                 tied_norm: bool = False, residual_in_fp32: bool = False,
+                 rms_norm: bool = False, norm_eps: float = 1e-5, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        device = default_device(device)
+        self.dtype = dtype
+        self.residual_in_fp32 = residual_in_fp32
+        self.norm1 = _Norm(dim, norm_eps, is_rms=rms_norm, device=device,
+                           dtype=dtype)
+        self.norm2 = (None if tied_norm else
+                      _Norm(dim, norm_eps, is_rms=rms_norm, device=device,
+                            dtype=dtype))
+        self.mixer = mixer
+        self.mlp = mlp
+
+    def forward(self, hidden_states1, hidden_states2=None, residual=None,
+                inference_params=None, **mixer_kwargs):
+        res_dtype = (torch.float32 if self.residual_in_fp32
+                     else hidden_states1.dtype)
+        acc = hidden_states1.to(res_dtype)
+        if hidden_states2 is not None:
+            acc = acc + hidden_states2.to(res_dtype)
+        residual = acc if residual is None else acc + residual
+        hn1 = self.norm1(residual.to(self.dtype))
+        hn2 = hn1 if self.norm2 is None else self.norm2(
+            residual.to(self.dtype))
+        attn_out = self.mixer(hn1, inference_params=inference_params,
+                              **mixer_kwargs)
+        return attn_out, self.mlp(hn2), residual

@@ -10,10 +10,18 @@ per-batch `seqused` lengths and its padded rows are zeroed (`:251-266`).
 With a cache, attention runs through the forward-only prefill and decode
 kernels.
 
+Rotary (`rotary_emb_dim > 0`) rotates q and k before the branches, as JAX
+does: without a cache at positions 0 .. s - 1 over tables of s rows (so a
+packed (1, total) stream is rotated by stream position, not per sequence,
+`:226-233`), with one at each row's cached length over tables of
+`max_seqlen` rows (`:351-360`), before the cache append.  The tables are a
+`RotaryEmbedding` that a model shares between its layers, and a model
+computes one call's factors once for all of them (`rotary_factors`).
+
 Only the self-attention, single-device case is ported; cross attention,
-rotary, tensor parallelism and the sharded / ring paths are queued.
-KV caches keep the JAX layout (b, hk, smax, d), which the decode kernel reads
-without transposes.
+tensor parallelism and the sharded / ring paths are queued.  KV caches keep
+the JAX layout (b, hk, smax, d), which the decode kernel reads without
+transposes.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from flash_attn_tpu_torch.env import default_device
 from flash_attn_tpu_torch.interface import _attn_bhsd, flash_attn_varlen_func
 from flash_attn_tpu_torch.kernels.flash_decode import decode_attn_bhsd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attn_fwd_bhsd
+from flash_attn_tpu_torch.layers.rotary import (RotaryEmbedding,
+                                                apply_rotary_factors)
 
 DECODE_MAX_SEQLEN = 16  # s <= this runs the decode kernel (mha.py:367)
 
@@ -60,19 +70,46 @@ def alibi_slopes(h: int, device=None) -> torch.Tensor:
     return torch.tensor(s, dtype=torch.float32, device=device)
 
 
+def rotary_factors(rotary_emb: RotaryEmbedding, seqlen: int,
+                   inference_params: Optional[InferenceParams] = None):
+    """The factors that rotate one call's q and k (`rotary.rotary_factors`):
+    positions 0 .. seqlen - 1 over tables of seqlen rows without a cache,
+    each row's cached length onwards over tables of `max_seqlen` rows with
+    one."""
+    if inference_params is None:
+        return rotary_emb.factors(seqlen)
+    return rotary_emb.factors(seqlen, inference_params.lengths_per_sample,
+                              inference_params.max_seqlen)
+
+
 class MHA(nn.Module):
-    """Self-attention: Wqkv -> attention kernel -> out_proj."""
+    """Self-attention: Wqkv -> (rotary) -> attention kernel -> out_proj.
+
+    With `rotary_emb_dim > 0` the first rotary_emb_dim features of each q
+    and k head are rotated; `rotary_emb` is the model's shared table (a new
+    one on this module's device when None)."""
 
     def __init__(self, embed_dim: int, num_heads: int,
                  num_heads_kv: Optional[int] = None,
                  head_dim: Optional[int] = None, qkv_proj_bias: bool = True,
                  out_proj_bias: bool = True,
                  softmax_scale: Optional[float] = None, causal: bool = True,
-                 layer_idx: int = 0, window_size=(-1, -1),
+                 layer_idx: int = 0, rotary_emb_dim: int = 0,
+                 rotary_emb_base: float = 10000.0,
+                 rotary_emb_scale_base: Optional[float] = None,
+                 rotary_emb_interleaved: bool = False, window_size=(-1, -1),
                  softcap: float = 0.0, use_alibi: bool = False, *,
-                 device=None, dtype=torch.float32):
+                 rotary_emb: Optional[RotaryEmbedding] = None, device=None,
+                 dtype=torch.float32):
         super().__init__()
         device = default_device(device)
+        self.rotary_emb_dim = rotary_emb_dim
+        self.rotary_emb = None
+        if rotary_emb_dim > 0:
+            self.rotary_emb = rotary_emb or RotaryEmbedding(
+                rotary_emb_dim, base=rotary_emb_base,
+                interleaved=rotary_emb_interleaved,
+                scale_base=rotary_emb_scale_base, device=device)
         self.num_heads = num_heads
         self.num_heads_kv = num_heads_kv or num_heads
         self.head_dim = head_dim or embed_dim // num_heads
@@ -97,16 +134,27 @@ class MHA(nn.Module):
                                   else self.alibi.expand(b, -1)))
 
     def forward(self, x, inference_params: Optional[InferenceParams] = None,
-                key_padding_mask=None, cu_seqlens=None, max_seqlen=None):
+                key_padding_mask=None, cu_seqlens=None, max_seqlen=None,
+                rotary=None):
         """x: (b, s, embed_dim), or (1, total, embed_dim) packed with
         `cu_seqlens` (b + 1,) int32 and `max_seqlen`; key_padding_mask:
         (b, s) bool prefix mask, True = valid token.  A cache ignores both,
-        as in JAX."""
+        as in JAX.  `rotary`: this call's `rotary_factors`, computed here
+        when None."""
         b, s, _ = x.shape
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
         qkv = self.Wqkv(x)
-        q = qkv[..., : h * d].reshape(b, s, h, d)
-        k = qkv[..., h * d: (h + hk) * d].reshape(b, s, hk, d)
+        if self.rotary_emb is None:
+            q = qkv[..., : h * d].reshape(b, s, h, d)
+            k = qkv[..., h * d: (h + hk) * d].reshape(b, s, hk, d)
+        else:
+            if rotary is None:
+                rotary = rotary_factors(self.rotary_emb, s, inference_params)
+            # q and k heads side by side, rotated in one pass
+            qk = apply_rotary_factors(
+                qkv[..., : (h + hk) * d].reshape(b, s, h + hk, d), *rotary,
+                interleaved=self.rotary_emb.interleaved)
+            q, k = qk[:, :, :h], qk[:, :, h:]
         v = qkv[..., (h + hk) * d:].reshape(b, s, hk, d)
         if inference_params is None and cu_seqlens is not None:
             ctx = flash_attn_varlen_func(

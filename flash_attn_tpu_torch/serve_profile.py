@@ -1,12 +1,14 @@
-"""The served batch of GPT-2 small, and where its time goes on the card.
+"""The served batch, and where its time goes on the card.
 
-    python -m flash_attn_tpu_torch.serve_profile
+    python -m flash_attn_tpu_torch.serve_profile [--model llama3_8b]
 
-`gpt2_small` and `serve_batch` define the one serving run that both this
-profile and `chip_smoke.py`'s serve phase drive: GPT-2 small (124M, random
-weights from a seed, bfloat16), `ServingEngine` with 8 slots, and 16 requests
-of seeded prompt length 16-480, 64 new tokens each, two of them sampled with
-top-k 20 at temperature 0.8.
+`serve_batch` defines the one serving traffic that both this profile and
+`chip_smoke.py`'s serve phases drive: `ServingEngine` with 8 slots, and 16
+requests of seeded prompt length 16-480, 64 new tokens each, two of them
+sampled with top-k 20 at temperature 0.8.  The models, random weights from
+a seed, bfloat16: `gpt2_small` (GPT-2 124M, the `serve` phase) and
+`llama3_8b` (Meta-Llama-3-8B's widths at a cut depth, the `llama_serve`
+phase).
 
 Run as a script, it serves that batch once to warm up, once timed without the
 profiler and once under `torch.profiler`, and prints one JSON line: the wall
@@ -18,13 +20,16 @@ largest first.  Needs CUDA.
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
+import types
 
 import numpy as np
 import torch
 
 from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+from flash_attn_tpu_torch.models.llama import llama_config_to_gpt2_config
 from flash_attn_tpu_torch.serving import ServingEngine
 
 REQUESTS = 16
@@ -40,6 +45,30 @@ def gpt2_small(seed: int = 0) -> GPTLMHeadModel:
                     activation_function="gelu_new", layer_norm_epsilon=1e-5)
     model = GPTLMHeadModel(cfg, dtype=torch.bfloat16)
     return model.init_weights(torch.Generator().manual_seed(seed)).eval()
+
+
+# Meta-Llama-3-8B's published config (HF meta-llama/Meta-Llama-3-8B
+# config.json), with its Hugging Face attribute names.
+LLAMA3_8B = types.SimpleNamespace(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+    rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=8192,
+    initializer_range=0.02, bos_token_id=128000, eos_token_id=128001,
+    tie_word_embeddings=False)
+
+
+def llama3_8b(seed: int = 0, n_layer: int = 8) -> GPTLMHeadModel:
+    """Meta-Llama-3-8B's widths through `llama_config_to_gpt2_config`, cut
+    to `n_layer` of its 32 layers, random N(0, 0.02) weights drawn on the
+    card from `seed`, bfloat16, on CUDA."""
+    cfg = llama_config_to_gpt2_config(LLAMA3_8B)
+    cfg.n_layer = n_layer
+    model = GPTLMHeadModel(cfg, dtype=torch.bfloat16)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return model.init_weights(gen).eval()
+
+
+MODELS = {"gpt2_small": gpt2_small, "llama3_8b": llama3_8b}
 
 
 def engine(model, seed: int = 0) -> ServingEngine:
@@ -97,7 +126,9 @@ def busy_seconds(events) -> float:
 
 
 def main():
-    model = gpt2_small()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=list(MODELS), default="gpt2_small")
+    model = MODELS[ap.parse_args().model]()
     warm_up(model)
     eng, _, _ = serve_batch(model)
     _, wall = timed_run(eng)
@@ -117,7 +148,8 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     stats = eng.stats
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "wall_s": wall,
+        "device": torch.cuda.get_device_name(0),
+        "layers": model.config.n_layer, "wall_s": wall,
         "profiled_wall_s": profiled_wall,
         "generated_tokens": stats.generated_tokens,
         "decode_steps": stats.decode_steps,

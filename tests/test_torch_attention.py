@@ -20,6 +20,16 @@ from flash_attn_tpu_torch.utils import testing as port_testing
 
 O_ATOL, LSE_ATOL = 2e-5, 1e-5
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Tiny torch ops run faster on one thread than with torch's threads
+    contending with JAX's (and other test processes') in one machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = {
     "causal_ragged": dict(h=4, hk=4, d=32, sq=24, sk=64, seqused_q=[24, 17],
                           seqused_k=[64, 40], causal=True),

@@ -20,6 +20,16 @@ from flash_attn_tpu_torch.kernels import combine as port_combine
 from flash_attn_tpu_torch.kernels import flash_decode as port_decode
 
 O_ATOL, LSE_ATOL = 2e-5, 1e-5
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Tiny torch ops run faster on one thread than with torch's threads
+    contending with JAX's (and other test processes') in one machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMAX = 40
 
 CASES = {

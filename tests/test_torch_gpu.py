@@ -132,6 +132,43 @@ def test_serving_on_cuda_matches_cpu_plain_path(cuda):
         assert float((logits.max(-1).values - picked).max()) < 0.05
 
 
+def test_llama_cached_path_on_cuda_matches_cpu_plain_path(cuda):
+    """A tiny Llama (d = 128, GQA 4 over 2, RMSNorm, interleaved rotary,
+    SwiGLU, untied head) in bf16: a cached prefill of 40 tokens (the
+    prefill kernel) and 4 decode steps (the decode kernel) on CUDA, each
+    step's logits held by the tolerance rule to float32 on the CPU, with
+    bf16 on the CPU as the yardstick; one launch a layer and step."""
+    from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+    from flash_attn_tpu_torch.modules.mha import InferenceParams
+
+    cfg = GPTConfig(n_embd=512, n_head=4, n_head_kv=2, n_layer=2,
+                    vocab_size=1000, n_positions=0, n_inner=1024,
+                    activation_function="swiglu", rms_norm=True,
+                    rotary_emb_fraction=1.0, rotary_emb_interleaved=True,
+                    rotary_emb_base=500000.0, tie_word_embeddings=False,
+                    qkv_proj_bias=False, out_proj_bias=False,
+                    mlp_fc1_bias=False, mlp_fc2_bias=False)
+    models = [GPTLMHeadModel(cfg, device=dev, dtype=dt).init_weights(
+        torch.Generator().manual_seed(0)).eval()
+        for dev, dt in ((cuda, torch.bfloat16), ("cpu", torch.float32),
+                        ("cpu", torch.bfloat16))]
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 1000, (2, 44)))
+    ips = [InferenceParams(max_seqlen=64, max_batch_size=2,
+                           lengths_per_sample=torch.zeros(
+                               2, dtype=torch.int32, device=dev))
+           for dev in (cuda, "cpu", "cpu")]
+    counts = flash_fwd.launches, flash_decode.launches
+    for step, x in enumerate([ids[:, :40]] + [ids[:, 40 + i:41 + i]
+                                              for i in range(4)]):
+        with torch.no_grad():
+            out = [m(x.to(ip.lengths_per_sample.device),
+                     inference_params=ip).logits.float().cpu()
+                   for m, ip in zip(models, ips)]
+        check_close(out[0], out[1], out[2], label=f"step {step}")
+    assert (flash_fwd.launches - counts[0],
+            flash_decode.launches - counts[1]) == (2, 8)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("case", ["causal", "gqa", "window_softcap_alibi",

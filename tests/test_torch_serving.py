@@ -28,6 +28,25 @@ PROMPT_LENS = (7, 19, 33, 12, 25)
 MAX_NEW = (6, 11, 9, 14, 8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def quick_jax_compiles():
+    """The JAX references here are tiny programs whose time is compiling,
+    not running: compile them with XLA's optimizations off."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Tiny torch ops run faster on one thread than with torch's threads
+    contending with JAX's (and other test processes') in one machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     from transformers import GPT2Config
