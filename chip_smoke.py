@@ -40,13 +40,22 @@ LLaMA family follows: `llama_serve` serves the serve phase's batch with a
 Llama at Meta-Llama-3-8B's widths (8 of its 32 layers, built through
 `llama_config_to_gpt2_config`), greedy tokens against fp32 on the CPU;
 `llama_train` trains the JAX package's llama-1b recipe (n_embd 2048, GQA
-16 over 4, seq_len 2048, batch 8; 13 of its 24 layers, which is what fits
-on the card), then holds a 2-layer model's gradients at full width to
-fp32 on the CPU; `families` runs a cached prefill and decode steps of
-Baichuan-7B, Pythia-1.4B, Falcon-7B and StarCoderBase-1B at their
-published widths (2 layers each) against fp32 on the CPU.  The kernel
-cases at those paths' shapes are forward (g), backward (e) and decode
-(e).  The last phase, `diag`, holds the diagnostic probes' kernels
+16 over 4, seq_len 2048, batch 8) at all 24 layers with block remat, an
+EMA and an evaluation every 3 steps, reading a seeded .bin token shard,
+then holds a 2-layer model's gradients at full width to fp32 on the CPU;
+`remat_check` holds the gradients under each remat policy to those
+without remat, orders their peak memory, and holds float16 autocast to
+fp32 on the CPU; `vit_train` trains ViT-B/16 (imagenet-vit-b.yaml: 224
+px, batch 64, synthetic images, device-side augmentation) after a
+2-layer gradient check against fp32 on the CPU, and checkpoints it;
+`eval_cli` runs `training.eval.main --checkpoint --ema` on that
+checkpoint against `Trainer.evaluate(use_ema=True)`; `native_loader`
+builds the C++ token loader with g++ and holds its rows to the memmap
+dataset's and its order to the pinned one; `families` runs a cached
+prefill and decode steps of Baichuan-7B, Pythia-1.4B, Falcon-7B and
+StarCoderBase-1B at their published widths (2 layers each) against fp32
+on the CPU.  The kernel cases at those paths' shapes are forward (g) and
+(h), backward (e) and (f), and decode (e).  The last phase, `diag`, holds the diagnostic probes' kernels
 (`csrc/diag_*.cu`) against their plain twins and runs the three probes
 (`flash_attn_tpu_torch.diag`: the paged DMA stream, the decode-body ladder,
 the varlen tick bisect) at the JAX scripts' full shapes.  The kernel launch
@@ -74,7 +83,14 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2**20  # H100 SXM L2
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries `t_s`, the seconds since
+    the script started."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -379,7 +395,7 @@ def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     ff.launches, fb.launches_dq, fb.launches_dkv = before  # not a main path
     library_ms = None
     if library:
-        library_ms = sdpa_backward_ms(q, k, v, do)
+        library_ms = sdpa_backward_ms(q, k, v, do, causal=causal)
     res = dict(phase="kernel_bwd", case=label, b=b, h=h, hk=hk, sq=sq, sk=sk,
                d=d, causal=causal, window=list(window), softcap=softcap,
                alibi=alibi, seqused_q=list(seqused_q),
@@ -399,11 +415,12 @@ def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     return res
 
 
-def sdpa_backward_ms(q, k, v, do):
+def sdpa_backward_ms(q, k, v, do, causal=True):
     """Device time of the backward of `F.scaled_dot_product_attention(
-    is_causal=True)` on the same (b, h, s, d) inputs: one retained graph per
-    input set, `torch.autograd.grad(out, (q, k, v), do, retain_graph=True)`
-    timed.  A yardstick only: the port never calls it."""
+    is_causal=causal)` on the same (b, h, s, d) inputs: one retained graph
+    per input set, `torch.autograd.grad(out, (q, k, v), do,
+    retain_graph=True)` timed.  A yardstick only: the port never calls
+    it."""
     import torch
     import torch.nn.functional as F
 
@@ -411,7 +428,7 @@ def sdpa_backward_ms(q, k, v, do):
     gqa = k.shape[1] != q.shape[1]
     for qc, kc, vc, dc in input_copies(q, k, v, do):
         qc, kc, vc = (t.detach().requires_grad_() for t in (qc, kc, vc))
-        out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True,
+        out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal,
                                              enable_gqa=gqa)
         graphs.append((out, (qc, kc, vc), dc))
     return time_ms(lambda out, ins, dc: torch.autograd.grad(
@@ -423,6 +440,12 @@ def sdpa_masked(q, k, v, live):
 
     # live (b, sq, sk) as a (b, 1, sq, sk) mask, True = attend
     return F.scaled_dot_product_attention(q, k, v, attn_mask=live[:, None])
+
+
+def sdpa_full(q, k, v, live):
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v)
 
 
 def sdpa_causal(q, k, v, live):
@@ -652,6 +675,17 @@ def train_phase():
     return res
 
 
+def device_profiler():
+    """A `torch.profiler` window that records the card's activity only:
+    `profile_summary` reads nothing else, and the host ops' events took
+    most of a window's time to collect (35 s of `llama_serve`'s window on
+    an H100 machine's host)."""
+    import torch
+
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+
+
 def profile_summary(prof, n, step_s, unit, share, match, top=10):
     """What a `torch.profiler` window over `n` steps (forwards) tells:
     device kernels and busy ms per step (the union of the kernel
@@ -690,14 +724,14 @@ def profile_train_steps(t, steps, step_s):
 
     batches = [next(t.loader) for _ in range(steps)]
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    t0 = time.perf_counter()
+    with device_profiler() as prof:
         for batch in batches:
             t.train_step(batch)
         torch.cuda.synchronize()
-    return dict(steps=steps, **profile_summary(
-        prof, steps, step_s, "step", "attention", "flash_"))
+    summary = profile_summary(prof, steps, step_s, "step", "attention",
+                              "flash_")
+    return dict(steps=steps, seconds=time.perf_counter() - t0, **summary)
 
 
 def cosine(a, b):
@@ -707,32 +741,43 @@ def cosine(a, b):
     return float(a @ b / (a.norm() * b.norm()))
 
 
-def card_vs_cpu_grads(gpu, cpu):
-    """One batch through the Trainers' loss and backward, `gpu` on the card
-    (kernels, bf16 autocast) and `cpu` in fp32 on the CPU (plain path), on
-    the same weights: the two losses, the cosine of the whole gradient and
-    the least cosine of a matrix's, with its name."""
+def grads_of(t, batch):
+    """One batch through the Trainer's loss and backward: (loss, {name:
+    gradient}), the gradients cleared from the model."""
+    loss = t.loss(batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in
+             t.model.named_parameters()}
+    t.optimizer.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def compare_grads(card, cpu):
+    """`card` (kernels, bf16 or fp16 autocast) and `cpu` (fp32, plain path),
+    each (loss, {name: gradient}) of one batch on the same weights: the two
+    losses, the cosine of the whole gradient and the least cosine of a
+    matrix's, with its name."""
     import torch
 
-    batch = next(cpu.loader)
-    matrices = [n for n, p in cpu.model.named_parameters() if p.ndim == 2]
-    losses, grads = [], []
-    for t in (gpu, cpu):
-        loss = t.loss(batch)
-        loss.backward()
-        losses.append(loss.item())
-        grads.append({n: p.grad.float().cpu().flatten()
-                      for n, p in t.model.named_parameters()})
-        t.optimizer.zero_grad(set_to_none=True)
-    names = list(grads[0])
-    cos_all = cosine(torch.cat([grads[0][n] for n in names]),
-                     torch.cat([grads[1][n] for n in names]))
-    cos_2d = {n: cosine(grads[0][n], grads[1][n]) for n in matrices}
+    flat = [{n: g.float().cpu().flatten() for n, g in grads.items()}
+            for _, grads in (card, cpu)]
+    names = list(flat[0])
+    cos_all = cosine(torch.cat([flat[0][n] for n in names]),
+                     torch.cat([flat[1][n] for n in names]))
+    cos_2d = {n: cosine(flat[0][n], flat[1][n]) for n, g in cpu[1].items()
+              if g.ndim == 2}
     worst = min(cos_2d, key=cos_2d.get)
-    return dict(loss_gpu=losses[0], loss_cpu_fp32=losses[1],
-                loss_gap=abs(losses[0] - losses[1]), grad_cosine=cos_all,
+    return dict(loss_gpu=card[0], loss_cpu_fp32=cpu[0],
+                loss_gap=abs(card[0] - cpu[0]), grad_cosine=cos_all,
                 min_matrix_grad_cosine=cos_2d[worst],
                 min_cosine_matrix=worst)
+
+
+def card_vs_cpu_grads(gpu, cpu):
+    """`compare_grads` of the Trainers `gpu` (on the card) and `cpu` (fp32
+    on the CPU) on the CPU one's first batch."""
+    batch = next(cpu.loader)
+    return compare_grads(grads_of(gpu, batch), grads_of(cpu, batch))
 
 
 def check_grads(label, res):
@@ -1401,9 +1446,7 @@ def profile_kvcache_step(caches, q, k, v, cos, sin, lens, table, descales,
     from flash_attn_tpu_torch import interface
 
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_profiler() as prof:
         for layer, (kc, vc) in enumerate(caches):
             interface.flash_attn_with_kvcache(
                 q[layer], kc, vc, k=k[layer], v=v[layer], rotary_cos=cos,
@@ -1874,9 +1917,7 @@ def profile_bert_forwards(model, ids, mask, types, n, step_s):
     import torch
 
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+    with torch.no_grad(), device_profiler() as prof:
         for _ in range(n):
             model(ids, mask, types, unpad_varlen=True)
         torch.cuda.synchronize()
@@ -2567,9 +2608,7 @@ def flex_phase():
         attention(q, k, v)[0].backward(do)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / FLEX_PROFILE_LAYERS
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_profiler() as prof:
         for q, k, v, do in ins:
             attention(q, k, v)[0].backward(do)
         torch.cuda.synchronize()
@@ -2842,6 +2881,26 @@ def diag_phase():
         launches=launches)
 
 
+# The native C++ token loader's example order on a pinned case: a shard of
+# the tokens 0, 1, ..., n_tokens - 1 (uint16), so that a row's first token
+# over seq_len is its example.  `tests/test_torch_train_rest.py` holds the
+# CPU build to the same order, and to the JAX package's loader.
+NATIVE_CASE = dict(n_tokens=4097, seq_len=64, batch=4, seed=7, batches=2)
+NATIVE_ORDER = [25, 30, 37, 32, 38, 13, 46, 54]
+
+
+def native_order(native_loader, path):
+    """The examples of the first NATIVE_CASE["batches"] batches, in batch
+    order, that `native_loader.NativeLMLoader` gives over `path`."""
+    c = NATIVE_CASE
+    ld = native_loader.NativeLMLoader([path], c["seq_len"], c["batch"],
+                                      seed=c["seed"])
+    got = dict(iter(ld))
+    ld.close()
+    return [int(got[i][r, 0]) // c["seq_len"] for i in range(c["batches"])
+            for r in range(c["batch"])]
+
+
 # The Llama paths.  `llama_serve` serves the serve phase's traffic with
 # Meta-Llama-3-8B's widths (HF meta-llama/Meta-Llama-3-8B config.json,
 # `serve_profile.LLAMA3_8B`) cut to LLAMA_SERVE_LAYERS of its 32 layers;
@@ -2857,14 +2916,14 @@ LLAMA_SERVE_LAYERS = 8
 # (PERF.md); a wrong token from a broken kernel sits about a deviation
 # below it.
 LLAMA_MARGIN_SHARE = 0.1
-# The recipe's 24 layers do not fit on one 80 GB card: on the card (NVIDIA
-# H100 80GB HBM3, 700 W) a step's peak was 27.4, 43.0 and 58.6 GB at 2, 6
-# and 10 layers, 19.6 GB plus 3.9 GB a layer (weights, gradients and AdamW
-# state of 60.8 M parameters a layer, and the activations the backward
-# keeps, most of them float32 copies in the elementwise passes), so 24
-# layers would take about 113 GB.  The depth is cut to the most layers that
-# leave room on the card; width, seq_len and batch are the recipe's.
-LLAMA_TRAIN_LAYERS = 13
+# The recipe's 24 layers do not fit on one 80 GB card without remat
+# (measured on an H100 80GB: 19.6 GB plus 3.9 GB a layer); with
+# `model.remat_blocks` (policy "none")
+# a layer keeps only its block inputs, and all 24 are trained.
+LLAMA_TRAIN_LAYERS = 24
+LLAMA_SHARD_TOKENS = 16 * 2**20  # the seeded .bin shard: 8191 examples
+LLAMA_EVAL_EVERY = 3
+LLAMA_EMA_DECAY = 0.999
 LLAMA_TRAIN_STEPS = 5
 LLAMA_PROFILE_STEPS = 2
 LLAMA_CHECK_SEQ = 256
@@ -2901,6 +2960,7 @@ def llama_serve_phase(gen_seed=0):
     cfg = model.config
     init_s = time.perf_counter() - t0
     warm_up(model, gen_seed)
+    warm_s = time.perf_counter() - t0 - init_s
     eng, prompts, uids = serve_batch(model, gen_seed)
     torch.cuda.reset_peak_memory_stats()
     ff.launches = fd.launches = 0
@@ -2909,16 +2969,17 @@ def llama_serve_phase(gen_seed=0):
     peak = torch.cuda.max_memory_allocated()
     st = eng.stats
     prof_eng, _, _ = serve_batch(model, gen_seed)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    t0 = time.perf_counter()
+    with device_profiler() as prof:
         timed_run(prof_eng)
     profile = profile_summary(prof, 1, wall, "run", "attention", "flash_")
+    profile["seconds"] = time.perf_counter() - t0
     res = dict(phase="llama_serve",
                model="Meta-Llama-3-8B widths (random weights, seed 0)",
                reduced=f"{LLAMA_SERVE_LAYERS} of 32 layers",
                params=sum(p.numel() for p in model.parameters()),
-               dtype="bfloat16", init_s=init_s, requests=len(prompts),
+               dtype="bfloat16", init_s=init_s, warm_s=warm_s,
+               requests=len(prompts),
                finished=st.finished, prefill_waves=st.prefill_waves,
                prefill_tokens=st.prefill_tokens,
                generated_tokens=st.generated_tokens,
@@ -3005,20 +3066,72 @@ def palm_flops_per_token(model, seq_len):
     return 6 * n + 12 * c.n_layer * c.n_head * head_dim * seq_len
 
 
-def llama_train_phase():
-    """Trainer.train() on the llama recipe, cut to LLAMA_TRAIN_LAYERS
-    layers, for LLAMA_TRAIN_STEPS steps after
-    TRAIN_WARMUP_STEPS warm-up steps, launches counted on those steps, then
-    LLAMA_PROFILE_STEPS steps under `torch.profiler`; then `train_check` at
-    full width, 2 layers and LLAMA_CHECK_SEQ tokens: gradients on the card
-    against fp32 on the CPU."""
+def write_token_shard(path, n_tokens, vocab, seed=0):
+    """A seeded uniform uint16 token shard (`data.dataset=<shard>.bin`), in
+    chunks so the host holds a few MB at a time."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for i in range(0, n_tokens, 2**22):
+            rng.integers(0, vocab, min(2**22, n_tokens - i),
+                         dtype=np.uint16).tofile(f)
+    return path
+
+
+class CountedEval:
+    """Inside a `with` block, the trainer's evaluate counts its kernel
+    launches and host time apart from the training steps' (the evaluations
+    inside `train()`); after it, evaluate is the class's method again and
+    nothing refers back to the trainer."""
+
+    def __init__(self, trainer):
+        from flash_attn_tpu_torch.kernels import flash_fwd as ff
+
+        self.ff, self.trainer, self.inner = ff, trainer, None
+        self.calls, self.launches, self.seconds, self.losses = 0, 0, 0.0, []
+
+    def __enter__(self):
+        self.inner = self.trainer.evaluate
+        self.trainer.evaluate = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.trainer.evaluate
+        self.trainer = self.inner = None
+
+    def __call__(self, use_ema=False):
+        import torch
+
+        torch.cuda.synchronize()
+        before, t0 = self.ff.launches, time.perf_counter()
+        loss = self.inner(use_ema=use_ema)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.launches += self.ff.launches - before
+        self.calls += 1
+        self.losses.append(loss)
+        return loss
+
+
+def llama_train_phase(shard):
+    """Trainer.train() on the llama recipe at its 24 layers with block
+    remat ("none"), EMA and an evaluation every LLAMA_EVAL_EVERY steps,
+    reading the seeded .bin `shard`: LLAMA_TRAIN_STEPS steps after
+    TRAIN_WARMUP_STEPS warm-up steps, launches counted on those steps (the
+    evaluations' apart), then LLAMA_PROFILE_STEPS steps under
+    `torch.profiler`; then evaluate() and evaluate(use_ema=True)."""
     import torch
     from flash_attn_tpu_torch.kernels import flash_bwd as fb
     from flash_attn_tpu_torch.kernels import flash_fwd as ff
     from flash_attn_tpu_torch.training.trainer import Trainer
 
     t0 = time.perf_counter()
-    t = Trainer(llama_train_config(model__n_layer=LLAMA_TRAIN_LAYERS))
+    t = Trainer(llama_train_config(
+        model__n_layer=LLAMA_TRAIN_LAYERS, model__remat_blocks=True,
+        model__remat_policy="none", data__dataset=shard,
+        trainer__ema_decay=LLAMA_EMA_DECAY,
+        trainer__eval_every=LLAMA_EVAL_EVERY))
     init_s = time.perf_counter() - t0
     n_layer = t.gpt_config.n_layer
     params = sum(p.numel() for p in t.model.parameters())
@@ -3030,60 +3143,400 @@ def llama_train_phase():
     torch.cuda.reset_peak_memory_stats()
     ff.launches = fb.launches_dq = fb.launches_dkv = 0
     t0 = time.perf_counter()
+    with CountedEval(t) as evals:
+        t.train(log_fn=logs.append)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(flash_fwd=ff.launches - evals.launches,
+                  flash_bwd_dq=fb.launches_dq, flash_bwd_dkv=fb.launches_dkv)
+    eval_launches = dict(flash_fwd=evals.launches, evaluations=evals.calls)
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + [m["loss"] for m in logs if "loss" in m]
+    seq, batch = t.config.data.seq_len, t.config.data.batch_size
+    tokens = t.speed.tokens_per_step * LLAMA_TRAIN_STEPS
+    step_s = (wall - evals.seconds) / LLAMA_TRAIN_STEPS
+    flops = palm_flops_per_token(t.model, seq) * tokens
+    profile = profile_train_steps(t, LLAMA_PROFILE_STEPS, step_s)
+    live_eval, ema_eval = t.evaluate(), t.evaluate(use_ema=True)
+    ema_gap = max(float((p.detach().float() - e).abs().max())
+                  for p, e in zip(t.model.parameters(), t.ema_params))
+    del t
+    torch.cuda.empty_cache()
+    res = dict(phase="llama_train",
+               model="llama-1b, pile-llama-1b.yaml (random weights, seed 0)",
+               reduced="one card: mesh 4x2 -> 1x1, optimizer-state sharding "
+               "off; block remat on (policy none); a local seeded .bin "
+               f"shard of {LLAMA_SHARD_TOKENS} uniform tokens for The Pile",
+               layers=n_layer, params=params, param_dtype="float32",
+               compute_dtype="bfloat16", remat_policy="none",
+               ema_decay=LLAMA_EMA_DECAY, eval_every=LLAMA_EVAL_EVERY,
+               seq_len=seq, batch_size=batch, steps=LLAMA_TRAIN_STEPS,
+               warmup_steps=TRAIN_WARMUP_STEPS, init_s=init_s, wall_s=wall,
+               eval_s=evals.seconds, step_ms=step_s * 1e3,
+               tokens_per_s=tokens / (step_s * LLAMA_TRAIN_STEPS),
+               model_tflops=flops / (step_s * LLAMA_TRAIN_STEPS) / 1e12,
+               share_of_989_tflops=flops / (step_s * LLAMA_TRAIN_STEPS)
+               / PEAK_FLOPS,
+               flops_formula="6 N + 12 L h d s a token (PaLM); the remat "
+               "recompute (a second forward a layer) is not counted",
+               max_memory_allocated=peak, losses=losses,
+               eval_losses_in_loop=evals.losses, eval_loss=live_eval,
+               eval_loss_ema=ema_eval, ema_max_abs_gap=ema_gap,
+               launches=counts, eval_launches=eval_launches, profile=profile)
+    emit(res)
+    want = n_layer * LLAMA_TRAIN_STEPS
+    if counts != dict(flash_fwd=2 * want, flash_bwd_dq=want,
+                      flash_bwd_dkv=want):
+        raise AssertionError(f"llama_train launches {counts}, expected "
+                             f"{2 * want} forwards (remat) and {want} of "
+                             "each backward kernel")
+    steps = range(TRAIN_WARMUP_STEPS + 1,
+                  TRAIN_WARMUP_STEPS + LLAMA_TRAIN_STEPS + 1)
+    if evals.launches != evals.calls * EVAL_STEPS * n_layer or \
+            evals.calls != sum(s % LLAMA_EVAL_EVERY == 0 for s in steps):
+        raise AssertionError(f"llama_train evaluations {eval_launches}")
+    if len(losses) != TRAIN_WARMUP_STEPS + LLAMA_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses + evals.losses
+            + [live_eval, ema_eval]):
+        raise AssertionError(f"llama_train losses {losses}, evaluations "
+                             f"{evals.losses}, {live_eval}, {ema_eval}")
+    if abs(losses[0] - LN_VOCAB) > 0.5:
+        raise AssertionError(f"llama_train first loss {losses[0]} not "
+                             f"within 0.5 of ln(50257)")
+    if not ema_gap > 0.0:
+        raise AssertionError("llama_train: the EMA equals the live weights")
+    if peak >= 80e9:
+        raise AssertionError(f"llama_train peak {peak} B")
+    return res
+
+
+REMAT_POLICIES = ("none", "dots", "dots_no_batch")
+
+
+def llama_check_phases(shard):
+    """The llama recipe at full width, 2 layers, as one Trainer on the card
+    (bf16) and its fp32 copy on the CPU, whose gradients on one batch of
+    LLAMA_CHECK_SEQ tokens are computed once and serve both checks.
+    `llama_train_check`: the card's gradients against them
+    (`check_grads`).  `remat_check`: (1) the card's gradients under each
+    remat policy against its own without remat (bitwise expected: the
+    kernels are deterministic), the forward launched twice a layer under
+    each; (2) on a batch of the recipe's size from `shard`, the peak memory
+    of one forward and backward under each policy and without; (3) float16
+    autocast with remat against the fp32 CPU gradients (`check_grads`)."""
+    import numpy as np
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    small = dict(model__n_layer=2, data__seq_len=LLAMA_CHECK_SEQ,
+                 data__batch_size=1)
+    t = Trainer(llama_train_config(**small))
+    cpu = Trainer(llama_train_config(model__dtype="float32", **small),
+                  device="cpu")
+    batch = next(cpu.loader)
+    ref = grads_of(cpu, batch)
+    del cpu
+    base_loss, base = grads_of(t, batch)
+    check = dict(phase="llama_train_check", layers=2,
+                 seq_len=LLAMA_CHECK_SEQ,
+                 **compare_grads((base_loss, base), ref))
+    emit(check)
+    check_grads("llama_train_check", check)
+
+    cfg = t.model.config
+    by_policy = {}
+    for policy in REMAT_POLICIES:
+        cfg.remat_blocks, cfg.remat_policy = True, policy
+        before = ff.launches
+        loss, grads = grads_of(t, batch)
+        fwd = ff.launches - before
+        flat = [torch.cat([g[n].flatten().float() for n in base])
+                for g in (grads, base)]
+        by_policy[policy] = dict(
+            loss=loss, loss_equal=loss == base_loss,
+            bitwise_equal=all(torch.equal(grads[n], base[n]) for n in base),
+            max_abs_diff=max(float((grads[n] - base[n]).abs().max())
+                             for n in base),
+            grad_cosine=cosine(*[x.cpu() for x in flat]),
+            forward_launches=fwd)
+    del base, grads, flat
+
+    data = llama_train_config().data
+    seq, rows = data.seq_len, data.batch_size
+    full = np.fromfile(shard, np.uint16, rows * (seq + 1)).astype(
+        np.int32).reshape(rows, seq + 1)
+    peaks = {}
+    for policy in (None,) + REMAT_POLICIES:
+        cfg.remat_blocks, cfg.remat_policy = policy is not None, \
+            policy or "none"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated()
+        grads_of(t, full)
+        torch.cuda.synchronize()
+        peaks[policy or "no_remat"] = (torch.cuda.max_memory_allocated()
+                                       - base_alloc)
+    del t
+    torch.cuda.empty_cache()
+
+    f16 = Trainer(llama_train_config(model__dtype="float16",
+                                     model__remat_blocks=True, **small))
+    fp16 = compare_grads(grads_of(f16, batch), ref)
+    del f16, ref
+    torch.cuda.empty_cache()
+    res = dict(phase="remat_check", layers=2, seq_len=LLAMA_CHECK_SEQ,
+               by_policy=by_policy, peak_bytes_above_weights=peaks,
+               peak_batch=f"{rows} x {seq} tokens of the .bin shard",
+               float16=fp16)
+    emit(res)
+    for policy, r in by_policy.items():
+        if not r["bitwise_equal"] and r["grad_cosine"] < GRAD_COSINE:
+            raise AssertionError(f"remat {policy}: gradients differ from "
+                                 f"no remat: {r}")
+        if r["forward_launches"] != 4:  # recomputed under every policy
+            raise AssertionError(f"remat {policy}: {r['forward_launches']} "
+                                 "forward launches for 2 layers, not 4")
+    if not peaks["none"] < peaks["dots"] <= peaks["no_remat"]:
+        raise AssertionError(f"remat peaks not ordered: {peaks}")
+    check_grads("remat_check float16", fp16)
+    return check, res
+
+
+# ViT-B/16 on ImageNet-sized inputs: the JAX package's recipe
+# (flash_attn_tpu/training/configs/experiment/imagenet-vit-b.yaml) as
+# written: 224 px, patch 16, 1000 classes, batch 64, bf16 over fp32 weights,
+# AdamW 1e-3, wd 0.05, beta2 0.999, clip 1, cosine after 10000 warm-up
+# steps, synthetic images, device-side augmentation.
+VIT_BATCH = 64
+VIT_TOKENS = (224 // 16) ** 2 + 1  # 196 patches and the class token
+VIT_WARMUP_STEPS = 3
+VIT_STEPS = 20
+VIT_PROFILE_STEPS = 3
+VIT_CHECK_BATCH = 8
+VIT_EMA_DECAY = 0.999
+LN_CLASSES = math.log(1000)
+
+
+def vit_train_config(**over):
+    """imagenet-vit-b.yaml's settings (the YAML is not read here, so that
+    no YAML parser is needed; `tests/test_torch_train_rest.py` holds the
+    two equal)."""
+    cfg = train_config()
+    m = cfg.model
+    m.task, m.name, m.n_embd, m.n_layer, m.n_head = (
+        "image", "vit-base-patch16-224", 768, 12, 12)
+    m.patch_size, m.image_size, m.num_classes = 16, 224, 1000
+    m.dtype = "bfloat16"
+    o = cfg.optimizer
+    o.lr, o.weight_decay, o.beta2, o.grad_clip = 1e-3, 0.05, 0.999, 1.0
+    cfg.scheduler.name = "cosine"
+    cfg.scheduler.warmup_steps, cfg.scheduler.decay_steps = 10000, 300000
+    cfg.data.dataset, cfg.data.batch_size = "synthetic", VIT_BATCH
+    for key, val in over.items():
+        section, field = key.split("__")
+        setattr(getattr(cfg, section), field, val)
+    return cfg
+
+
+def vit_flops_per_image(model, tokens):
+    """Training FLOPs an image, PaLM's formula over T tokens: 6 times each
+    matrix's parameters times the rows it multiplies (the blocks' over all
+    T, the patch projection's over the T - 1 patches, the head's over one
+    pooled row) plus 12 L h d T^2 of (non-causal) attention."""
+    def matrices(module):
+        return sum(p.numel() for p in module.parameters() if p.ndim >= 2)
+
+    blk = model.blocks[0].mixer
+    return (6 * (matrices(model.blocks) * tokens
+                 + matrices(model.patch_embed) * (tokens - 1)
+                 + matrices(model.head))
+            + 12 * len(model.blocks) * blk.num_heads * blk.head_dim
+            * tokens * tokens)
+
+
+def vit_train_phase(ckpt_dir):
+    """(1) A 2-layer ViT-B/16-width model's gradients on the card against
+    fp32 on the CPU (`check_grads`); (2) the recipe: VIT_WARMUP_STEPS
+    warm-up steps, VIT_STEPS timed steps of Trainer.train() with launches
+    counted, one evaluation counted apart, a checkpoint at the last step
+    (with an EMA of decay VIT_EMA_DECAY, for `eval_cli --ema`), then
+    VIT_PROFILE_STEPS steps under `torch.profiler`."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    small = dict(model__n_layer=2, data__batch_size=VIT_CHECK_BATCH,
+                 data__max_examples=VIT_CHECK_BATCH)
+    gpu = Trainer(vit_train_config(**small))
+    cpu = Trainer(vit_train_config(model__dtype="float32", **small),
+                  device="cpu")
+    check = dict(phase="vit_train_check", layers=2, batch=VIT_CHECK_BATCH,
+                 **card_vs_cpu_grads(gpu, cpu))
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    emit(check)
+    check_grads("vit_train_check", check)
+
+    t0 = time.perf_counter()
+    t = Trainer(vit_train_config(trainer__ema_decay=VIT_EMA_DECAY,
+                                 trainer__checkpoint_dir=ckpt_dir))
+    init_s = time.perf_counter() - t0
+    n_layer = len(t.model.blocks)
+    params = sum(p.numel() for p in t.model.parameters())
+    warm = [float(t.train_step(next(t.loader))[0])
+            for _ in range(VIT_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t.config.trainer.max_steps = t.step + VIT_STEPS
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    ff.launches = fb.launches_dq = fb.launches_dkv = 0
+    t0 = time.perf_counter()
     t.train(log_fn=logs.append)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(flash_fwd=ff.launches, flash_bwd_dq=fb.launches_dq,
                   flash_bwd_dkv=fb.launches_dkv)
     peak = torch.cuda.max_memory_allocated()
+    ff.launches = fb.launches_dq = fb.launches_dkv = 0
+    eval_loss = t.evaluate()
+    eval_counts = dict(flash_fwd=ff.launches, flash_bwd_dq=fb.launches_dq,
+                       flash_bwd_dkv=fb.launches_dkv)
+    t.save_checkpoint()
+    step = t.step
     losses = warm + [m["loss"] for m in logs if "loss" in m]
-    seq, batch = t.config.data.seq_len, t.config.data.batch_size
-    tokens = t.speed.tokens_per_step * LLAMA_TRAIN_STEPS
-    flops = palm_flops_per_token(t.model, seq) * tokens
-    profile = profile_train_steps(t, LLAMA_PROFILE_STEPS,
-                                  wall / LLAMA_TRAIN_STEPS)
+    images = VIT_BATCH * VIT_STEPS
+    flops = vit_flops_per_image(t.model, VIT_TOKENS) * images
+    profile = profile_train_steps(t, VIT_PROFILE_STEPS, wall / VIT_STEPS)
     del t
     torch.cuda.empty_cache()
-    res = dict(phase="llama_train",
-               model="llama-1b, pile-llama-1b.yaml (random weights, seed 0)",
-               reduced=f"{LLAMA_TRAIN_LAYERS} of 24 layers (memory); one "
-               "card: mesh 4x2 -> 1x1, optimizer-state sharding off; "
-               "synthetic tokens for The Pile",
-               params=params, param_dtype="float32",
-               compute_dtype="bfloat16", seq_len=seq,
-               batch_size=batch,
-               steps=LLAMA_TRAIN_STEPS, warmup_steps=TRAIN_WARMUP_STEPS,
-               init_s=init_s, wall_s=wall,
-               step_ms=wall / LLAMA_TRAIN_STEPS * 1e3,
-               tokens_per_s=tokens / wall, model_tflops=flops / wall / 1e12,
+    res = dict(phase="vit_train",
+               model="ViT-B/16, imagenet-vit-b.yaml (random weights, seed 0)",
+               reduced="none of scale: synthetic images (the recipe's own "
+               "default); EMA on (decay 0.999) so that eval_cli --ema reads "
+               "an EMA", params=params, param_dtype="float32",
+               compute_dtype="bfloat16", image_size=224, tokens=VIT_TOKENS,
+               batch_size=VIT_BATCH, steps=VIT_STEPS,
+               warmup_steps=VIT_WARMUP_STEPS, init_s=init_s, wall_s=wall,
+               step_ms=wall / VIT_STEPS * 1e3, images_per_s=images / wall,
+               model_tflops=flops / wall / 1e12,
                share_of_989_tflops=flops / wall / PEAK_FLOPS,
-               flops_formula="6 N + 12 L h d s a token (PaLM)",
-               max_memory_allocated=peak, losses=losses, launches=counts,
+               flops_formula="6 (N_blocks T + N_patch (T - 1) + N_head) + "
+               "12 L h d T^2 an image (PaLM's, non-causal)",
+               max_memory_allocated=peak, losses=losses,
+               eval_loss=eval_loss, launches=counts,
+               eval_launches=eval_counts, checkpoint_step=step,
                profile=profile)
     emit(res)
-    want = n_layer * LLAMA_TRAIN_STEPS
+    want = n_layer * VIT_STEPS
     if counts != dict(flash_fwd=want, flash_bwd_dq=want, flash_bwd_dkv=want):
-        raise AssertionError(f"llama_train launches {counts}, expected "
-                             f"{want} of each kernel")
-    if len(losses) != TRAIN_WARMUP_STEPS + LLAMA_TRAIN_STEPS or not all(
-            math.isfinite(x) for x in losses):
-        raise AssertionError(f"llama_train losses {losses}")
-    if abs(losses[0] - LN_VOCAB) > 0.5:
-        raise AssertionError(f"llama_train first loss {losses[0]} not "
-                             f"within 0.5 of ln(50257)")
+        raise AssertionError(f"vit_train launches {counts}, expected {want} "
+                             "of each kernel")
+    if eval_counts != dict(flash_fwd=n_layer * EVAL_STEPS, flash_bwd_dq=0,
+                           flash_bwd_dkv=0):
+        raise AssertionError(f"vit_train eval launches {eval_counts}")
+    if len(losses) != VIT_WARMUP_STEPS + VIT_STEPS or not all(
+            math.isfinite(x) for x in losses + [eval_loss]):
+        raise AssertionError(f"vit_train losses {losses}, eval {eval_loss}")
+    if abs(losses[0] - LN_CLASSES) > 0.5:
+        raise AssertionError(f"vit_train first loss {losses[0]} not within "
+                             "0.5 of ln(1000)")
+    return res
 
-    small = dict(model__n_layer=2, data__seq_len=LLAMA_CHECK_SEQ,
-                 data__batch_size=1)
-    gpu = Trainer(llama_train_config(**small))
-    cpu = Trainer(llama_train_config(model__dtype="float32", **small),
-                  device="cpu")
-    check = dict(phase="llama_train_check", layers=2,
-                 seq_len=LLAMA_CHECK_SEQ, **card_vs_cpu_grads(gpu, cpu))
-    del gpu, cpu
+
+def config_overrides(cfg):
+    """Every field of a TrainConfig as `section.field=value` overrides,
+    which `training.run.parse_overrides` reads back (values by repr)."""
+    import dataclasses
+
+    return [f"{sec.name}.{f.name}={getattr(getattr(cfg, sec.name), f.name)!r}"
+            for sec in dataclasses.fields(cfg)
+            for f in dataclasses.fields(getattr(cfg, sec.name))]
+
+
+def eval_cli_phase(ckpt_dir, step):
+    """`training.eval.main` with --checkpoint and --ema on the vit_train
+    checkpoint, against `Trainer.evaluate(use_ema=True)` of a Trainer built
+    in-process from the same config and checkpoint (both read the loader
+    from its start): equal to 1e-5 relative."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+    from flash_attn_tpu_torch.training import eval as eval_cli
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    cfg = vit_train_config(trainer__ema_decay=VIT_EMA_DECAY,
+                           trainer__checkpoint_dir=ckpt_dir)
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(out):
+        result = eval_cli.main(["--checkpoint", path, "--ema",
+                                *config_overrides(cfg)])
+    cli_s = time.perf_counter() - t0
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
     torch.cuda.empty_cache()
-    emit(check)
-    check_grads("llama_train_check", check)
-    res["check"] = check
+    t = Trainer(cfg)
+    t.load_checkpoint(path, loader=False)
+    ref = t.evaluate(use_ema=True)
+    live = t.evaluate()
+    del t
+    torch.cuda.empty_cache()
+    res = dict(phase="eval_cli", printed=printed, cli_s=cli_s,
+               trainer_eval_loss_ema=ref, trainer_eval_loss_live=live,
+               rel_diff=abs(printed["eval_loss"] - ref) / abs(ref))
+    emit(res)
+    if printed != result or printed["step"] != step or not printed["ema"]:
+        raise AssertionError(f"eval_cli printed {printed}")
+    if res["rel_diff"] > 1e-5:
+        raise AssertionError(f"eval_cli loss {printed['eval_loss']} != "
+                             f"Trainer.evaluate(use_ema=True) {ref}")
+    return res
+
+
+NATIVE_BATCHES = 4
+
+
+def native_loader_phase(shard, workdir):
+    """The C++ loader, built with g++ at first use: over the llama_train
+    shard, every row of its first NATIVE_BATCHES batches equals a row of
+    the memmap `LMDataset` over the same shard at an offset aligned to
+    seq_len; on the pinned arange shard its order is NATIVE_ORDER."""
+    import numpy as np
+    from flash_attn_tpu_torch.training import native_loader
+    from flash_attn_tpu_torch.training.data import lm_dataset_from_bin
+
+    t0 = time.perf_counter()
+    lib = native_loader.build()
+    build_s = time.perf_counter() - t0
+    seq = 2048
+    ds = lm_dataset_from_bin(shard, seq)
+    ld = native_loader.NativeLMLoader([shard], seq, 8, seed=0)
+    got = [next(ld) for _ in range(NATIVE_BATCHES)]
+    ld.close()
+    starts = np.asarray(ds.tokens[: len(ds) * seq]).reshape(len(ds), seq)
+    found = []
+    for idx, batch in got:
+        for row in batch:
+            cand = np.flatnonzero((starts[:, :4] == row[:4]).all(axis=1))
+            hits = [int(e) for e in cand
+                    if np.array_equal(np.asarray(ds[e], np.int32), row)]
+            if len(hits) != 1:
+                raise AssertionError(f"native_loader: batch {idx} row "
+                                     f"matches examples {hits}")
+            found.append(hits[0])
+    arange = os.path.join(workdir, "arange.bin")
+    np.arange(NATIVE_CASE["n_tokens"], dtype=np.uint16).tofile(arange)
+    order = native_order(native_loader, arange)
+    res = dict(phase="native_loader", library=str(lib), build_s=build_s,
+               batches=sorted(i for i, _ in got), examples=found,
+               num_batches=ld.num_batches, pinned_order=order)
+    emit(res)
+    if order != NATIVE_ORDER:
+        raise AssertionError(f"native_loader order {order} != "
+                             f"{NATIVE_ORDER}")
     return res
 
 
@@ -3268,6 +3721,10 @@ def main():
     fwd["g"] = fwd_case("g: llama-1b training shape", 8, 16, 4, 2048, 2048,
                         128, [2048] * 8, [2048] * 8, gen,
                         library=sdpa_causal)
+    fwd["h"] = fwd_case("h: ViT-B/16 training shape", VIT_BATCH, 12, 12,
+                        VIT_TOKENS, VIT_TOKENS, 64, [VIT_TOKENS] * VIT_BATCH,
+                        [VIT_TOKENS] * VIT_BATCH, gen, causal=False,
+                        library=sdpa_full)
     dec = {}
     dec["a"] = decode_case("a: serving decode", 8, 12, 12, 1, 1024, 64, gen,
                            library=True)
@@ -3291,6 +3748,10 @@ def main():
                         64, [1024, 700, 1024], [1024, 500, 0], gen)
     bwd["e"] = bwd_case("e: llama-1b training shape", 8, 16, 4, 2048, 2048,
                         128, [2048] * 8, [2048] * 8, gen, library=True)
+    bwd["f"] = bwd_case("f: ViT-B/16 training shape", VIT_BATCH, 12, 12,
+                        VIT_TOKENS, VIT_TOKENS, 64, [VIT_TOKENS] * VIT_BATCH,
+                        [VIT_TOKENS] * VIT_BATCH, gen, causal=False,
+                        library=True, repeat=True)
 
     kvc = kernel_kvcache_phase(gen)
     vfwd, vbwd = kernel_varlen_phases()
@@ -3306,7 +3767,20 @@ def main():
     ffwd, fbwd, fcompiled = kernel_flex_phases()
     flexpath = flex_phase()
     lserve = llama_serve_phase()
-    ltrain = llama_train_phase()
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        shard = write_token_shard(os.path.join(workdir, "tokens.bin"),
+                                  LLAMA_SHARD_TOKENS, 50257)
+        ltrain = llama_train_phase(shard)
+        llama_check_phases(shard)
+        ckpt_dir = os.path.join(workdir, "vit_ckpt")
+        vit = vit_train_phase(ckpt_dir)
+        eval_cli_phase(ckpt_dir, vit["checkpoint_step"])
+        native_loader_phase(shard, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     fam = families_phase()
     dg = diag_phase()
 
@@ -3319,12 +3793,16 @@ def main():
              + train["launches"]["flash_fwd"]
              + lserve["flash_fwd_launches"]
              + ltrain["launches"]["flash_fwd"]
+             + vit["launches"]["flash_fwd"]
              + fam["launches"]["flash_fwd"],
              launches_by_path=dict(
                  serve=serve["flash_fwd_launches"],
                  train=train["launches"]["flash_fwd"],
                  llama_serve=lserve["flash_fwd_launches"],
                  llama_train=ltrain["launches"]["flash_fwd"],
+                 llama_train_evaluations=ltrain["eval_launches"]["flash_fwd"],
+                 vit_train=vit["launches"]["flash_fwd"],
+                 vit_evaluation=vit["eval_launches"]["flash_fwd"],
                  families=fam["launches"]["flash_fwd"]),
              max_abs_err=fwd["a"]["max_abs_err_o"], ms=fwd["a"]["kernel_ms"],
              kernel_device_ms=fwd["a"]["kernel_device_ms"],
@@ -3366,10 +3844,12 @@ def main():
              source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attn_tpu/kernels/flash_bwd.py:121",
              launches=train["launches"]["flash_bwd_dq"]
-             + ltrain["launches"]["flash_bwd_dq"],
+             + ltrain["launches"]["flash_bwd_dq"]
+             + vit["launches"]["flash_bwd_dq"],
              launches_by_path=dict(
                  train=train["launches"]["flash_bwd_dq"],
-                 llama_train=ltrain["launches"]["flash_bwd_dq"]),
+                 llama_train=ltrain["launches"]["flash_bwd_dq"],
+                 vit_train=vit["launches"]["flash_bwd_dq"]),
              max_abs_err=a["max_abs_err_dq"], ms=a["dq_kernel_ms"],
              plain_ms=a["plain_ms"], bound_ms=a["dq_bound_ms"],
              bound_by=a["dq_bound_by"], library_ms=a["library_ms"],
@@ -3386,10 +3866,12 @@ def main():
              source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
              replaces="flash_attn_tpu/kernels/flash_bwd.py:232",
              launches=train["launches"]["flash_bwd_dkv"]
-             + ltrain["launches"]["flash_bwd_dkv"],
+             + ltrain["launches"]["flash_bwd_dkv"]
+             + vit["launches"]["flash_bwd_dkv"],
              launches_by_path=dict(
                  train=train["launches"]["flash_bwd_dkv"],
-                 llama_train=ltrain["launches"]["flash_bwd_dkv"]),
+                 llama_train=ltrain["launches"]["flash_bwd_dkv"],
+                 vit_train=vit["launches"]["flash_bwd_dkv"]),
              max_abs_err=max(a["max_abs_err_dk"], a["max_abs_err_dv"]),
              ms=a["dkv_kernel_ms"], plain_ms=a["plain_ms"],
              bound_ms=a["dkv_bound_ms"], bound_by=a["dkv_bound_by"],

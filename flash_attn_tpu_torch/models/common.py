@@ -40,12 +40,15 @@ class JaxParams:
     def has(self, jax_path):
         return jax_path in self.flat
 
-    def take(self, jax_path, name, transpose=False):
+    def take(self, jax_path, name, axes=None):
+        """Move one array, its axes permuted by `axes` where given."""
         arr = self.flat.pop(jax_path)
-        self.sd[name] = torch.from_numpy(np.array(arr.T if transpose else arr))
+        if axes is not None:
+            arr = arr.transpose(axes)
+        self.sd[name] = torch.from_numpy(np.array(arr))
 
     def dense(self, jax_prefix, name):
-        self.take(f"{jax_prefix}/kernel", f"{name}.weight", transpose=True)
+        self.take(f"{jax_prefix}/kernel", f"{name}.weight", axes=(1, 0))
         if f"{jax_prefix}/bias" in self.flat:
             self.take(f"{jax_prefix}/bias", f"{name}.bias")
 

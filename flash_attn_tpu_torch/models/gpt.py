@@ -9,15 +9,27 @@ maps onto this one skeleton (LLaMA, Baichuan, GPT-NeoX, Falcon, BigCode:
 the same way: rotary (full or partial, interleaved or rotate-half), grouped
 and multi-query KV heads, RMSNorm, and parallel blocks with tied or untied
 norms.  Post-norm, muP and tensor parallelism raise `NotImplementedError`.
+
+`remat_blocks` rematerialises each block in the backward (`create_block:
+138-153`, `nn.remat`): `remat_policy="none"` recomputes the whole block
+(`torch.utils.checkpoint`), "dots" and "dots_no_batch" keep the outputs of
+the matrix products (`aten.mm` / `addmm`, and for "dots" `bmm`) and
+recompute the rest (selective checkpointing).  The attention kernels are
+recomputed under every policy, as the `pallas_call` is in JAX: they are not
+products of the list.  It applies to training forwards only, never under
+`torch.no_grad` or with a cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from flash_attn_tpu_torch.env import default_device
 from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
@@ -63,6 +75,8 @@ class GPTConfig:
     use_alibi: bool = False
     no_abs_pos_emb: bool = False
     multiple_of: int = 128
+    remat_blocks: bool = False
+    remat_policy: str = "none"  # "none" | "dots" | "dots_no_batch"
     # Not ported: any other value raises NotImplementedError.
     prenorm: bool = True
     use_mup: bool = False
@@ -100,6 +114,35 @@ class GPTConfig:
         if bad:
             raise NotImplementedError(
                 f"GPT features not ported yet: {', '.join(bad)}")
+        if self.remat_policy not in REMAT_SAVED_OPS:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+
+
+# The aten products whose outputs each remat policy keeps for the backward
+# (jax.checkpoint_policies.dots_saveable and
+# dots_with_no_batch_dims_saveable); everything else is recomputed.
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMAT_SAVED_OPS = {
+    "none": (),
+    "dots": _MM + (torch.ops.aten.bmm.default,),
+    "dots_no_batch": _MM,
+}
+
+
+def remat_block(block, policy: str, *args, **kwargs):
+    """block(*args, **kwargs) under activation checkpointing with the
+    policy's saved products.  No random state is kept: the blocks draw none
+    (dropout is not ported)."""
+    saved = REMAT_SAVED_OPS[policy]
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if saved:
+        def keep(ctx, op, *a, **k):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, keep)
+    return checkpoint(block, *args, **kw, **kwargs)
 
 
 @dataclasses.dataclass
@@ -191,7 +234,12 @@ class GPTModel(nn.Module):
             kw["rotary"] = rotary_factors(self.rotary_emb, s, inference_params)
         parallel = self.config.parallel_block
         residual = hidden_states2 = None
+        remat = (self.config.remat_blocks and inference_params is None
+                 and torch.is_grad_enabled())
         for layer in self.layers:
+            if remat:
+                layer = functools.partial(remat_block, layer,
+                                          self.config.remat_policy)
             if parallel:
                 hidden_states, hidden_states2, residual = layer(
                     hidden_states, hidden_states2, residual,

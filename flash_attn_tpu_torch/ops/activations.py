@@ -17,6 +17,12 @@ def gelu_approx(x):
     return out.to(x.dtype)
 
 
+def gelu_exact(x):
+    """erf GELU in float32, cast back (`activations.py:29`): Hugging Face's
+    "gelu" and the ViT's activation."""
+    return torch.nn.functional.gelu(x.float()).to(x.dtype)
+
+
 def sqrelu_fwd(x):
     """Squared ReLU (`activations.py:37`)."""
     r = torch.relu(x)

@@ -1,8 +1,7 @@
 """Training metrics (counterpart of `flash_attn_tpu/training/callbacks.py`:
 `SpeedMonitor:18`, `model_flops_per_token:40`, `FlopCount:52`,
-`global_norm:60`, `Perplexity:92`).
-
-`NormMonitor`, `causality_check` and `NumTokens` are not ported yet.
+`global_norm:60`, `NormMonitor:69`, `causality_check:77`,
+`Perplexity:92`, `NumTokens:109`).
 """
 
 from __future__ import annotations
@@ -59,6 +58,28 @@ def global_norm(tensors) -> float:
     return float(torch.sqrt(sum(t.float().square().sum() for t in tensors)))
 
 
+class NormMonitor:
+    """The global norms of the parameters and of their gradients."""
+
+    def __call__(self, params, grads):
+        return {"param_norm": global_norm(params),
+                "grad_norm": global_norm(grads)}
+
+
+@torch.no_grad()
+def causality_check(model, input_ids, pos: int, atol=1e-3) -> bool:
+    """Perturb the tokens after `pos`: the logits at positions <= pos must
+    stay within `atol` (the JAX check takes `apply_fn` and params; this one
+    the model)."""
+    logits = model(input_ids).logits
+    perturbed = input_ids.clone()
+    perturbed[:, pos + 1:] = (input_ids[:, pos + 1:] + 1) % logits.shape[-1]
+    logits_p = model(perturbed).logits
+    diff = (logits[:, : pos + 1].float()
+            - logits_p[:, : pos + 1].float()).abs().max()
+    return bool(diff <= atol)
+
+
 class Perplexity:
     """Running perplexity: exp(total nll / total tokens)."""
 
@@ -74,3 +95,13 @@ class Perplexity:
         if self.total_tokens == 0:
             return float("nan")
         return float(np.exp(self.total_nll / self.total_tokens))
+
+
+class NumTokens:
+    """Monotone token counter that survives checkpoint resume."""
+
+    def __init__(self, count: int = 0):
+        self.count = count
+
+    def update(self, n: int):
+        self.count += n

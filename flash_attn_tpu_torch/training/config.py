@@ -7,9 +7,9 @@ file or override dict written for one loads into the other.
 `ModelConfig.to_gpt_config` builds the port's `GPTConfig` directly (the JAX
 `to_gpt2_config` goes through `transformers`).  Settings this port does not
 cover yet raise `NotImplementedError` in `check_supported`, which the
-`Trainer` calls: the image task, a mesh other than 1x1x1, ZeRO, block
-rematerialisation, HF datasets, EMA, the plateau scheduler and float16
-compute.
+`Trainer` calls: a mesh other than 1x1x1, ZeRO, and hub datasets or
+tokenizers (they need the network and `transformers`; only
+`tokenizer="bytes"` over local .txt / .jsonl files is ported).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from flash_attn_tpu_torch.models.gpt import GPTConfig
 @dataclass
 class ModelConfig:
     name: str = "gpt2-small"
-    task: str = "lm"  # "lm"; "image" (ViT) is not ported
+    task: str = "lm"  # "lm" (GPT) or "image" (ViT classification)
     n_embd: int = 768
     n_layer: int = 12
     n_head: int = 12
@@ -37,15 +37,18 @@ class ModelConfig:
     residual_in_fp32: bool = True
     tie_word_embeddings: bool = True
     parallel_block: bool = False
-    # compute dtype: "bfloat16" runs the forward and the loss under
-    # torch.autocast over parameters stored in `param_dtype`
+    # compute dtype: "bfloat16" or "float16" runs the forward and the loss
+    # under torch.autocast over parameters stored in `param_dtype` (float16
+    # with no loss scaler, as in JAX)
     dtype: str = "bfloat16"
     # "float32": fp32 master weights (mixed precision); "bfloat16": the
     # parameters themselves are bf16 and no autocast runs
     param_dtype: str = "float32"
+    # per-block activation checkpointing; remat_policy "none" recomputes
+    # the whole block, "dots" / "dots_no_batch" keep the matmul outputs
     remat_blocks: bool = False
     remat_policy: str = "none"
-    # image-task (ViT) fields, kept so that JAX configs load
+    # image-task (ViT) fields
     patch_size: int = 16
     image_size: int = 224
     num_classes: int = 1000
@@ -64,7 +67,8 @@ class ModelConfig:
             rotary_emb_fraction=self.rotary_emb_fraction,
             residual_in_fp32=self.residual_in_fp32,
             tie_word_embeddings=self.tie_word_embeddings,
-            parallel_block=self.parallel_block)
+            parallel_block=self.parallel_block,
+            remat_blocks=self.remat_blocks, remat_policy=self.remat_policy)
 
 
 @dataclass
@@ -82,8 +86,8 @@ class OptimizerConfig:
 
 @dataclass
 class SchedulerConfig:
-    # cosine | linear | constant | step | multistep | invsqrt | poly;
-    # plateau is not ported
+    # cosine | linear | constant | step | multistep | invsqrt | poly |
+    # plateau
     name: str = "cosine"
     warmup_steps: int = 100
     decay_steps: int = 10000
@@ -98,11 +102,14 @@ class SchedulerConfig:
 
 @dataclass
 class DataConfig:
-    dataset: str = "synthetic"  # synthetic | <path to token .npy/.bin>
+    # synthetic | <path to token .npy/.bin>; for the image task synthetic
+    # | <.npz shard or ImageFolder directory>
+    dataset: str = "synthetic"
     seq_len: int = 1024
     batch_size: int = 8
     seed: int = 0
-    # HF-datasets / local-text datamodule: not ported
+    # local-text datamodule (`hf_data`): text_files with tokenizer "bytes";
+    # hub datasets and tokenizers are not ported
     hf_dataset: Optional[str] = None
     hf_config: Optional[str] = None
     text_files: Optional[list] = None
@@ -132,8 +139,8 @@ class TrainerConfig:
     checkpoint_dir: str = "checkpoints"
     resume: bool = True
     seed: int = 0
-    ema_decay: float = 0.0  # EMA: not ported
-    # loggers: stdout | jsonl | csv
+    ema_decay: float = 0.0
+    # loggers: stdout | jsonl | csv | tensorboard | wandb | mlflow
     loggers: Optional[list] = None
     out_dir: str = "runs"
     # chunked LM-head cross-entropy: tokens per chunk (0 = unchunked)
@@ -153,19 +160,20 @@ class TrainConfig:
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for settings this port does not cover."""
-    m = cfg.mesh
+    m, d = cfg.mesh, cfg.data
     unsupported = {
-        "model.task != 'lm'": cfg.model.task != "lm",
         "mesh other than 1x1x1": (m.dcn_data, m.data, m.model, m.seq)
         != (1, 1, 1, 1),
         "ZeRO": cfg.optimizer.zero_stage > 0
         or cfg.optimizer.shard_optimizer_state,
-        "model.remat_blocks": cfg.model.remat_blocks,
-        "HF datasets": bool(cfg.data.hf_dataset or cfg.data.text_files),
-        "trainer.ema_decay > 0": cfg.trainer.ema_decay > 0.0,
-        "plateau scheduler": cfg.scheduler.name == "plateau",
+        "hub datasets (only local .txt / .jsonl data.text_files are "
+        "ported)": bool(d.hf_dataset),
+        f"tokenizer {d.tokenizer!r} (only tokenizer='bytes' is ported)":
+            bool(d.text_files) and d.tokenizer not in ("bytes", "byte"),
+        f"model.task {cfg.model.task!r}": cfg.model.task not in ("lm",
+                                                                  "image"),
         f"model.dtype {cfg.model.dtype!r}":
-            cfg.model.dtype not in ("float32", "bfloat16"),
+            cfg.model.dtype not in ("float32", "bfloat16", "float16"),
         f"model.param_dtype {cfg.model.param_dtype!r}":
             cfg.model.param_dtype not in ("float32", "bfloat16"),
     }

@@ -6,8 +6,8 @@ same seed: `synthetic_tokens`, `LMDataset` ((seq_len + 1)-token examples from
 a flat token array), `LoaderState` and `FaultTolerantLoader` (the epoch's
 permutation is a function of (seed, epoch), and the state records the
 position inside the epoch, so a restored state resumes the exact stream).
-`make_loader` reads synthetic data, `.npy` and `.bin` token files; HF
-datasets raise `NotImplementedError`.
+`make_loader` reads synthetic data, `.npy` and `.bin` token files, and
+local text files through `hf_data` (`:97-113`).
 """
 
 from __future__ import annotations
@@ -92,7 +92,16 @@ class FaultTolerantLoader:
 
 def make_loader(cfg, vocab_size: int) -> FaultTolerantLoader:
     if getattr(cfg, "hf_dataset", None) or getattr(cfg, "text_files", None):
-        raise NotImplementedError("HF / text datasets are not ported yet")
+        from flash_attn_tpu_torch.training.hf_data import (HFDataConfig,
+                                                           make_hf_loader)
+
+        hf_cfg = HFDataConfig(
+            dataset_name=cfg.hf_dataset, dataset_config=cfg.hf_config,
+            text_files=cfg.text_files, tokenizer=cfg.tokenizer,
+            detokenizer=cfg.detokenizer, cache_dir=cfg.cache_dir,
+            max_examples=cfg.max_examples)
+        return make_hf_loader(hf_cfg, cfg.seq_len, cfg.batch_size,
+                              seed=cfg.seed)
     if cfg.dataset == "synthetic":
         tokens = synthetic_tokens(
             vocab_size, cfg.batch_size * cfg.seq_len * 64 + 1, cfg.seed)
@@ -107,3 +116,8 @@ def make_loader(cfg, vocab_size: int) -> FaultTolerantLoader:
 def load_memmap_tokens(path, dtype=np.uint16):
     """Memory-map a flat binary token shard (read-only numpy view)."""
     return np.memmap(path, dtype=dtype, mode="r")
+
+
+def lm_dataset_from_bin(path, seq_len, dtype=np.uint16):
+    """`LMDataset` over a memory-mapped .bin token shard."""
+    return LMDataset(load_memmap_tokens(path, dtype), seq_len)

@@ -1,6 +1,6 @@
-"""Optimizer and learning-rate schedules (counterpart of
+"""Optimizer, learning-rate schedules and EMA (counterpart of
 `flash_attn_tpu/training/optim.py`: `decay_mask:16`, `make_schedule:31`,
-`make_optimizer:89`).
+`make_optimizer:89`, `ema_update:115`).
 
 The JAX optimizer is the optax chain clip-by-global-norm -> Adam (bias
 corrected, eps outside the square root) -> decoupled weight decay where
@@ -8,7 +8,10 @@ corrected, eps outside the square root) -> decoupled weight decay where
 updates already made.  Here `clip_by_global_norm` does the first link and
 `torch.optim.AdamW` with two parameter groups (decay and no decay) under a
 `LambdaLR` of the same schedule does the rest; the tests hold the two to
-each other.  The plateau scheduler is not ported.
+each other.  The plateau scheduler is `PlateauLR`: the schedule's warm-up
+times a factor that `on_eval` shrinks when the eval loss stops improving
+(JAX keeps that factor in `opt_state.hyperparams["lr_mult"]` and the
+Trainer's `_on_eval`, `trainer.py:342-356`, shrinks it).
 """
 
 from __future__ import annotations
@@ -93,7 +96,10 @@ def make_schedule(cfg):
 
         return _join([warmup, decay], [cfg.warmup_steps])
     if cfg.name == "plateau":
-        raise NotImplementedError("the plateau scheduler is not ported yet")
+        # the warm-up, then 1; PlateauLR applies the factor
+        w = max(cfg.warmup_steps, 1)
+        return lambda count: (count / w if count < cfg.warmup_steps
+                              else 1.0)
     raise ValueError(f"unknown scheduler {cfg.name!r}")
 
 
@@ -112,9 +118,55 @@ def make_optimizer(opt_cfg, sched_cfg, model):
     optimizer = torch.optim.AdamW(
         [g for g in groups if g["params"]], lr=opt_cfg.lr,
         betas=(opt_cfg.beta1, opt_cfg.beta2), eps=opt_cfg.eps)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, make_schedule(sched_cfg))
+    if sched_cfg.name == "plateau":
+        scheduler = PlateauLR(optimizer, make_schedule(sched_cfg),
+                              gamma=sched_cfg.gamma,
+                              patience=sched_cfg.plateau_patience,
+                              min_delta=sched_cfg.plateau_min_delta)
+    else:
+        scheduler = torch.optim.lr_scheduler.LambdaLR(
+            optimizer, make_schedule(sched_cfg))
     return optimizer, scheduler
+
+
+class PlateauLR(torch.optim.lr_scheduler.LambdaLR):
+    """ReduceLROnPlateau over a schedule: lr = base lr * schedule(count) *
+    lr_mult, where `on_eval` multiplies lr_mult by `gamma` after `patience`
+    evaluations in a row that did not improve on the best loss by more than
+    `min_delta`.  Its state (lr_mult, best, bad) is in `state_dict`."""
+
+    def __init__(self, optimizer, schedule, *, gamma: float, patience: int,
+                 min_delta: float = 0.0):
+        self.lr_mult = 1.0
+        self.best = float("inf")
+        self.bad = 0
+        self.gamma, self.patience, self.min_delta = gamma, patience, min_delta
+        super().__init__(optimizer,
+                         lambda count: schedule(count) * self.lr_mult)
+
+    def on_eval(self, eval_loss: float):
+        if eval_loss < self.best - self.min_delta:
+            self.best, self.bad = eval_loss, 0
+            return
+        self.bad += 1
+        if self.bad >= self.patience:
+            self.bad = 0
+            self.lr_mult *= self.gamma
+            # the next update runs at the new factor, as optax's injected
+            # hyperparameter does
+            self._last_lr = [base * fn(self.last_epoch) for base, fn in
+                             zip(self.base_lrs, self.lr_lambdas)]
+            for group, lr in zip(self.optimizer.param_groups, self._last_lr):
+                group["lr"] = lr
+
+
+@torch.no_grad()
+def ema_update(ema_params, params, decay: float):
+    """ema = ema * decay + p * (1 - decay), in place, in the EMA's dtype
+    (float32), over lists of tensors."""
+    params = [p.to(e.dtype) for e, p in zip(ema_params, params)]
+    torch._foreach_mul_(ema_params, decay)
+    torch._foreach_add_(ema_params, params, alpha=1.0 - decay)
 
 
 def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:

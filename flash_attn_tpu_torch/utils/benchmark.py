@@ -12,7 +12,10 @@ the spin is lengthened until the host has queued the whole leg before it
 ends.  A step that the host cannot queue ahead of the card (one that
 synchronises, or launches more kernels than the launch queue holds while the
 spin blocks it) is timed without the spin, so its time includes the
-host's.  On the CPU the legs are timed with `time.perf_counter`.
+host's.  On the CPU each leg is timed with `time.perf_counter` as the
+least of three runs: on cores shared with other work a leg of a small op
+takes whatever time slices the process loses, which can make the n-call
+leg outlast the 2n-call one.
 
 Eager PyTorch runs every call in stream order, so a step needs no data
 dependency on its carry to be timed (the JAX harness needs one, or XLA
@@ -83,6 +86,20 @@ def _cuda_legs(step_fn, carry, consts, n, donate):
             c, not cycles)
 
 
+def _cpu_leg(step_fn, carry, consts, n, donate):
+    """Wall seconds of an n-call leg on the CPU, the least of three runs
+    (a process that shares its cores loses whole time slices, which only
+    lengthen a run), and the last carry."""
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = _chain(step_fn, carry, consts, n)
+        best = min(best, time.perf_counter() - t0)
+        if donate:
+            carry = out
+    return best, out
+
+
 def benchmark_chained(step_fn, carry, *consts, iters: int = 32, reps: int = 3,
                       donate: bool = False, agg: str = "median"):
     """Per-iteration seconds of `carry -> step_fn(carry, *consts)`.
@@ -110,12 +127,9 @@ def benchmark_chained(step_fn, carry, *consts, iters: int = 32, reps: int = 3,
                                               donate)
             held |= dropped and rep > 0
         else:
-            t0 = time.perf_counter()
-            out = _chain(step_fn, c, consts, iters)
-            t1 = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            out = _chain(step_fn, out if donate else c, consts, 2 * iters)
-            t2 = time.perf_counter() - t0
+            t1, out = _cpu_leg(step_fn, c, consts, iters, donate)
+            t2, out = _cpu_leg(step_fn, out if donate else c, consts,
+                               2 * iters, donate)
         if donate:
             c = out
         if rep:

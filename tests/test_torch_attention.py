@@ -8,6 +8,9 @@ kernel leaves rows past seqused_q unmasked).  Both sides compute in float32
 and differ only in summation order.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,16 @@ from flash_attn_tpu_torch.kernels import flash_fwd as port_fwd
 from flash_attn_tpu_torch.utils import testing as port_testing
 
 O_ATOL, LSE_ATOL = 2e-5, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def quick_jax_compiles():
+    """The JAX references here are tiny programs whose time is compiling,
+    not running: compile them with XLA's optimizations off."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
 
 @pytest.fixture(autouse=True)
 def one_torch_thread():
@@ -106,9 +119,10 @@ def test_fwd_matches_jax_kernel(name):
     q, k, v, slopes = make_inputs(c)
     squ = np.asarray(c["seqused_q"], np.int32)
     sku = np.asarray(c["seqused_k"], np.int32)
-    o_j, lse_j = jax_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                         jnp.asarray(squ), jnp.asarray(sku),
-                         **kwargs(c, slopes, jnp.asarray))
+    kw = kwargs(c, slopes, jnp.asarray)
+    slopes_j = kw.pop("alibi_slopes")
+    o_j, lse_j = jax.jit(functools.partial(jax_fwd, **kw))(
+        q, k, v, squ, sku, alibi_slopes=slopes_j)
     o_t, lse_t = port_fwd.flash_attn_fwd_bhsd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(squ), torch.from_numpy(sku),

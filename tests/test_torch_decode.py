@@ -7,6 +7,9 @@ Tolerance: o atol 2e-5, lse atol 1e-5 (float32 on both sides, summation
 order only).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +23,23 @@ from flash_attn_tpu_torch.kernels import combine as port_combine
 from flash_attn_tpu_torch.kernels import flash_decode as port_decode
 
 O_ATOL, LSE_ATOL = 2e-5, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def quick_jax_compiles():
+    """The JAX references here are tiny programs whose time is compiling,
+    not running: compile them with XLA's optimizations off."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
+def jitted(fn, *args, **kw):
+    """fn(*args, **kw) under `jax.jit`, the keyword arrays traced and the
+    other keywords static."""
+    arrays = {k: v for k, v in kw.items() if isinstance(v, jax.Array)}
+    static = {k: v for k, v in kw.items() if k not in arrays}
+    return jax.jit(functools.partial(fn, **static))(*args, **arrays)
 @pytest.fixture(autouse=True)
 def one_torch_thread():
     """Tiny torch ops run faster on one thread than with torch's threads
@@ -77,8 +97,8 @@ def test_decode_matches_jax_kernel(name):
     c = CASES[name]
     q, kc, vc, slopes = make_inputs(c)
     lens = np.asarray(c["lens"], np.int32)
-    o_j, lse_j = jax_decode(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
-                            jnp.asarray(lens), **kwargs(c, slopes, jnp.asarray))
+    o_j, lse_j = jitted(jax_decode, q, kc, vc, lens,
+                        **kwargs(c, slopes, jnp.asarray))
     o_t, lse_t = port_decode.decode_attn_bhsd(
         torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
         torch.from_numpy(lens), **kwargs(c, slopes, torch.from_numpy))
@@ -102,14 +122,18 @@ def test_decode_alibi_gqa_matches_jax_oracle():
         torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
         torch.tensor(c["lens"], dtype=torch.int32),
         **kwargs(c, slopes, torch.from_numpy))
-    kpm = jnp.asarray(np.arange(SMAX)[None] < np.asarray(c["lens"])[:, None])
-    bias = jax_testing.attn_bias_from_alibi_slopes(
-        jnp.asarray(slopes), c["sq"], SMAX, None, kpm, causal=False)
-    ref, _ = jax_testing.attention_ref(
-        jnp.asarray(q.transpose(0, 2, 1, 3)),
-        jnp.asarray(kc.transpose(0, 2, 1, 3)),
-        jnp.asarray(vc.transpose(0, 2, 1, 3)), key_padding_mask=kpm,
-        attn_bias=bias, causal=True, softmax_scale=32 ** -0.5)
+    kpm = np.arange(SMAX)[None] < np.asarray(c["lens"])[:, None]
+
+    @jax.jit
+    def oracle(q, kc, vc, slopes, kpm):
+        bias = jax_testing.attn_bias_from_alibi_slopes(
+            slopes, c["sq"], SMAX, None, kpm, causal=False)
+        return jax_testing.attention_ref(
+            q.transpose(0, 2, 1, 3), kc.transpose(0, 2, 1, 3),
+            vc.transpose(0, 2, 1, 3), key_padding_mask=kpm, attn_bias=bias,
+            causal=True, softmax_scale=32 ** -0.5)[0]
+
+    ref = oracle(q, kc, vc, slopes, kpm)
     np.testing.assert_allclose(o_t.numpy(),
                                np.asarray(ref).transpose(0, 2, 1, 3),
                                atol=O_ATOL, rtol=0)

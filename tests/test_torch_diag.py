@@ -53,6 +53,15 @@ def jax_probe(name):
     return mod
 
 
+@pytest.fixture(autouse=True, scope="module")
+def quick_jax_compiles():
+    """The JAX probes here run at small sizes, where their time is
+    compiling, not running: compile them with XLA's optimizations off."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 @pytest.fixture(autouse=True)
 def one_torch_thread():
     n = torch.get_num_threads()
@@ -111,7 +120,7 @@ def jax_ladder(stage, int8, q, kc, vc):
                         pltpu.VMEM((HK, ROWS, 128), jnp.float32),
                         pltpu.VMEM((HK, ROWS, 128), jnp.float32)],
         interpret=True)
-    return np.array(fn(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc)))
+    return np.array(jax.jit(fn)(q, kc, vc))
 
 
 def ladder_scores(int8, q, kc):
@@ -319,7 +328,7 @@ def run_jax_bisect(jmod, variant, tables, arrs, qa, ka, n_bodies, bh):
     qi, ki, fl, code = (jnp.asarray(x) for x in tables)
     q, k, v = (jnp.asarray(a) for a in arrs)
     qa, ka = jnp.asarray(qa), jnp.asarray(ka)
-    with pltpu.force_tpu_interpret_mode():
+    def launch(qi, ki, fl, code, q, k, v, qa, ka):
         if variant in ("K3", "K4"):
             return jmod.launch(int(variant[1]), qi, ki, fl, q, k, v, qa,
                                ka), None
@@ -331,6 +340,9 @@ def run_jax_bisect(jmod, variant, tables, arrs, qa, ka, n_bodies, bh):
         if variant == "K9":
             return jmod.launch3(qi, ki, fl, code, q, k, v, qa, ka), None
         return jmod.launch4(n_bodies, bh, qi, ki, fl, q, k, v), None
+
+    with pltpu.force_tpu_interpret_mode():
+        return jax.jit(launch)(qi, ki, fl, code, q, k, v, qa, ka)
 
 
 def run_port_bisect(variant, tables, arrs, qa, ka, n_bodies, bh):

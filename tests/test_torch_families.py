@@ -1,5 +1,6 @@
 """The port's GPT-family remaps (`flash_attn_tpu_torch.models.{gpt, llama,
-baichuan, gpt_neox, falcon, bigcode}`) against the JAX package's and against
+baichuan, gpt_neox, falcon, bigcode}`) and the ViT (`models.vit`, its
+remap, the image data and task) against the JAX package's and against
 Hugging Face, on the CPU in float32.
 
 Each family is a tiny Hugging Face model (2 layers, width 128, 4 heads)
@@ -26,16 +27,26 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from flash_attn_tpu.layers.patch_embed import (  # noqa: E402
+    PatchEmbed as JaxPatchEmbed)
 from flash_attn_tpu.models import baichuan as jbaichuan  # noqa: E402
 from flash_attn_tpu.models import bigcode as jbigcode  # noqa: E402
 from flash_attn_tpu.models import falcon as jfalcon  # noqa: E402
 from flash_attn_tpu.models import gpt as jgpt  # noqa: E402
 from flash_attn_tpu.models import gpt_neox as jneox  # noqa: E402
 from flash_attn_tpu.models import llama as jllama  # noqa: E402
+from flash_attn_tpu.models import vit as jvit  # noqa: E402
+from flash_attn_tpu.models.vit import VisionTransformer as JaxViT  # noqa
+from flash_attn_tpu.training import vision_data as jax_vd  # noqa: E402
+from flash_attn_tpu_torch.layers.patch_embed import PatchEmbed  # noqa: E402
 from flash_attn_tpu_torch.models import (baichuan, bigcode,  # noqa: E402
-                                         falcon, gpt, gpt_neox, llama)
+                                         falcon, gpt, gpt_neox, llama, vit)
 from flash_attn_tpu_torch.models.gpt import (  # noqa: E402
     GPTConfig, GPTLMHeadModel, state_dict_from_jax_params)
+from flash_attn_tpu_torch.training import vision_data as vd  # noqa: E402
+from flash_attn_tpu_torch.training.config import load_config  # noqa: E402
+from flash_attn_tpu_torch.training.data import LoaderState  # noqa: E402
+from flash_attn_tpu_torch.training.trainer import Trainer  # noqa: E402
 
 LOGIT_ATOL, HF_ATOL = 1e-4, 2e-3
 
@@ -265,3 +276,259 @@ def test_family_remap_matches_jax_and_uses_every_key(family):
     extra = dict(family["sd"], **{"extra.weight": torch.zeros(2)})
     with pytest.raises(ValueError, match="unmapped"):
         remap(extra, cfg)
+
+
+def test_vit_remap_matches_jax_and_hf():
+    """A tiny `ViTForImageClassification` (the JAX test's widths, its norm
+    eps at the port's 1e-5): the port's remap gives the JAX remap's weights
+    exactly (JAX's takes no classifier) and its logits are within 2e-3 of
+    HF's."""
+    from transformers import ViTConfig, ViTForImageClassification
+
+    hf_cfg = ViTConfig(hidden_size=64, num_hidden_layers=2,
+                       num_attention_heads=4, intermediate_size=256,
+                       image_size=32, patch_size=8, num_labels=10,
+                       layer_norm_eps=1e-5, hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+    hf = seeded_weights(ViTForImageClassification(hf_cfg), 0)
+    sd = hf.state_dict()
+    ours = vit.remap_state_dict_hf_vit(dict(sd), 2)
+    body = {k: v for k, v in sd.items() if not k.startswith("classifier")}
+    expected = vit.state_dict_from_jax_params(
+        jvit.remap_state_dict_hf_vit(body, 2), 2)
+    assert set(ours) == set(expected) | {"head.weight", "head.bias"}
+    for k, v in expected.items():
+        np.testing.assert_array_equal(ours[k].numpy(), v.numpy(), err_msg=k)
+    model = vit.VisionTransformer(img_size=32, patch_size=8, embed_dim=64,
+                                  depth=2, num_heads=4, num_classes=10,
+                                  device="cpu")
+    model.load_state_dict(ours)
+    x = np.random.default_rng(1).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        ref = hf(torch.from_numpy(x).permute(0, 3, 1, 2)).logits.numpy()
+        out = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=HF_ATOL, rtol=0)
+    with pytest.raises(ValueError, match="unmapped"):
+        vit.remap_state_dict_hf_vit(dict(sd, **{"extra.w": torch.zeros(1)}),
+                                    2)
+
+# --------------------------------------------------------------------- ViT
+# The image task (`models.vit`, `layers.patch_embed`,
+# `training.vision_data`, the trainer's `task="image"`) against the JAX
+# package's, from numpy-drawn weights in the JAX tree.  Tolerances: logits
+# and the patch embedding 1e-5; the augmentation at given draws and the
+# normalisation 1e-6 (elementwise); the trainer's first-step loss 1e-4.
+
+VIT = dict(img_size=32, patch_size=4, embed_dim=64, depth=2, num_heads=4,
+            num_classes=10)
+
+
+def vit_images(b=2, size=32, seed=0):
+    return np.random.default_rng(seed).standard_normal(
+        (b, size, size, 3)).astype(np.float32)
+
+
+def jax_params(model, x, seed=0):
+    """Parameters in the JAX model's tree, drawn with numpy on
+    `jax.eval_shape(model.init)`'s shapes (class token and biases too, which
+    would hide a misplaced one at their initial zeros)."""
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x)
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        return {k: fill(v) if hasattr(v, "items") else
+                (0.05 * rng.standard_normal(v.shape)).astype(np.float32)
+                for k, v in tree.items()}
+
+    return fill(shapes)
+
+
+def pool_variant(params, kw):
+    """TINY's parameters for a pooling variant: the final norm under its
+    other name, the position table without the class row, no head."""
+    p = {k: v for k, v in params["params"].items()}
+    if kw.get("global_pool") == "avg" and kw.get("fc_norm") is not False:
+        p["fc_norm_layer"] = p.pop("norm")
+    if kw.get("no_embed_class"):
+        p["pos_embed"] = p["pos_embed"][:, 1:]
+    if kw.get("num_classes") == 0:
+        del p["head"]
+    return {"params": p}
+
+
+@pytest.fixture(scope="module")
+def tiny_params():
+    return jax_params(JaxViT(**VIT, use_flash_attn=False), vit_images())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(global_pool="token"), dict(global_pool="avg"),
+    dict(global_pool="token", no_embed_class=True),
+    dict(global_pool="avg", fc_norm=False, num_classes=0)],
+    ids=["token", "avg_fc_norm", "no_embed_class", "avg_features"])
+def test_vit_matches_jax(tiny_params, kw):
+    """Logits (features for num_classes=0) of the JAX model (its XLA
+    attention) and the port's on the carried weights."""
+    cfg = {**VIT, **kw}
+    x = vit_images()
+    params = pool_variant(tiny_params, kw)
+    jm = JaxViT(**cfg, use_flash_attn=False, dtype=jnp.float32)
+    ref = np.asarray(jax.jit(jm.apply)(params, x))
+    model = vit.VisionTransformer(**cfg, device="cpu")
+    model.load_state_dict(vit.state_dict_from_jax_params(params,
+                                                         cfg["depth"]))
+    with torch.no_grad():
+        out = model(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_patch_embed_matches_jax():
+    x = vit_images(b=3, size=16)
+    jm = JaxPatchEmbed(img_size=16, patch_size=4, embed_dim=24)
+    params = jax_params(jm, x)
+    ref = np.asarray(jm.apply(params, x))
+    pe = PatchEmbed(16, 4, 24, device="cpu")
+    proj = params["params"]["proj"]
+    pe.load_state_dict({
+        "proj.weight": torch.from_numpy(np.ascontiguousarray(
+            proj["kernel"].transpose(3, 2, 0, 1))),
+        "proj.bias": torch.from_numpy(proj["bias"])})
+    with torch.no_grad():
+        out = pe(torch.from_numpy(x)).numpy()
+    assert out.shape == (3, 16, 24)
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_vit_factories_and_dropout_raise():
+    m = vit.vit_small_patch16_224(device="meta")
+    assert len(m.blocks) == 12 and m.embed_dim == 384
+    assert m.pos_embed.shape == (1, 197, 384)
+    assert vit.vit_base_patch16_224(device="meta").blocks[0].mixer.\
+        num_heads == 12
+    assert len(vit.vit_large_patch16_224(device="meta").blocks) == 24
+    for rate in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
+        with pytest.raises(NotImplementedError):
+            vit.VisionTransformer(**VIT, **{rate: 0.1}, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def uint8_batch():
+    return np.random.default_rng(3).integers(0, 256, (4, 12, 12, 3),
+                                             dtype=np.uint8)
+
+
+def test_augment_batch_matches_jax_at_given_draws(uint8_batch):
+    """JAX's transform keyed by a PRNG key against the port's at the
+    offsets and flips that key draws (`vision_data.py:169-176`)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(5), 3)
+    ref = np.asarray(jax_vd.augment_batch(jnp.asarray(uint8_batch), key,
+                                          train=True))
+    kc, kf = jax.random.split(key)
+    b, pad = uint8_batch.shape[0], 4
+    oy = jax.random.randint(kc, (b,), 0, 2 * pad + 1)
+    ox = jax.random.randint(jax.random.fold_in(kc, 1), (b,), 0, 2 * pad + 1)
+    flip = jax.random.bernoulli(kf, 0.5, (b,))
+    draws = tuple(torch.from_numpy(np.array(a)) for a in (oy, ox, flip))
+    out = vd.augment_batch(torch.from_numpy(uint8_batch), draws, train=True)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-6, rtol=0)
+    norm = vd.augment_batch(torch.from_numpy(uint8_batch), train=False)
+    np.testing.assert_allclose(
+        norm.numpy(), np.asarray(jax_vd.augment_batch(
+            jnp.asarray(uint8_batch), key, train=False)), atol=1e-6, rtol=0)
+
+
+def test_augment_draws_are_a_function_of_seed_and_step():
+    a = vd.augment_draws(16, vd.step_generator(0, 7))
+    b = vd.augment_draws(16, vd.step_generator(0, 7))
+    c = vd.augment_draws(16, vd.step_generator(0, 8))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not all(torch.equal(x, y) for x, y in zip(a, c))
+    oy, ox, flip = a
+    assert 0 <= int(oy.min()) and int(ox.max()) <= 8 and flip.dtype == \
+        torch.bool
+
+
+def test_vision_loader_resume_exact():
+    """As JAX's `test_vision_loader_resume_exact`: the stream after a state
+    round trip, across an epoch boundary, and equal to JAX's loader."""
+    imgs, labels = vd.synthetic_images(40, 8, 3, seed=1)
+    jimgs, jlabels = jax_vd.synthetic_images(40, 8, 3, seed=1)
+    np.testing.assert_array_equal(imgs, jimgs)
+    np.testing.assert_array_equal(labels, jlabels)
+    ld = vd.VisionLoader(vd.ImageDataset(imgs, labels), batch_size=4, seed=7)
+    jl = jax_vd.VisionLoader(jax_vd.ImageDataset(jimgs, jlabels),
+                             batch_size=4, seed=7)
+    for _ in range(13):
+        for x, y in zip(next(ld), next(jl)):
+            np.testing.assert_array_equal(x, y)
+    state = ld.state.to_dict()
+    expected = [next(ld) for _ in range(5)]
+    ld2 = vd.VisionLoader(vd.ImageDataset(imgs, labels), batch_size=4,
+                          state=LoaderState.from_dict(dict(state)))
+    for exp in expected:
+        for x, y in zip(next(ld2), exp):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_image_sources(tmp_path):
+    imgs, labels = vd.synthetic_images(6, 8, 3, seed=2)
+    np.savez(tmp_path / "shard.npz", images=imgs, labels=labels)
+    (tmp_path / "arr").mkdir()
+    np.save(tmp_path / "arr" / "images.npy", imgs)
+    np.save(tmp_path / "arr" / "labels.npy", labels)
+    cfg = load_config(overrides={"data": {"batch_size": 2, "image_size": 8,
+                                          "max_examples": 4}})
+    for src in ("shard.npz", "arr"):
+        cfg.data.dataset = str(tmp_path / src)
+        ld = vd.make_image_loader(cfg.data, 3)
+        assert len(ld.dataset) == 4
+        np.testing.assert_array_equal(ld.dataset.images, imgs[:4])
+    Image = pytest.importorskip("PIL.Image")
+    for c in ("a", "b"):
+        (tmp_path / "folder" / c).mkdir(parents=True)
+        Image.fromarray(imgs[0]).save(tmp_path / "folder" / c / "0.png")
+    cfg.data.dataset = str(tmp_path / "folder")
+    ld = vd.make_image_loader(cfg.data, 2)
+    assert ld.dataset.images.shape == (2, 8, 8, 3)
+    assert list(ld.dataset.labels) == [0, 1]
+
+
+def image_config():
+    """TINY as a training recipe: synthetic 32 px images of 10 classes."""
+    return load_config(overrides={
+        "model": {"task": "image", "n_embd": 64, "n_layer": 2, "n_head": 4,
+                  "num_classes": 10, "image_size": 32, "patch_size": 4,
+                  "dtype": "float32"},
+        "data": {"batch_size": 4, "max_examples": 16},
+        "trainer": {"resume": False, "eval_steps": 2}})
+
+
+def test_image_trainer_matches_jax(tiny_params):
+    """The trainer's first-step loss against JAX's loss function
+    (`trainer.py:176-190`: JAX's augmentation at the port's draws, the
+    model, softmax cross-entropy) on the same weights and batch; the
+    batches equal JAX's image loader's."""
+    t = Trainer(image_config(), device="cpu")
+    t.model.load_state_dict(vit.state_dict_from_jax_params(tiny_params, 2))
+    assert t.flops is None and t.gpt_config is None
+    assert t.config.data.image_size == 32
+    jl = jax_vd.make_image_loader(t.config.data, 10)
+    batch = next(t.loader)
+    for x, y in zip(batch, next(jl)):
+        np.testing.assert_array_equal(x, y)
+    draws = vd.augment_draws(4, vd.step_generator(0, 0))
+    x = vd.augment_batch(torch.from_numpy(batch[0]), draws, train=True)
+    jm = JaxViT(**VIT, use_flash_attn=False, dtype=jnp.float32)
+    logits = jax.jit(jm.apply)(tiny_params, jnp.asarray(x.numpy()))
+    ref = float(jnp.mean(jax.nn.logsumexp(logits, -1) - jnp.take_along_axis(
+        logits, jnp.asarray(batch[1])[:, None], -1)[:, 0]))
+    loss, _ = t.train_step(batch)
+    assert abs(float(loss) - ref) <= 1e-4
+    assert t.step == 1
+    logs = []
+    t.config.trainer.max_steps = 2
+    t.train(log_fn=logs.append)
+    assert set(logs[-1]) == {"step", "loss", "grad_norm"}
+    assert np.isfinite(t.evaluate())

@@ -49,9 +49,12 @@ def one_torch_thread():
 
 
 def jax_config(**extra):
-    from transformers import GPT2Config
-
-    cfg = GPT2Config(**TINY, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    """The JAX model's config: the port's `GPTConfig` carries the
+    `GPT2Config` attribute names the JAX model reads, with the same
+    defaults, and no `transformers` import (seconds) is needed.  The JAX
+    model reads `head_dim` without a default of its own."""
+    cfg = GPTConfig(**TINY)
+    cfg.head_dim = cfg.n_embd // cfg.n_head
     for k, v in extra.items():
         setattr(cfg, k, v)
     return cfg
@@ -62,12 +65,31 @@ def to_numpy_tree(tree):
             for k, v in tree.items()}
 
 
+def seeded_params(init, ids, seed):
+    """JAX's parameter tree for `init`, filled from numpy on
+    `jax.eval_shape`'s shapes (no compile): norm weights 1 + N(0, 0.1),
+    other vectors N(0, 0.02), matrices and embeddings N(0, 0.05)."""
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0),
+                            jnp.asarray(ids[:, :4]))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, x):
+        v = rng.standard_normal(x.shape).astype(np.float32)
+        name = "/".join(str(getattr(k, "key", k)) for k in path)
+        if x.ndim == 1 and ("norm" in name or "ln_f" in name) \
+                and name.endswith("weight"):
+            return 1 + 0.1 * v
+        return v * (0.02 if x.ndim == 1 else 0.05)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
 @pytest.fixture(scope="module")
 def models():
     ids = np.random.default_rng(0).integers(0, 311, (2, 24)).astype(np.int32)
     jmodel = JaxGPT(jax_config(), dtype=jnp.float32)
     init = JaxGPT(jax_config(use_flash_attn=False), dtype=jnp.float32).init
-    params = jax.jit(init)(jax.random.PRNGKey(0), jnp.asarray(ids[:, :4]))
+    params = seeded_params(init, ids, 0)
     cfg = GPTConfig(**TINY)
     port = GPTLMHeadModel(cfg, device="cpu", dtype=torch.float32)
     port.load_state_dict(state_dict_from_jax_params(to_numpy_tree(params), cfg))
@@ -96,11 +118,11 @@ def test_converter_uses_every_array_once(models):
 
 def build_pair(extra, seed, ids):
     """JAX and port models of the tiny config with `extra` options, on the
-    same weights (initialised by JAX's XLA reference path, which has the
-    same parameters)."""
+    same seeded weights (in the tree of JAX's XLA reference path, which has
+    the same parameters)."""
     init = JaxGPT(jax_config(use_flash_attn=False, **extra),
                   dtype=jnp.float32).init
-    params = jax.jit(init)(jax.random.PRNGKey(seed), jnp.asarray(ids[:, :4]))
+    params = seeded_params(init, ids, seed)
     cfg = GPTConfig(**TINY, **extra)
     port = GPTLMHeadModel(cfg, device="cpu", dtype=torch.float32)
     port.load_state_dict(state_dict_from_jax_params(to_numpy_tree(params),

@@ -256,6 +256,75 @@ def test_cuda_train_step_matches_cpu_plain_path(cuda, tmp_path):
             flash_bwd.launches_dkv - counts[2]) == (2, 2, 2)
 
 
+@pytest.mark.parametrize("policy", ["none", "dots", "dots_no_batch"])
+def test_remat_on_cuda_equals_no_remat(cuda, policy):
+    """A tiny Llama's loss and gradients on the card under each remat
+    policy equal those without remat bit for bit (deterministic kernels),
+    and the forward kernel runs twice a layer (recomputed under every
+    policy)."""
+    from flash_attn_tpu_torch.training.config import TrainConfig
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    cfg = TrainConfig()
+    m = cfg.model
+    m.n_embd, m.n_layer, m.n_head, m.n_head_kv = 256, 2, 4, 2
+    m.vocab_size, m.rms_norm, m.rotary_emb_fraction = 1000, True, 1.0
+    m.activation_function, m.tie_word_embeddings = "swiglu", False
+    cfg.data.seq_len, cfg.data.batch_size = 256, 2
+    t = Trainer(cfg, device=cuda)
+    batch = next(t.loader)
+    out = []
+    for remat in (False, True):
+        t.model.config.remat_blocks = remat
+        t.model.config.remat_policy = policy
+        before = flash_fwd.launches
+        loss = t.loss(batch)
+        loss.backward()
+        out.append((loss.detach(), [p.grad.clone() for p in
+                                    t.model.parameters()],
+                    flash_fwd.launches - before))
+        t.optimizer.zero_grad(set_to_none=True)
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert (n0, n1) == (2, 4)
+
+
+def test_vit_on_cuda_matches_cpu_plain_path(cuda):
+    """One batch of a 2-layer ViT (d = 64, 197 tokens) through the
+    Trainer's image loss and backward: CUDA (kernels, bf16 autocast)
+    against float32 on the CPU (plain path), same weights and draws: loss
+    within 0.02, gradient cosine >= 0.999; 2 + 2 + 2 launches."""
+    from flash_attn_tpu_torch.training.config import load_config
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    def config(dtype):
+        return load_config(overrides={
+            "model": {"task": "image", "n_embd": 384, "n_layer": 2,
+                      "n_head": 6, "num_classes": 100, "image_size": 224,
+                      "patch_size": 16, "dtype": dtype},
+            "data": {"batch_size": 4, "max_examples": 8}})
+
+    gpu = Trainer(config("bfloat16"), device=cuda)
+    cpu = Trainer(config("float32"), device="cpu")
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    batch = next(cpu.loader)
+    counts = (flash_fwd.launches, flash_bwd.launches_dq,
+              flash_bwd.launches_dkv)
+    losses, grads = [], []
+    for t in (gpu, cpu):
+        loss = t.loss(batch)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append(torch.cat([p.grad.float().flatten().cpu()
+                                for p in t.model.parameters()]))
+    assert (flash_fwd.launches - counts[0], flash_bwd.launches_dq - counts[1],
+            flash_bwd.launches_dkv - counts[2]) == (2, 2, 2)
+    assert abs(losses[0] - losses[1]) <= 0.02, losses
+    g0, g1 = grads[0].double(), grads[1].double()
+    assert float(g0 @ g1 / (g0.norm() * g1.norm())) >= 0.999
+
+
 def _ref_layout_inputs(case, dtype, gen, dev):
     """q, caches and keyword arguments of one decode_attn_ref_layout call,
     and the dequantised float32 caches of its oracle."""
@@ -544,7 +613,7 @@ _BWD_TILE_CASES = (
      for sq, sk in ((1, 1), (63, 63), (127, 127), (129, 129), (1000, 1500))
      for c in (True, False)]
     + ["window_left", "seqused_k0", "gqa4", "dlse", "softcap_alibi",
-       "two_items_causal", "two_items_full"])
+       "two_items_causal", "two_items_full", "vit_197"])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -566,6 +635,9 @@ def test_bwd_tiles_match_plain(cuda, case, d, dtype):
     if case.startswith("two_items"):
         b, h, hk, sq, sk = 8, 8, 8, 1100, 1100
         kw["causal"] = case.endswith("causal")
+    elif case == "vit_197":  # ViT-B/16's 197 tokens: ragged at every edge
+        b, h, hk, sq, sk = 4, 12, 12, 197, 197
+        kw["causal"] = False
     elif "x" in case:
         size, mask = case.split("_")
         sq, sk = (int(n) for n in size.split("x"))
@@ -673,7 +745,7 @@ _FWD_TILE_CASES = (
      for sq, sk in ((1, 1), (63, 63), (127, 127), (129, 129), (1000, 1500))
      for c in (True, False)]
     + ["sq_gt_sk_causal", "window_left", "window_0_0", "seqused_k0", "gqa4",
-       "softcap_alibi", "heavy_grid"])
+       "softcap_alibi", "heavy_grid", "vit_197"])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -693,6 +765,9 @@ def test_fwd_tiles_match_plain(cuda, case, d, dtype):
     kw = dict(softmax_scale=d ** -0.5, causal=True)
     if case == "heavy_grid":
         b, h, hk, sq, sk = 8, 8, 8, 1100, 1100
+    elif case == "vit_197":  # ViT-B/16's 197 tokens: ragged at every edge
+        b, h, hk, sq, sk = 4, 12, 12, 197, 197
+        kw["causal"] = False
     elif "x" in case:
         size, mask = case.split("_")
         sq, sk = (int(n) for n in size.split("x"))

@@ -76,11 +76,13 @@ def test_model_raises_without_cuda(no_cuda):
 def _entry_points():
     from flash_attn_tpu_torch.blocksparse import convert_blockmask
     from flash_attn_tpu_torch.kernels.flex import BlockMask, create_block_mask
+    from flash_attn_tpu_torch.layers.patch_embed import PatchEmbed
     from flash_attn_tpu_torch.layers.rotary import RotaryEmbedding
     from flash_attn_tpu_torch.models.bert import (BertConfig,
                                                   BertForPreTraining,
                                                   BertModel)
     from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTModel
+    from flash_attn_tpu_torch.models.vit import VisionTransformer
     from flash_attn_tpu_torch.modules.block import Block, _Norm
     from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
     from flash_attn_tpu_torch.modules.mha import MHA
@@ -120,6 +122,9 @@ def _entry_points():
                                       "full_q_idx")}),
         "convert_blockmask": lambda: convert_blockmask(
             [[True]], 1, 1, 64, 64, block_q=64, block_k=64),
+        "PatchEmbed": lambda: PatchEmbed(32, 8, 64),
+        "VisionTransformer": lambda: VisionTransformer(
+            img_size=32, patch_size=8, embed_dim=64, depth=1, num_heads=2),
     }
 
 
@@ -130,7 +135,8 @@ def _entry_points():
                                   "BertForPreTraining", "Block_postnorm",
                                   "create_block_mask",
                                   "BlockMask.from_numpy",
-                                  "convert_blockmask"])
+                                  "convert_blockmask", "PatchEmbed",
+                                  "VisionTransformer"])
 def test_entry_point_raises_without_cuda(no_cuda, name):
     """Every public constructor resolves device=None to CUDA, so none of
     them builds on the CPU unless asked to."""

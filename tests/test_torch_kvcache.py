@@ -263,7 +263,10 @@ def test_paged_varlen_prefill_matches_jax(causal, window, alibi, seqused):
                  return_attn_probs=True, block_table=lib(table),
                  seqused_k=lib(lens_k) if seqused else None)
 
-    o_j, lse_j, _ = call(jfa.flash_attn_varlen_func, jnp.asarray)
+    # the JAX call under `jax.jit`, its arrays traced (eager, each op of
+    # the interpret-mode kernel dispatches apart)
+    o_j, lse_j, _ = jax.jit(lambda: call(jfa.flash_attn_varlen_func,
+                                         jnp.asarray))()
     o_t, lse_t, none = call(port.flash_attn_varlen_func, torch.from_numpy)
     assert none is None and lse_t.shape == (b, h, max_sq)
     assert_attention_close(o_t, lse_t, o_j, lse_j)
@@ -290,7 +293,7 @@ def test_flash_attn_combine_matches_jax(form):
     lse[rng.random(lse.shape) < 0.3] = np.inf
     lse[:, 0, 0, 0] = np.inf  # every split empty
     o[np.isinf(lse).transpose(0, 1, 3, 2)] = 0.0
-    o_j, lse_j = jfa.flash_attn_combine(jnp.asarray(o), jnp.asarray(lse))
+    o_j, lse_j = jax.jit(jfa.flash_attn_combine)(o, lse)
     args = torch.from_numpy(o), torch.from_numpy(lse)
     o_t, lse_t = port.flash_attn_combine(*args)
     assert_attention_close(o_t, lse_t, o_j, lse_j)
@@ -390,7 +393,7 @@ def test_rotary_matches_jax(name):
                  **{k: (v if isinstance(v, int) else lib(v))
                     for k, v in kw.items()})
 
-    out_j = call(jax_rotary.apply_rotary_emb, jnp.asarray)
+    out_j = jax.jit(lambda: call(jax_rotary.apply_rotary_emb, jnp.asarray))()
     out_t = call(port_rotary.apply_rotary_emb, torch.from_numpy)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-6,
                                rtol=0)

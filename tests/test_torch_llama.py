@@ -61,9 +61,12 @@ def one_torch_thread():
 
 
 def jax_config(**extra):
-    from transformers import GPT2Config
-
-    cfg = GPT2Config(**TINY, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    """The JAX model's config: the port's `GPTConfig` carries the
+    `GPT2Config` attribute names the JAX model reads, with the same
+    defaults, and no `transformers` import (seconds) is needed.  The JAX
+    model reads `head_dim` without a default of its own."""
+    cfg = GPTConfig(**TINY)
+    cfg.head_dim = cfg.n_embd // cfg.n_head
     for k, v in extra.items():
         setattr(cfg, k, v)
     return cfg

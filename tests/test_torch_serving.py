@@ -49,9 +49,10 @@ def one_torch_thread():
 
 @pytest.fixture(scope="module")
 def setup():
-    from transformers import GPT2Config
-
-    jcfg = GPT2Config(**TINY, resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    # the port's GPTConfig as the JAX model's config (no transformers
+    # import): it carries the GPT2Config attribute names the model reads
+    jcfg = GPTConfig(**TINY)
+    jcfg.head_dim = jcfg.n_embd // jcfg.n_head
     jcfg.use_flash_attn = False
     jmodel = JaxGPT(jcfg, dtype=jnp.float32)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),

@@ -17,8 +17,10 @@ decimals) and final parameters atol 1e-5.
 """
 
 import csv
+import dataclasses
 import functools
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +46,7 @@ from flash_attn_tpu_torch.losses.cross_entropy import (CrossEntropyLoss,
 from flash_attn_tpu_torch.models.gpt import (GPTLMHeadModel,
                                              state_dict_from_jax_params)
 from flash_attn_tpu_torch.training import callbacks, data, loggers, optim
-from flash_attn_tpu_torch.training.config import TrainConfig
+from flash_attn_tpu_torch.training.config import ModelConfig, TrainConfig
 from flash_attn_tpu_torch.training.loss import chunked_lm_loss
 from flash_attn_tpu_torch.training.run import parse_overrides
 from flash_attn_tpu_torch.training.trainer import Trainer
@@ -112,12 +114,12 @@ TINY = dict(n_embd=64, n_head=2, n_layer=1, vocab_size=97, n_positions=64)
 
 @pytest.fixture(scope="module")
 def tiny_models():
-    from transformers import GPT2Config
-
     from flash_attn_tpu_torch.models.gpt import GPTConfig
 
-    jcfg = GPT2Config(**TINY, resid_pdrop=0.0, embd_pdrop=0.0,
-                      attn_pdrop=0.0)
+    # the port's GPTConfig as the JAX model's config (no transformers
+    # import): it carries the GPT2Config attribute names the model reads
+    jcfg = GPTConfig(**TINY)
+    jcfg.head_dim = jcfg.n_embd // jcfg.n_head
     jcfg.use_flash_attn = False
     jmodel = JaxGPT(jcfg, dtype=jnp.float32)
     # The parameter tree's shapes, filled from a seed (tracing only, no
@@ -196,8 +198,19 @@ def test_schedule_matches_jax(sched):
 
 
 def test_plateau_scheduler_raises():
-    with pytest.raises(NotImplementedError):
-        optim.make_schedule(jax_config_mod.SchedulerConfig(name="plateau"))
+    """The plateau scheduler is ported (it raised before): its base shape
+    is JAX's, the warm-up then 1, and `make_optimizer` gives a `PlateauLR`
+    (held to JAX's `_on_eval` in `test_torch_train_rest.py`); an unknown
+    name still raises."""
+    cfg = jax_config_mod.SchedulerConfig(name="plateau", warmup_steps=4)
+    fj, ft = jax_optim.make_schedule(cfg), optim.make_schedule(cfg)
+    for count in range(8):
+        assert ft(count) == float(fj(jnp.int32(count))), count
+    _, sched = optim.make_optimizer(jax_config_mod.OptimizerConfig(), cfg,
+                                    torch.nn.Linear(2, 2))
+    assert isinstance(sched, optim.PlateauLR)
+    with pytest.raises(ValueError):
+        optim.make_schedule(jax_config_mod.SchedulerConfig(name="nope"))
 
 
 def test_optimizer_update_matches_optax(tiny_models):
@@ -281,13 +294,11 @@ def test_bin_and_npy_datasets_match_jax(tmp_path):
 # ----------------------------------------------- callbacks, loggers, CLI
 
 def test_callbacks_match_jax(tiny_models):
-    _, _, _, cfg = tiny_models
-    from transformers import GPT2Config
-
+    jmodel, _, _, cfg = tiny_models
     assert callbacks.model_flops_per_token(cfg) == \
-        jax_callbacks.model_flops_per_token(GPT2Config(**TINY))
+        jax_callbacks.model_flops_per_token(jmodel.config)
     assert callbacks.FlopCount(cfg, 64).tflops(2.0) == \
-        jax_callbacks.FlopCount(GPT2Config(**TINY), 64).tflops(2.0)
+        jax_callbacks.FlopCount(jmodel.config, 64).tflops(2.0)
     xs = [np.arange(6, dtype=np.float32).reshape(2, 3), np.ones(4, np.float32)]
     np.testing.assert_allclose(
         callbacks.global_norm([torch.from_numpy(x) for x in xs]),
@@ -315,9 +326,15 @@ def test_loggers_match_jax(tmp_path):
         (tmp_path / "jax" / "metrics.csv").read_text()
     assert list(csv.DictReader(open(tmp_path / "port" / "metrics.csv")))[1][
         "tokens_per_s"] == "10"
-    for name in ("tensorboard", "wandb", "mlflow"):
-        with pytest.raises(NotImplementedError):
-            loggers.make_loggers([name], tmp_path)
+    # the external backends are ported (they raised before): without their
+    # packages wandb and mlflow fall back to JSONL, as JAX's do
+    for name in ("wandb", "mlflow"):
+        if name not in sys.modules:
+            lg = loggers.make_loggers([name], tmp_path / name)
+            assert type(lg.loggers[0]).__name__ == type(
+                jax_loggers.make_loggers([name], tmp_path / name).loggers[0]
+            ).__name__ == "JSONLLogger"
+            lg.close()
 
 
 def test_parse_overrides_matches_jax():
@@ -354,11 +371,13 @@ def test_trainer_matches_jax(tmp_path, monkeypatch, accum, steps):
     per-step loss and grad norm, and the parameters at the end."""
     from flash_attn_tpu.training import config as jcm
 
-    to_gpt2 = jcm.ModelConfig.to_gpt2_config
-
     def xla_attention(self):
-        c = to_gpt2(self)
+        """The port's model config in place of `to_gpt2_config` (no
+        transformers import), with JAX's XLA attention."""
+        c = TrainConfig(model=ModelConfig(**dataclasses.asdict(self))
+                        ).model.to_gpt_config()
         c.use_flash_attn = False
+        c.head_dim = c.n_embd // c.n_head
         return c
 
     monkeypatch.setattr(jcm.ModelConfig, "to_gpt2_config", xla_attention)
@@ -417,12 +436,16 @@ def test_trainer_evaluate_and_bf16_params(tmp_path):
     assert np.isfinite(logs[-1]["eval_loss"])
 
 
+# The image task, remat, EMA, the plateau scheduler and float16 are ported
+# (`test_torch_families.py`, `test_torch_train_rest.py`);
+# their cases here gave way to settings that still raise.
 @pytest.mark.parametrize("over", [
-    dict(model__task="image"), dict(mesh__data=2),
+    dict(mesh__model=2), dict(mesh__data=2),
     dict(optimizer__zero_stage=1),
-    dict(model__remat_blocks=True), dict(data__hf_dataset="wikitext"),
-    dict(trainer__ema_decay=0.99), dict(scheduler__name="plateau"),
-    dict(model__dtype="float16")])
+    dict(optimizer__shard_optimizer_state=True),
+    dict(data__hf_dataset="wikitext"),
+    dict(data__text_files=["a.txt"], data__tokenizer="gpt2"),
+    dict(mesh__seq=2), dict(model__dtype="float64")])
 def test_trainer_unported_settings_raise(tmp_path, over):
     with pytest.raises(NotImplementedError):
         Trainer(tiny_train_config(tmp_path, **over), device="cpu")
