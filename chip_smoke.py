@@ -2667,10 +2667,12 @@ def sum_check(label, got, ref, extra=0.0):
 def diag_ladder_checks():
     """Every ladder stage, bf16 and int8, at the script's shape (b=8, hk=8,
     smax=8192, d=128, bk=1024) at one split and at the split that fills the
-    card, against the plain twin; `full` also against the float64 oracle
-    (2x rule, the twin's error the yardstick).  pquant may differ by one
+    card, against its 64-key twin (`max_every=64`, the kernel's own
+    function) and its bk twin (JAX's); `full` against the float64 oracle
+    (2x rule, each twin's error the yardstick).  pquant may differ by one
     bf16 rounding of a block sum (bf16) or one step of round(127 p) a row
-    (int8) where exp2f and the twin's exp2 straddle a rounding boundary."""
+    (int8), where exp2f and the twin's exp2 straddle a rounding boundary
+    or P is quantised against another max."""
     from flash_attn_tpu_torch.diag import int8_decode as ld
     from flash_attn_tpu_torch.utils.testing import check_close
 
@@ -2683,22 +2685,26 @@ def diag_ladder_checks():
             for stage in ld.STAGES:
                 got = ld.decode_ladder(stage, q, kc, vc, bk=1024,
                                        splits=splits)
-                ref = ld.decode_ladder_ref(stage, q, kc, vc, bk=1024,
-                                           splits=splits)
                 label = f"ladder {'int8' if int8 else 'bf16'} {stage} " \
                     f"splits={splits}"
-                if stage == "full":
-                    err, _ = check_close(got, oracle.float(), ref,
-                                         label=label)
-                else:
-                    if got[..., 1:].any():
-                        raise AssertionError(f"{label}: columns 1.. not 0")
+                if stage != "full" and got[..., 1:].any():
+                    raise AssertionError(f"{label}: columns 1.. not 0")
+                errs = []
+                for every in (64, 1024):
+                    ref = ld.decode_ladder_ref(stage, q, kc, vc, bk=1024,
+                                               splits=splits,
+                                               max_every=every)
+                    at = f"{label} max_every={every}"
+                    if stage == "full":
+                        errs.append(check_close(got, oracle.float(), ref,
+                                                label=at)[0])
+                        continue
                     extra = 0.0
                     if stage == "pquant":
                         extra = (1.0 if int8 else
                                  2.0 ** -8 * ref.abs().max().item())
-                    err = sum_check(label, got, ref, extra)
-                out[label] = err
+                    errs.append(sum_check(at, got, ref, extra))
+                out[label] = max(errs)
         del q, kc, vc, oracle
     return out
 
@@ -2729,8 +2735,10 @@ def diag_bisect_checks():
     D=128, BQ=BK=1024, BH=4, 16 blocks of tokens) on live tables of 10 or 8
     ticks (the plain twin walks ticks in Python: the script's 256 would be
     slow), aux of 300-token documents so that boundary ticks mask; o and
-    lse against the float32 twin by the 2x rule (the bf16 twin's error the
-    yardstick).  Returns {variant: max |o - float32 twin|}."""
+    lse against the twin run in float64 by the 2x rule (the bf16 twin's
+    error the yardstick: the kernel's scores are tensor-core sums, whose
+    rounding the float32 twin does not share).  Returns {variant: max |o -
+    float64 twin|}."""
     import torch
     from flash_attn_tpu_torch.diag import varlen_overhead_bisect as vb
     from flash_attn_tpu_torch.utils.testing import check_close
@@ -2762,7 +2770,7 @@ def diag_bisect_checks():
         o, lse = run((vb.launch, vb.launch2, vb.launch3, vb.launch4), q, k, v)
         twins = (vb.launch_ref, vb.launch2_ref, vb.launch3_ref, vb.launch4_ref)
         o_pt, lse_pt = run(twins, q, k, v)
-        o_ref, lse_ref = run(twins, q.float(), k.float(), v.float())
+        o_ref, lse_ref = run(twins, q.double(), k.double(), v.double())
         rows = vb.finalized_rows(qi.cpu(), fl.cpu()).to(DEV)
         if not (o_ref[:, rows].abs().amax(-1) > 0).all():
             raise AssertionError(f"bisect {variant}: a finalized row saw "
@@ -2787,7 +2795,8 @@ def diag_phase():
     int8 bk sweep, the end-to-end decode; DIAG_LADDER_ITERS chained calls a
     leg) and `varlen_overhead_bisect` k04 k58 k9 k10 (all-empty tables of
     256 ticks).  Then each probe's headline kernel, its plain twin and a
-    library call are timed for the kernels line."""
+    library call are timed for the kernels line, and the ladder's `full`
+    rung beside the production decode kernel on the same cache."""
     import torch
     from flash_attn_tpu_torch.diag import dma_stream as ds
     from flash_attn_tpu_torch.diag import int8_decode as ld
@@ -2827,6 +2836,25 @@ def diag_phase():
         a, t, bundle=bundle, fused=fused), [(arr, table)], iters=5)
     del dst
 
+    # the full rung at the filling split and at one, beside the production
+    # decode kernel on the same cache at the same split (device time, input
+    # sets cycled through 4x the L2), bf16 and int8
+    against = {}
+    for int8 in (False, True):
+        name = "int8" if int8 else "bf16"
+        inputs = input_copies(*ld.make_inputs(int8))
+        for key, splits in (("split1", 1),
+                            ("fill", ladder["fill_splits"][name])):
+            against[f"{name} full {key}"] = time_ms(
+                lambda *a, n=splits: ld.decode_ladder("full", *a, bk=1024,
+                                                      splits=n), inputs)
+            against[f"{name} production {key}"] = time_ms(
+                lambda *a, n=splits: ld.production_decode(*a, splits=n),
+                inputs)
+        del inputs
+    print("diag: full rung against the production decode kernel (ms): "
+          + json.dumps(against), flush=True)
+
     q, kc, vc = ld.make_inputs(False)
     b, hk, rows, d = q.shape
     kh = kc.view(b, 8192, hk, d).transpose(1, 2).contiguous()
@@ -2838,20 +2866,23 @@ def diag_phase():
         "full", *a, bk=1024), [(q, kc, vc)], iters=3)
     ladder_bytes = (ld.kv_bytes(False) + q.numel() * 2
                     + b * hk * rows * d * 4)
-    full_err = (ld.decode_ladder("full", q, kc, vc, bk=1024).double()
+    full_err = (ld.decode_ladder("full", q, kc, vc, bk=1024,
+                                 splits=ladder["fill_splits"]["bf16"]).double()
                 - ladder_oracle(q, kc, vc, False)).abs().max().item()
     del q, kc, vc, kh, vh
 
     qT, kT, vT, qa, ka, qi, ki, fl = vb._inputs()
     bis_plain = call_ms(lambda *a: vb.launch_ref(4, *a),
                         [(qi, ki, fl, qT, kT, vT, qa, ka)], iters=3)
-    # an all-empty table: K4 reads its tables and each tick's aux words
+    # an all-empty table of one block index: K4 reads its tables and the
+    # aux words of one q block and one key block
     bis_bytes = 3 * vb.T * 4 + vb.BQ * 4 + vb.BK * 4
     del qT, kT, vT
 
     res = dict(phase="diag", check_s=check_s, path_s=path_s,
                launches=launches, checks=checks,
-               stream=stream, ladder=ladder, bisect=bis)
+               stream=stream, ladder=ladder, full_against_production=against,
+               bisect=bis)
     emit(res)
     torch.cuda.empty_cache()
     s1 = ladder["split1"]
@@ -2865,7 +2896,10 @@ def diag_phase():
                                 f"shuf={int(r['shuffled'])}": dict(
                                     ms=r["ms"], gbps=r["gbps"])
                                 for r in stream}),
-        ladder=dict(ms=s1["bf16 full"] * 1e3, plain_ms=ladder_plain,
+        ladder=dict(ms=against["bf16 full fill"],
+                    ms_one_split=against["bf16 full split1"],
+                    production_ms=against["bf16 production fill"],
+                    against=against, plain_ms=ladder_plain,
                     library_ms=ladder_lib, bytes=ladder_bytes,
                     bound_ms=ladder_bytes / PEAK_BYTES * 1e3,
                     max_abs_err=full_err,
@@ -3694,10 +3728,12 @@ def main():
     info = _build.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=info))
-    spills = {k: v for name in ("flex", "flash_bwd", "flash_fwd")
+    spills = {k: v for name in ("flex", "flash_bwd", "flash_fwd",
+                                "diag_int8_decode", "diag_varlen_bisect")
               for k, v in ptxas_summary(name).items()
               if k.startswith(("flex_fwd_kernel", "flex_bwd_", "flash_bwd_",
-                               "flash_fwd_kernel"))
+                               "flash_fwd_kernel", "decode_ladder_kernel",
+                               "bisect_kernel"))
               and (v.get("spill_stores") or v.get("spill_loads"))}
     if spills:
         raise AssertionError(f"Hopper kernels spill registers: {spills}")
@@ -4031,13 +4067,20 @@ def main():
              plain_ms=dg["bisect"]["plain_ms"],
              bound_ms=dg["bisect"]["bound_ms"], bound_by="bytes",
              library_ms=None, us_per_tick=dg["bisect"]["us_per_tick"],
+             ptxas=ptxas_summary("diag_varlen_bisect"),
              us_per_empty_cta=dg["bisect"]["us_per_empty_cta"]),
         dict(name="diag_int8_decode", route="cuda",
              source="flash_attn_tpu_torch/csrc/diag_int8_decode.cu",
-             kernel="decode_ladder_kernel; ms: bf16 full at one split",
+             kernel="decode_ladder_kernel; ms: bf16 full at the filling "
+             "split, ms_one_split at one; production_ms: flash_decode_ref on "
+             "the same cache at the filling split",
              replaces="benchmarks/diag_int8_decode.py:144",
              launches=dg["launches"]["diag_int8_decode"],
              max_abs_err=dg["ladder"]["max_abs_err"], ms=dg["ladder"]["ms"],
+             ms_one_split=dg["ladder"]["ms_one_split"],
+             production_ms=dg["ladder"]["production_ms"],
+             full_against_production_ms=dg["ladder"]["against"],
+             ptxas=ptxas_summary("diag_int8_decode"),
              plain_ms=dg["ladder"]["plain_ms"],
              bound_ms=dg["ladder"]["bound_ms"], bound_by="bytes",
              library_ms=dg["ladder"]["library_ms"],

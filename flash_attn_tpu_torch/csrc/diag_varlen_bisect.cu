@@ -24,32 +24,58 @@
 // block in VMEM.  That does not fit a CTA's shared memory, so here a CTA per
 // (64-row slice of the q block, head group) walks the whole tick table in
 // order, as the TPU's grid does, and for each tick does what the JAX level
-// does for its 64 rows: the table and aux reads, the init, the bodies over
-// the key block in 64-key tiles, the finalize.  A tick therefore costs each
-// of the bq / 64 CTAs of a head group one pass of this loop.
+// does for its 64 rows: its tables and aux, the init, the bodies over the
+// key block in 64-key tiles, the finalize.  A tick therefore costs each of
+// the bq / 64 CTAs of a head group one pass of this loop.
 //
 // What bounds it on the H100: for the probe's all-empty tables, nothing but
 // the tables (the time is the fixed cost the probe is after); for a live
-// tick, 4 * 64 * bk * 128 FLOPs a head and 64-row slice.  The bodies are
-// plain fp32 FMAs over shared-memory tiles, simple and not fast: they only
-// run in the live checks.  Shared memory is sized as the JAX scratch
-// (acc, m, l for block_h heads) for every level but K0, which takes none.
+// tick, 4 * 64 * bk * 128 FLOPs a head and 64-row slice.
+//
+// What the design does about it.  A tick's inputs reach the CTA as the
+// Pallas pipeline brings them, not by a dependent global load on every tick:
+// * The tick tables (qi, ki, fl and K9's code, 4 T int32 at most) are
+//   staged into shared memory once, before the loop, by bulk copies
+//   (cp.async.bulk, the TMA's 1-D form) on one mbarrier.
+// * The aux of tick t + 1 (its q rows' words, 64 x 8 int32, and key block's
+//   row, bk int32) is prefetched by bulk copies into the second of two
+//   buffers while tick t runs, each buffer with its own mbarrier; as the
+//   Pallas pipeline, a tick whose block indices equal the buffer's skips the
+//   copy.  A thread waits on a buffer's barrier once per copy.
+// * A quiet tick (nothing to do at the level, and the next tick's aux
+//   already in the current buffer) costs a lane of one warp step: each warp
+//   tests 32 ticks at once and one ballot finds the next tick with work.
+//   A tick with work runs on its own and ends with a __syncthreads (the
+//   next tick may rewrite the state, and a later copy the other buffer).
+// * The live bodies (run only by the checks) take the CTA's 64 rows as 4
+//   warps of 16 on mma.sync.m16n8k16 bf16: Q fragments from ldmatrix, S and
+//   the head's O, m, l in registers across the key block (loaded from and
+//   stored back to the JAX scratch in shared memory), K from ldmatrix, V
+//   from ldmatrix.trans.  Shared memory is sized as the JAX scratch (acc, m,
+//   l for block_h heads) plus the tiles, tables and aux buffers, for every
+//   level but K0, which takes none.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "fa_common.cuh"
+#include "hopper.cuh"
+
 namespace {
+
+using fa::Mma;
+using fa::quad_max;
+using fa::quad_sum;
 
 constexpr int kD = 128;
 constexpr int kSlice = 64;   // q rows a CTA
 constexpr int kTileN = 64;   // keys a tile
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 128;  // 4 warps, 16 rows each in the bodies
 constexpr int kStat = 8;     // q-aux lanes
 constexpr int kPadRow = kD + 8;  // bf16 row stride in shared memory
-constexpr int kSRow = kTileN + 4;  // fp32 score row stride
+constexpr int kTables = 4;   // qi, ki, fl, code
 constexpr float kBias = -3e38f;
 constexpr float kMInit = -1e30f;
 constexpr int kFirst = 1, kLast = 2, kBound = 4, kEmpty = 8;
@@ -71,50 +97,53 @@ struct Params {
   int total, bq, bk, bh, T;
 };
 
+__host__ __device__ inline int table_words(int T) { return (T + 3) & ~3; }
+__host__ __device__ inline int aux_words(int bk) { return kSlice * kStat + bk; }
+
 struct Smem {
   float* acc;   // (bh, 64, D)
   float* m;     // (bh, 64)
   float* l;     // (bh, 64)
-  float* alpha; // (64)
   __nv_bfloat16* q;  // (64, kPadRow)
   __nv_bfloat16* k;
   __nv_bfloat16* v;
-  float* s;     // (64, kSRow)
-  int* qa;      // (64)
-  int* ka;      // (bk)
+  int* tab;     // (kTables, table_words(T)): the tables as staged
+  int4* ticks;  // (table_words(T)): (qi, ki, fl, code) a tick
+  int* aux;     // (2, aux_words(bk)): a buffer's q rows' words, then the key row
 };
 
-__host__ __device__ inline size_t smem_bytes(int bh, int bk) {
-  return (size_t)bh * kSlice * kD * 4 + (size_t)2 * bh * kSlice * 4 + kSlice * 4 +
-         (size_t)3 * kSlice * kPadRow * 2 + (size_t)kSlice * kSRow * 4 + kSlice * 4 +
-         (size_t)bk * 4;
+// Every region starts 16-byte aligned (the bulk copies' and ldmatrix's
+// alignment).
+__host__ __device__ inline size_t smem_bytes(int bh, int bk, int T) {
+  return (size_t)bh * kSlice * kD * 4 + (size_t)2 * bh * kSlice * 4 +
+         (size_t)3 * kSlice * kPadRow * 2 + (size_t)2 * kTables * table_words(T) * 4 +
+         (size_t)2 * aux_words(bk) * 4;
 }
 
-__device__ inline Smem carve(unsigned char* base, int bh) {
+__device__ inline Smem carve(unsigned char* base, const Params& p) {
   Smem s;
   s.acc = reinterpret_cast<float*>(base);
-  s.m = s.acc + bh * kSlice * kD;
-  s.l = s.m + bh * kSlice;
-  s.alpha = s.l + bh * kSlice;
-  s.q = reinterpret_cast<__nv_bfloat16*>(s.alpha + kSlice);
+  s.m = s.acc + p.bh * kSlice * kD;
+  s.l = s.m + p.bh * kSlice;
+  s.q = reinterpret_cast<__nv_bfloat16*>(s.l + p.bh * kSlice);
   s.k = s.q + kSlice * kPadRow;
   s.v = s.k + kSlice * kPadRow;
-  s.s = reinterpret_cast<float*>(s.v + kSlice * kPadRow);
-  s.qa = reinterpret_cast<int*>(s.s + kSlice * kSRow);
-  s.ka = s.qa + kSlice;
+  s.tab = reinterpret_cast<int*>(s.v + kSlice * kPadRow);
+  s.ticks = reinterpret_cast<int4*>(s.tab + kTables * table_words(p.T));
+  s.aux = reinterpret_cast<int*>(s.ticks + table_words(p.T));
   return s;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(fa::smem_u32(p)));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(fa::smem_u32(p)));
 }
 
 // 64 rows of 128 bf16 from global rows at `src` (row stride kD) into shared
@@ -128,118 +157,150 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
 }
 
 // One body of the JAX levels for the CTA's 64 rows: for each of the bh heads,
-// s = q k^T over the key block (plus the boundary bias with kMask), then the
-// online-softmax update and P V into acc.  kFresh starts each head's state
-// anew (m = -1e30, l = 0, acc = 0), which is the JAX `fresh` update.
+// s = q k^T over the key block (plus the boundary bias with kMask, from the
+// aux words aq (64 rows x kStat) and ak (bk)), then the online-softmax update
+// and P V into acc, a 64-key tile at a time.  Warp w owns rows 16 w .. 16 w +
+// 15.  kFresh starts each head's state anew (m = -1e30, l = 0, acc = 0),
+// which is the JAX `fresh` update.  Ends with the state in shared memory.
 template <bool kMask, bool kFresh>
-__device__ __forceinline__ void body(const Params& p, const Smem& sm, int hb, int q0, int k0) {
+__device__ __forceinline__ void body(const Params& p, const Smem& sm, const int* aq, const int* ak,
+                                  int hb, int q0, int k0) {
+  constexpr int kKS = kD / 16, kDT = kD / 8, kNT = kTileN / 8, kPK = kTileN / 16;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int r0 = warp * 16;
+  int seg_q[2] = {0, 0}, pos_q[2] = {0, 0};
+  if (kMask) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int a = aq[(r0 + gid + 8 * i) * kStat];
+      seg_q[i] = (int)((unsigned)a >> 16);
+      pos_q[i] = a & 0xFFFF;
+    }
+  }
   for (int hh = 0; hh < p.bh; ++hh) {
     const int head = hb * p.bh + hh;
     float* acc = sm.acc + hh * kSlice * kD;
     float* mrow = sm.m + hh * kSlice;
     float* lrow = sm.l + hh * kSlice;
-    if (kFresh) {
-      for (int i = tid; i < kSlice * kD; i += kThreads) acc[i] = 0.f;
-      if (tid < kSlice) {
-        mrow[tid] = kMInit;
-        lrow[tid] = 0.f;
+    load_rows(sm.q, p.q + ((size_t)head * p.total + q0) * kD);
+    __syncthreads();
+    uint32_t qf[kKS][4];
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk)
+      ldsm_x4(qf[kk], sm.q + (r0 + (lane & 15)) * kPadRow + kk * 16 + (lane >> 4) * 8);
+
+    // the head's state of this thread's rows gid, gid + 8 (l: one share a
+    // quad, summed back at the end)
+    float o[kDT][4], m_run[2], l_run[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + gid + 8 * i;
+      m_run[i] = kFresh ? kMInit : mrow[row];
+      l_run[i] = (kFresh || tig != 0) ? 0.f : lrow[row];
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) {
+        float2 x = make_float2(0.f, 0.f);
+        if (!kFresh) x = *reinterpret_cast<const float2*>(acc + row * kD + dt * 8 + tig * 2);
+        o[dt][2 * i] = x.x;
+        o[dt][2 * i + 1] = x.y;
       }
     }
-    load_rows(sm.q, p.q + ((size_t)head * p.total + q0) * kD);
+
     for (int kt = 0; kt < p.bk / kTileN; ++kt) {
       const size_t key0 = (size_t)k0 + kt * kTileN;
       load_rows(sm.k, p.k + ((size_t)head * p.total + key0) * kD);
       load_rows(sm.v, p.v + ((size_t)head * p.total + key0) * kD);
       __syncthreads();
 
-      // scores: thread per key j and rows rg, rg + 4, ..., rg + 60
-      {
-        const int j = tid % kTileN, rg = tid / kTileN;
-        float s[kSlice / 4];
+      float s[kNT][4];
 #pragma unroll
-        for (int i = 0; i < kSlice / 4; ++i) s[i] = 0.f;
-        for (int c = 0; c < kD; c += 8) {
-          const uint4 ku = *reinterpret_cast<const uint4*>(sm.k + j * kPadRow + c);
-          const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&ku);
-          float kf[8];
+      for (int jt = 0; jt < kNT; ++jt) s[jt][0] = s[jt][1] = s[jt][2] = s[jt][3] = 0.f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 f = __bfloat1622float2(k2[e]);
-            kf[2 * e] = f.x;
-            kf[2 * e + 1] = f.y;
-          }
+      for (int kk = 0; kk < kKS; kk += 2) {
 #pragma unroll
-          for (int i = 0; i < kSlice / 4; ++i) {
-            const uint4 qu =
-                *reinterpret_cast<const uint4*>(sm.q + (rg + 4 * i) * kPadRow + c);
-            const __nv_bfloat162* q2 = reinterpret_cast<const __nv_bfloat162*>(&qu);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float2 f = __bfloat1622float2(q2[e]);
-              s[i] = fmaf(f.x, kf[2 * e], s[i]);
-              s[i] = fmaf(f.y, kf[2 * e + 1], s[i]);
-            }
-          }
+        for (int jt = 0; jt < kNT; ++jt) {
+          uint32_t b[4];
+          ldsm_x4(b, sm.k + (jt * 8 + (lane & 7)) * kPadRow + kk * 16 + (lane >> 3) * 8);
+          Mma<__nv_bfloat16>::mma(s[jt], qf[kk], b);
+          Mma<__nv_bfloat16>::mma(s[jt], qf[kk + 1], b + 2);
         }
-        int seg_k = 0, pos_k = 0;
-        if (kMask) {
-          const int a = sm.ka[kt * kTileN + j];
-          seg_k = (int)((unsigned)a >> 16);
-          pos_k = a & 0xFFFF;
-        }
+      }
+
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int i = 0; i < kSlice / 4; ++i) {
-          const int r = rg + 4 * i;
-          float x = s[i];
+      for (int jt = 0; jt < kNT; ++jt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float x = s[jt][e];
           if (kMask) {
-            const int a = sm.qa[r];
-            if ((int)((unsigned)a >> 16) != seg_k || pos_k < (a & 0xFFFF)) x = x + kBias;
+            const int a = ak[kt * kTileN + jt * 8 + tig * 2 + (e & 1)];
+            if ((int)((unsigned)a >> 16) != seg_q[i] || (a & 0xFFFF) < pos_q[i]) x = x + kBias;
           }
-          sm.s[r * kSRow + j] = x;
+          s[jt][e] = x;
+          mx[i] = fmaxf(mx[i], x);
         }
       }
-      __syncthreads();
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m_run[i], quad_max(mx[i]));
+        alpha[i] = exp2f(m_run[i] - m_new);
+        m_run[i] = m_new;
+      }
+#pragma unroll
+      for (int jt = 0; jt < kNT; ++jt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = exp2f(s[jt][e] - m_run[e >> 1]);
+          rs[e >> 1] += pe;
+          s[jt][e] = pe;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + rs[i];
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] *= alpha[e >> 1];
+      // P rounded to bf16 (the JAX body's pmat.astype(v.dtype)) as A
+      uint32_t pa[kPK][4];
+#pragma unroll
+      for (int c = 0; c < kPK; ++c) {
+        pa[c][0] = Mma<__nv_bfloat16>::pack(s[2 * c][0], s[2 * c][1]);
+        pa[c][1] = Mma<__nv_bfloat16>::pack(s[2 * c][2], s[2 * c][3]);
+        pa[c][2] = Mma<__nv_bfloat16>::pack(s[2 * c + 1][0], s[2 * c + 1][1]);
+        pa[c][3] = Mma<__nv_bfloat16>::pack(s[2 * c + 1][2], s[2 * c + 1][3]);
+      }
+#pragma unroll
+      for (int ks = 0; ks < kPK; ++ks) {
+#pragma unroll
+        for (int dp = 0; dp < kDT; dp += 2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, sm.v + (ks * 16 + (lane & 15)) * kPadRow + (dp + (lane >> 4)) * 8);
+          Mma<__nv_bfloat16>::mma(o[dp], pa[ks], b);
+          Mma<__nv_bfloat16>::mma(o[dp + 1], pa[ks], b + 2);
+        }
+      }
+      __syncthreads();  // the k and v tiles may be refilled
+    }
 
-      // online softmax: warp per row, two keys a lane; P rounded to bf16
-      for (int r = warp; r < kSlice; r += kWarps) {
-        float* sr = sm.s + r * kSRow;
-        const float x0 = sr[lane], x1 = sr[lane + 32];
-        const float m_prev = mrow[r];
-        const float m_curr = fmaxf(m_prev, warp_max(fmaxf(x0, x1)));
-        const float p0 = exp2f(x0 - m_curr), p1 = exp2f(x1 - m_curr);
-        const float psum = warp_sum(p0 + p1);
-        sr[lane] = __bfloat162float(__float2bfloat16_rn(p0));
-        sr[lane + 32] = __bfloat162float(__float2bfloat16_rn(p1));
-        if (lane == 0) {
-          const float alpha = exp2f(m_prev - m_curr);
-          sm.alpha[r] = alpha;
-          lrow[r] = lrow[r] * alpha + psum;
-          mrow[r] = m_curr;
-        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + gid + 8 * i;
+      const float l = quad_sum(l_run[i]);
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt)
+        *reinterpret_cast<float2*>(acc + row * kD + dt * 8 + tig * 2) =
+            make_float2(o[dt][2 * i], o[dt][2 * i + 1]);
+      if (tig == 0) {
+        mrow[row] = m_run[i];
+        lrow[row] = l;
       }
-      __syncthreads();
-
-      // acc = alpha acc + P V: thread per dim dd and rows rg, rg + 2, ...
-      {
-        const int dd = tid % kD, rg = tid / kD;
-        float a[kSlice / 2];
-#pragma unroll
-        for (int i = 0; i < kSlice / 2; ++i) a[i] = 0.f;
-        for (int j = 0; j < kTileN; ++j) {
-          const float vj = __bfloat162float(sm.v[j * kPadRow + dd]);
-#pragma unroll
-          for (int i = 0; i < kSlice / 2; ++i) a[i] = fmaf(sm.s[(rg + 2 * i) * kSRow + j], vj, a[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < kSlice / 2; ++i) {
-          const int r = rg + 2 * i;
-          acc[r * kD + dd] = acc[r * kD + dd] * sm.alpha[r] + a[i];
-        }
-      }
-      __syncthreads();  // tiles, scores and alpha may be refilled
     }
   }
+  __syncthreads();  // the state is complete (the finalize reads all rows)
 }
 
 template <int V, int kBodies>
@@ -248,57 +309,175 @@ __global__ void __launch_bounds__(kThreads) bisect_kernel(const Params p) {
     return;
   } else {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Smem sm = carve(smem, p.bh);
+    __shared__ __align__(8) uint64_t bars[3];  // the tables; aux buffers 0, 1
+    const Smem sm = carve(smem, p);
     const int sl = blockIdx.x, hb = blockIdx.y, tid = threadIdx.x;
     constexpr bool kAux = V != K10;
     constexpr bool kLse = V == K7 || V == K8;
+    constexpr int kStaged = V == K9 ? 4 : 3;  // tables staged
+    const int tw = table_words(p.T);
+    const int* tables[kTables] = {p.qi, p.ki, p.fl, p.code};
+    const int aw = aux_words(p.bk);
+
+    // thread 0 copies the aux of block indices (qi, ki) into buffer `buf`
+    auto issue_aux = [&](int buf, int qi, int ki) {
+      const int q0 = qi * p.bq + sl * kSlice;
+      int* dst = sm.aux + buf * aw;
+      fa::mbar_expect_tx(&bars[1 + buf], aw * 4);
+      fa::bulk_load(dst, p.qa + (size_t)q0 * kStat, kSlice * kStat * 4, &bars[1 + buf]);
+      fa::bulk_load(dst + kSlice * kStat, p.ka + (size_t)ki * kStat * p.bk, p.bk * 4,
+                    &bars[1 + buf]);
+    };
+
+    // Stage the tables: whole 16-byte chunks by bulk copies on bars[0], the
+    // last T % 4 words by plain loads; then one (qi, ki, fl, code) record a
+    // tick.  Tick 0's aux goes into buffer 0 meanwhile.
+    const int bulk_words = p.T & ~3;
+    if (tid == 0) {
+#pragma unroll
+      for (int b = 0; b < 3; ++b) fa::mbar_init(&bars[b], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    for (int i = bulk_words + tid; i < p.T; i += kThreads)
+#pragma unroll
+      for (int j = 0; j < kStaged; ++j) sm.tab[j * tw + i] = tables[j][i];
+    __syncthreads();  // the barriers are initialised, the tails in place
+    if (tid == 0) {
+      if (bulk_words > 0) {
+        fa::mbar_expect_tx(&bars[0], kStaged * bulk_words * 4);
+#pragma unroll
+        for (int j = 0; j < kStaged; ++j)
+          fa::bulk_load(sm.tab + j * tw, tables[j], bulk_words * 4, &bars[0]);
+      }
+      if (kAux && p.T > 0) issue_aux(0, p.qi[0], p.ki[0]);
+    }
+    if (bulk_words > 0) fa::mbar_wait(&bars[0], 0);
+    for (int i = tid; i < p.T; i += kThreads)
+      sm.ticks[i] = make_int4(sm.tab[i], sm.tab[tw + i], sm.tab[2 * tw + i],
+                              V == K9 ? sm.tab[3 * tw + i] : 0);
+    __syncthreads();
+
+    // Whether a tick does anything at this level (init, a body, finalize).
+    auto has_work = [&](int4 tk) {
+      const int fl = tk.z;
+      const bool first = fl & kFirst, empty = fl & kEmpty, last = fl & kLast;
+      if constexpr (V <= K2) return first && empty;
+      if constexpr (V <= K8) return (first && empty) || !empty || last;
+      if constexpr (V == K9) return first || (tk.w >= 0 && tk.w < 4) || last;
+      return first || ((unsigned)fl >> 4) < (unsigned)kBodies || last;
+    };
+
+    // The aux buffers, the current one (cur) and the other: the block
+    // indices each holds, its copies issued (the last one's barrier phase
+    // has parity n - 1), and whether this thread has yet to see the last one
+    // land.  Every thread keeps the same bookkeeping.
+    int cur = 0;
+    int cq = -1, ck = -1, cn = 0, oq = -1, ok = -1, on = 0;
+    bool c_pend = false, o_pend = false;
+    if (kAux && p.T > 0) {
+      cq = sm.ticks[0].x;
+      ck = sm.ticks[0].y;
+      cn = 1;
+      c_pend = true;
+    }
+
+    const int lane = tid & 31;
     for (int t = 0; t < p.T; ++t) {
-      const int qi = p.qi[t], ki = p.ki[t], fl = p.fl[t];
+      // Skip the quiet ticks from t (nothing to do, and the next tick's aux
+      // in the current buffer), 32 at a time: lane i tests tick t + i, and
+      // every warp finds the same first tick that is not quiet.
+      for (;;) {
+        const int i = t + lane;
+        bool loud = true;
+        if (i < p.T) {
+          bool same = true;
+          if (kAux && i + 1 < p.T) {
+            const int4 b = sm.ticks[i + 1];
+            same = b.x == cq && b.y == ck;
+          }
+          loud = !same || has_work(sm.ticks[i]);
+        }
+        const unsigned m = __ballot_sync(0xffffffffu, loud);
+        if (m != 0) {
+          t += __ffs(m) - 1;
+          break;
+        }
+        t += 32;
+      }
+      if (t >= p.T) break;
+
+      const int4 tk = sm.ticks[t];
+      const bool more = t + 1 < p.T;
+      const int4 nx = more ? sm.ticks[t + 1] : make_int4(-1, -1, 0, 0);
+      const bool same_aux = !kAux || !more || (nx.x == cq && nx.y == ck);
+
+      // tick t + 1's aux: in the other buffer already, or copied there
+      bool swap = false;
+      if (!same_aux) {
+        swap = true;
+        if (nx.x != oq || nx.y != ok) {
+          // the other buffer was last read before a tick's closing barrier;
+          // its last copy has landed before its barrier is armed again
+          if (tid == 0) {
+            if (o_pend) fa::mbar_wait(&bars[2 - cur], (on - 1) & 1);
+            issue_aux(cur ^ 1, nx.x, nx.y);
+          }
+          oq = nx.x;
+          ok = nx.y;
+          ++on;
+          o_pend = true;
+        }
+      }
+      if (kAux && c_pend) {  // tick t's aux
+        fa::mbar_wait(&bars[1 + cur], (cn - 1) & 1);
+        c_pend = false;
+      }
+
+      const int fl = tk.z;
       const bool first = fl & kFirst, empty = fl & kEmpty, bound = fl & kBound,
                  last = fl & kLast, live = !empty;
-      const int q0 = qi * p.bq + sl * kSlice, k0 = ki * p.bk;
-      if (kAux) {  // the tick's aux prologue: q rows' words, the key row
-        if (tid < kSlice) sm.qa[tid] = p.qa[(size_t)(q0 + tid) * kStat];
-        for (int j = tid; j < p.bk; j += kThreads) sm.ka[j] = p.ka[(size_t)ki * kStat * p.bk + j];
-        __syncthreads();
-      }
+      const int q0 = tk.x * p.bq + sl * kSlice, k0 = tk.y * p.bk;
+      const int* aq = sm.aux + cur * aw;
+      const int* ak = aq + kSlice * kStat;
       if constexpr (V == K1) {
         if (first && empty && tid < kSlice) {
-          const int a = sm.qa[tid], b = sm.ka[0];
+          const int a = aq[tid * kStat], b = ak[0];
           sm.m[tid] = (float)((a & 0xFFFF) + (b & 0xFFFF) + (int)((unsigned)a >> 16) +
                               (int)((unsigned)b >> 16));
         }
       } else {
         const bool init = V >= K9 ? first : (first && empty);
         if (init) {
-          for (int i = tid; i < p.bh * kSlice * kD; i += kThreads) sm.acc[i] = 0.f;
+          float4* acc4 = reinterpret_cast<float4*>(sm.acc);
+          for (int i = tid; i < p.bh * kSlice * kD / 4; i += kThreads)
+            acc4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
           for (int i = tid; i < p.bh * kSlice; i += kThreads) {
             sm.m[i] = kMInit;
             sm.l[i] = 0.f;
           }
+          __syncthreads();
         }
-        __syncthreads();
         if constexpr (V == K3) {
-          if (live) body<false, false>(p, sm, hb, q0, k0);
+          if (live) body<false, false>(p, sm, aq, ak, hb, q0, k0);
         } else if constexpr (V == K4 || V == K7) {
-          if (live && !bound) body<false, false>(p, sm, hb, q0, k0);
-          if (live && bound) body<true, false>(p, sm, hb, q0, k0);
+          if (live && !bound) body<false, false>(p, sm, aq, ak, hb, q0, k0);
+          if (live && bound) body<true, false>(p, sm, aq, ak, hb, q0, k0);
         } else if constexpr (V == K6 || V == K8) {
-          if (live && first && !bound) body<false, true>(p, sm, hb, q0, k0);
-          if (live && first && bound) body<true, true>(p, sm, hb, q0, k0);
-          if (live && !first && !bound) body<false, false>(p, sm, hb, q0, k0);
-          if (live && !first && bound) body<true, false>(p, sm, hb, q0, k0);
+          if (live && first && !bound) body<false, true>(p, sm, aq, ak, hb, q0, k0);
+          if (live && first && bound) body<true, true>(p, sm, aq, ak, hb, q0, k0);
+          if (live && !first && !bound) body<false, false>(p, sm, aq, ak, hb, q0, k0);
+          if (live && !first && bound) body<true, false>(p, sm, aq, ak, hb, q0, k0);
         } else if constexpr (V == K9) {
-          const int code = p.code[t];
-          if (code == 0) body<false, false>(p, sm, hb, q0, k0);
-          if (code == 1) body<true, false>(p, sm, hb, q0, k0);
-          if (code == 2) body<false, true>(p, sm, hb, q0, k0);
-          if (code == 3) body<true, true>(p, sm, hb, q0, k0);
+          const int code = tk.w;
+          if (code == 0) body<false, false>(p, sm, aq, ak, hb, q0, k0);
+          if (code == 1) body<true, false>(p, sm, aq, ak, hb, q0, k0);
+          if (code == 2) body<false, true>(p, sm, aq, ak, hb, q0, k0);
+          if (code == 3) body<true, true>(p, sm, aq, ak, hb, q0, k0);
         } else if constexpr (V == K10) {
           const int code = (int)((unsigned)fl >> 4);
 #pragma unroll
           for (int idx = 0; idx < kBodies; ++idx)
-            if (code == idx) body<false, false>(p, sm, hb, q0, k0);
+            if (code == idx) body<false, false>(p, sm, aq, ak, hb, q0, k0);
         }
         if (V != K2 && last) {
           for (int hh = 0; hh < p.bh; ++hh) {
@@ -320,14 +499,22 @@ __global__ void __launch_bounds__(kThreads) bisect_kernel(const Params p) {
           }
         }
       }
-      __syncthreads();  // the next tick rewrites the aux and the state
+      // the next tick may rewrite the state, and a later copy this buffer
+      __syncthreads();
+      if (swap) {
+        cur ^= 1;
+        int x = cq; cq = oq; oq = x;
+        x = ck; ck = ok; ok = x;
+        x = cn; cn = on; on = x;
+        const bool b = c_pend; c_pend = o_pend; o_pend = b;
+      }
     }
   }
 }
 
 template <int V, int kBodies>
 cudaError_t launch(const Params& p, int heads, int empty_ctas, cudaStream_t s) {
-  const int smem = V == K0 ? 0 : (int)smem_bytes(p.bh, p.bk);
+  const int smem = V == K0 ? 0 : (int)smem_bytes(p.bh, p.bk, p.T);
   cudaError_t err = cudaFuncSetAttribute(bisect_kernel<V, kBodies>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -335,6 +522,8 @@ cudaError_t launch(const Params& p, int heads, int empty_ctas, cudaStream_t s) {
   bisect_kernel<V, kBodies><<<grid, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 }  // namespace
 
@@ -345,7 +534,8 @@ extern "C" const char* fa_error_string(int err) {
 // variant: 0..10 for K0..K10; n_bodies (K10): 1..4; empty_ctas (K0 only):
 // one CTA per (tick, head group, row slice).  q, k, v, o (heads, total,
 // 128) bf16; qa (total, 8), ka (total / bk, 8, bk) int32 (null for K10);
-// code (T,) for K9; lse (heads, total) fp32 for K7 / K8.  Returns
+// code (T,) for K9; lse (heads, total) fp32 for K7 / K8.  The tables and
+// the aux must be 16-byte aligned (their bulk copies).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int diag_varlen_bisect(int variant, int n_bodies, int empty_ctas, const int* qi,
                                   const int* ki, const int* fl, const int* code, const void* q,
@@ -353,6 +543,10 @@ extern "C" int diag_varlen_bisect(int variant, int n_bodies, int empty_ctas, con
                                   void* o, float* lse, int heads, int total, int d, int bq,
                                   int bk, int bh, int T, void* stream) {
   if (d != kD || bq % kSlice || bk % kTileN || bh < 1 || bh > 4 || heads % bh) {
+    return cudaErrorInvalidValue;
+  }
+  if (!aligned16(qi) || !aligned16(ki) || !aligned16(fl) || (code && !aligned16(code)) ||
+      (qa && !aligned16(qa)) || (ka && !aligned16(ka))) {
     return cudaErrorInvalidValue;
   }
   Params p{qi, ki, fl, code, static_cast<const __nv_bfloat16*>(q),
@@ -370,7 +564,9 @@ extern "C" int diag_varlen_bisect(int variant, int n_bodies, int empty_ctas, con
     case K6: return launch<K6, 0>(p, heads, 0, s);
     case K7: return launch<K7, 0>(p, heads, 0, s);
     case K8: return launch<K8, 0>(p, heads, 0, s);
-    case K9: return launch<K9, 0>(p, heads, 0, s);
+    case K9:
+      if (code == nullptr) return cudaErrorInvalidValue;
+      return launch<K9, 0>(p, heads, 0, s);
     case K10:
       switch (n_bodies) {
         case 1: return launch<K10, 1>(p, heads, 0, s);

@@ -19,9 +19,12 @@ same tick tables to find the piece a tick pays for:
 
 The tables are all empty (fl = EMPTY), so o is never written and only the
 time means anything: ms and the script's us/tick = dt / T / (H // BH).  A
-tick on the card is one pass of a CTA's tick loop, for each of the BQ / 64
-CTAs (64-row slices of the q block) of a head group; `k04` also prints us
-per empty CTA, K0 launched with one CTA per (tick, head group, row slice).
+tick on the card is one step of a CTA's walk of the staged tables, for
+each of the BQ / 64 CTAs (64-row slices of the q block) of a head group;
+a tick with nothing to do and no aux to fetch costs a lane of a 32-tick
+warp step, so the empty levels time the walk's set-up (staging the tables,
+the first aux copy) more than its ticks; `k04` also prints us per empty
+CTA, K0 launched with one CTA per (tick, head group, row slice).
 
 `launch`, `launch2`, `launch3`, `launch4` and `launch_empty_ctas` launch the
 kernel (CUDA tensors only); `launch_ref` .. `launch4_ref` are their plain
@@ -92,6 +95,10 @@ def _launch(variant, qi, ki, fl, qT, kT, vT, qa_rep=None, ka_rows=None,
     for t in (qT, kT, vT, qa_rep, ka_rows, *tables):
         if t is not None and not t.is_contiguous():
             raise ValueError("inputs must be contiguous")
+    for t in (qa_rep, ka_rows, *tables):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the tick tables and aux must be 16-byte aligned "
+                             "(the kernel bulk-copies them)")
     o = torch.empty_like(qT)
     lse_t = (torch.empty(heads, total, dtype=torch.float32, device=qT.device)
              if lse else None)
@@ -189,10 +196,12 @@ def _bodies(variant, f, code, n_bodies):
 def _ref(variant, qi, ki, fl, qT, kT, vT, qa_rep=None, ka_rows=None,
          code=None, *, bh, n_bodies=0, lse=False):
     """The tick walk of the JAX level `variant`, head group by head group,
-    with the JAX kernel's per-tick math on whole (BQ, BK) blocks."""
+    with the JAX kernel's per-tick math on whole (BQ, BK) blocks: in
+    float32, or in float64 for float64 inputs (no rounding of P then)."""
     heads, total, d = qT.shape
+    mm = torch.float64 if qT.dtype == torch.float64 else torch.float32
     o = torch.zeros_like(qT)
-    lse_t = (torch.zeros(heads, total, dtype=torch.float32, device=qT.device)
+    lse_t = (torch.zeros(heads, total, dtype=mm, device=qT.device)
              if lse else None)
     if variant in ("K0", "K1", "K2"):
         return o, lse_t  # these levels write no output
@@ -200,9 +209,9 @@ def _ref(variant, qi, ki, fl, qT, kT, vT, qa_rep=None, ka_rows=None,
     code_l = code.tolist() if code is not None else [0] * len(fl_l)
     dev = qT.device
     for hb in range(heads // bh):
-        acc = torch.zeros(bh, BQ, d, dtype=torch.float32, device=dev)
-        m = torch.full((bh, BQ, 1), M_INIT, device=dev)
-        l = torch.zeros(bh, BQ, 1, device=dev)
+        acc = torch.zeros(bh, BQ, d, dtype=mm, device=dev)
+        m = torch.full((bh, BQ, 1), M_INIT, dtype=mm, device=dev)
+        l = torch.zeros(bh, BQ, 1, dtype=mm, device=dev)
         for t, f in enumerate(fl_l):
             rows = slice(qi_l[t] * BQ, (qi_l[t] + 1) * BQ)
             keys = slice(ki_l[t] * BK, (ki_l[t] + 1) * BK)
@@ -221,7 +230,7 @@ def _ref(variant, qi, ki, fl, qT, kT, vT, qa_rep=None, ka_rows=None,
                     bias = torch.where(keep, 0.0, MASK_BIAS)
                 for hh in range(bh):
                     h = hb * bh + hh
-                    s = qT[h, rows].float() @ kT[h, keys].float().T
+                    s = qT[h, rows].to(mm) @ kT[h, keys].to(mm).T
                     if bias is not None:
                         s = s + bias
                     m_prev = (torch.full_like(m[hh], M_INIT) if fresh
@@ -229,7 +238,7 @@ def _ref(variant, qi, ki, fl, qT, kT, vT, qa_rep=None, ka_rows=None,
                     m_curr = torch.maximum(m_prev, s.amax(1, keepdim=True))
                     p = torch.exp2(s - m_curr)
                     psum = p.sum(1, keepdim=True)
-                    pv = p.to(vT.dtype).float() @ vT[h, keys].float()
+                    pv = p.to(vT.dtype).to(mm) @ vT[h, keys].to(mm)
                     if fresh:
                         l[hh], acc[hh] = psum, pv
                     else:

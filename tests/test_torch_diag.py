@@ -102,16 +102,16 @@ def ladder_inputs(int8):
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
-def jax_ladder(stage, int8, q, kc, vc):
+def jax_ladder(stage, int8, q, kc, vc, bk=BK):
     """The JAX probe's `pallas_call` of `run_stage`, in interpret mode."""
     mod = jax_probe("diag_int8_decode")
     fn = pl.pallas_call(
-        mod.make_kernel(stage, int8, HK, BK, ROWS, DH),
-        grid=(B, SMAX // BK),
+        mod.make_kernel(stage, int8, HK, bk, ROWS, DH),
+        grid=(B, SMAX // bk),
         in_specs=[
             pl.BlockSpec((1, HK, ROWS, DH), lambda b_, k_: (b_, 0, 0, 0)),
-            pl.BlockSpec((1, BK, HK * DH), lambda b_, k_: (b_, k_, 0)),
-            pl.BlockSpec((1, BK, HK * DH), lambda b_, k_: (b_, k_, 0)),
+            pl.BlockSpec((1, bk, HK * DH), lambda b_, k_: (b_, k_, 0)),
+            pl.BlockSpec((1, bk, HK * DH), lambda b_, k_: (b_, k_, 0)),
         ],
         out_specs=pl.BlockSpec((1, 1, HK, ROWS, DH),
                                lambda b_, k_: (b_, 0, 0, 0, 0)),
@@ -126,19 +126,26 @@ def jax_ladder(stage, int8, q, kc, vc):
 def ladder_scores(int8, q, kc):
     """float64 scaled scores (b, hk, rows, smax) of the probe."""
     qf = np.asarray(q, np.float64)
-    kf = np.asarray(kc, np.float64).reshape(B, SMAX, HK, DH)
+    b, smax = kc.shape[:2]
+    kf = np.asarray(kc, np.float64).reshape(b, smax, HK, DH)
     s = np.einsum("bhrd,bkhd->bhrk", qf, kf)
     if int8:
         s = s.astype(np.float32).astype(np.float64)  # exact int32 scores
     return s * np.float64(np.float32(int8_decode.SCALE))
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("stage", ["qk", "cast", "soft", "pquant", "full"])
-def test_ladder_twin_matches_jax(stage, int8):
-    (q, kc, vc), (tq, tk, tv) = ladder_inputs(int8)
-    ref = jax_ladder(stage, int8, q, kc, vc)
-    got = int8_decode.decode_ladder_ref(stage, tq, tk, tv, bk=BK).numpy()
+def ladder_oracle(int8, q, kc, vc):
+    """float64 `full`: sum_j exp(s_j - max s) v_j (x 0.0883883 for int8,
+    whose P V is scaled by 0.0883883 / 127 of round(127 p))."""
+    s = ladder_scores(int8, q, kc)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    vf = np.asarray(vc, np.float64).reshape(*vc.shape[:2], HK, DH)
+    oracle = np.einsum("bhrk,bkhd->bhrd", p, vf)[:, None]
+    return oracle * int8_decode.SCALE if int8 else oracle
+
+
+def check_ladder(stage, int8, got, ref, q, kc, vc):
+    """A twin's result `got` against the JAX ladder's `ref`."""
     assert got.shape == ref.shape == (B, 1, HK, ROWS, DH)
     if stage != "full":
         assert not got[..., 1:].any() and not ref[..., 1:].any()
@@ -148,16 +155,60 @@ def test_ladder_twin_matches_jax(stage, int8):
             extra = np.abs(got[..., 0]).max() * np.abs(s).max() * 2.0 ** -23
         assert_sum_close(got, ref, extra)
         return
-    # float64 oracle: sum_j exp(s_j - max s) v_j (x 0.0883883 for int8,
-    # whose P V is scaled by 0.0883883 / 127 of round(127 p))
-    s = ladder_scores(int8, q, kc)
-    p = np.exp(s - s.max(-1, keepdims=True))
-    vf = np.asarray(vc, np.float64).reshape(B, SMAX, HK, DH)
-    oracle = np.einsum("bhrk,bkhd->bhrd", p, vf)[:, None]
-    if int8:
-        oracle = oracle * int8_decode.SCALE
-    check_close(torch.from_numpy(got), torch.from_numpy(oracle),
+    check_close(torch.from_numpy(got),
+                torch.from_numpy(ladder_oracle(int8, q, kc, vc)),
                 torch.from_numpy(ref))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("stage", ["qk", "cast", "soft", "pquant", "full"])
+def test_ladder_twin_matches_jax(stage, int8):
+    (q, kc, vc), (tq, tk, tv) = ladder_inputs(int8)
+    ref = jax_ladder(stage, int8, q, kc, vc)
+    got = int8_decode.decode_ladder_ref(stage, tq, tk, tv, bk=BK).numpy()
+    check_ladder(stage, int8, got, ref, q, kc, vc)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("stage", ["soft", "pquant", "full"])
+def test_ladder_tile_twin_matches_jax_at_64(stage, int8):
+    """The kernel's function (the running max moved once per 64-key tile,
+    `max_every=64`) is JAX's ladder at bk = 64."""
+    (q, kc, vc), (tq, tk, tv) = ladder_inputs(int8)
+    ref = jax_ladder(stage, int8, q, kc, vc, bk=64)
+    got = int8_decode.decode_ladder_ref(stage, tq, tk, tv, bk=64,
+                                        max_every=64).numpy()
+    check_ladder(stage, int8, got, ref, q, kc, vc)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("stage", ["soft", "pquant", "full"])
+def test_ladder_tile_twin_at_bk_1024(stage, int8):
+    """At JAX's bk = 1024 the 64-key twin (the kernel's function) against
+    the bk twin (JAX's): soft equal up to rounding; pquant within one step
+    of round(127 p) a row (int8) or one bf16 rounding of the sum (bf16);
+    full within the 2x rule of the float64 oracle, the bk twin the
+    yardstick.  Two blocks of 1024 keys, twins only."""
+    rng = np.random.default_rng(1)
+    shapes = ((B, HK, ROWS, DH), (B, 2048, HK * DH), (B, 2048, HK * DH))
+    if int8:
+        arrs = [rng.integers(-127, 127, s).astype(np.int8) for s in shapes]
+        q, kc, vc = (torch.from_numpy(a) for a in arrs)
+    else:
+        arrs, (q, kc, vc) = zip(*(bf16(rng.standard_normal(s))
+                                  for s in shapes))
+    tile = int8_decode.decode_ladder_ref(stage, q, kc, vc, bk=1024,
+                                         max_every=64)
+    block = int8_decode.decode_ladder_ref(stage, q, kc, vc, bk=1024)
+    if stage == "full":
+        check_close(tile, torch.from_numpy(ladder_oracle(int8, *arrs)),
+                    block)
+        return
+    assert not tile[..., 1:].any()
+    extra = 0.0
+    if stage == "pquant":
+        extra = 1.0 if int8 else 2.0 ** -8 * block.abs().max().item()
+    assert_sum_close(tile.numpy(), block.numpy(), extra)
 
 
 @pytest.mark.parametrize("stage", ["dma", "soft", "full"])
@@ -178,11 +229,8 @@ def test_ladder_twin_splits(stage):
     elif stage == "dma":
         assert_sum_close(two.numpy(), one.numpy())
     else:
-        s = ladder_scores(False, q, kc)
-        p = np.exp(s - s.max(-1, keepdims=True))
-        vf = np.asarray(vc, np.float64).reshape(B, SMAX, HK, DH)
-        oracle = np.einsum("bhrk,bkhd->bhrd", p, vf)[:, None]
-        check_close(two, torch.from_numpy(oracle), one)
+        check_close(two, torch.from_numpy(ladder_oracle(False, q, kc, vc)),
+                    one)
 
 
 # ---------------------------------------------------------------------------

@@ -1214,8 +1214,9 @@ def test_flex_attention_gradient_on_cuda(cuda):
 # its plain twin on the card.  Sums are held to 1e-5 of their magnitude
 # (summation order only), plus, for `pquant`, one bf16 rounding of a block
 # sum (bf16) or one step of round(127 p) (int8), where exp2f and the twin's
-# exp2 differ by an ulp at a rounding boundary; attention-like outputs by
-# the 2x rule against the float32 (bisect) or float64 (ladder) reference.
+# exp2 differ by an ulp at a rounding boundary, or P is quantised against
+# another max; attention-like outputs by the 2x rule against the float64
+# reference (the bisect's twin run in float64; the ladder's oracle).
 
 
 def _sum_close(got, ref, extra=0.0):
@@ -1226,26 +1227,33 @@ def _sum_close(got, ref, extra=0.0):
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("splits", [1, 4])
 @pytest.mark.parametrize("stage", ["dma", "qk", "cast", "soft", "pquant",
                                    "full"])
-def test_decode_ladder_matches_twin(cuda, stage, splits, int8):
+def test_decode_ladder_matches_twin(cuda, stage, splits, d, int8):
+    """Each rung against its 64-key twin (`max_every=64`, the kernel's own
+    function: the running max moved once per tile) and its bk twin (JAX's);
+    `full` by the 2x rule against the float64 oracle with either twin as
+    the yardstick."""
     from flash_attn_tpu_torch.diag import int8_decode
 
-    b, hk, smax, d, bk = 2, 3, 2048, 128, 256
+    b, hk, smax, bk = 2, 3, 2048, 256
     q, kc, vc = int8_decode.make_inputs(int8, b, hk, smax, d, seed=1)
     before = int8_decode.launches
     got = int8_decode.decode_ladder(stage, q, kc, vc, bk=bk, splits=splits)
     assert int8_decode.launches == before + 1
-    ref = int8_decode.decode_ladder_ref(stage, q, kc, vc, bk=bk,
-                                        splits=splits)
-    assert got.shape == ref.shape == (b, 1, hk, 8, d)
+    twins = [int8_decode.decode_ladder_ref(stage, q, kc, vc, bk=bk,
+                                           splits=splits, max_every=every)
+             for every in (64, bk)]
+    assert got.shape == twins[0].shape == (b, 1, hk, 8, d)
     if stage != "full":
         assert not got[..., 1:].any()
-        extra = 0.0
-        if stage == "pquant":
-            extra = 1.0 if int8 else 2.0 ** -8 * ref.abs().max().item()
-        _sum_close(got, ref, extra)
+        for ref in twins:
+            extra = 0.0
+            if stage == "pquant":
+                extra = 1.0 if int8 else 2.0 ** -8 * ref.abs().max().item()
+            _sum_close(got, ref, extra)
         return
     kf = kc.double().view(b, smax, hk, d).transpose(1, 2)
     vf = vc.double().view(b, smax, hk, d).transpose(1, 2)
@@ -1256,7 +1264,30 @@ def test_decode_ladder_matches_twin(cuda, stage, splits, int8):
     oracle = torch.exp(s - s.amax(-1, keepdim=True)) @ vf
     if int8:
         oracle = oracle * int8_decode.SCALE
-    check_close(got, oracle[:, None].float(), ref)
+    for ref in twins:
+        check_close(got, oracle[:, None].float(), ref)
+
+
+def test_diag_kernels_do_not_spill(cuda, tmp_path):
+    """ptxas's report of every instantiation of the two probe kernels
+    redesigned on the decode body and on staged tables: no spills."""
+    import re
+    import subprocess
+
+    from flash_attn_tpu_torch.kernels import _build
+
+    procs = {name: subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+         str(tmp_path / f"lib{name}.so"), str(_build.CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in ("diag_int8_decode", "diag_varlen_bisect")}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, out
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", out)
+        assert spills, f"{name}: no ptxas report"
+        assert all(a == "0" and b == "0" for a, b in spills), out
 
 
 @pytest.mark.parametrize("fused,R,bundle,shuffled", [
@@ -1337,7 +1368,7 @@ def test_varlen_bisect_matches_twin(cuda, monkeypatch, variant, n_bodies,
     torch.cuda.synchronize()
     assert vb.launches == before + 1
     o_pt, lse_pt = run(twin, q, k, v)
-    o_ref, lse_ref = run(twin, q.float(), k.float(), v.float())
+    o_ref, lse_ref = run(twin, q.double(), k.double(), v.double())
     rows = vb.finalized_rows(qi.cpu(), fl.cpu()).to(cuda)
     assert rows.sum() == 256
     assert (o_ref[:, rows].abs().amax(-1) > 0).all()  # every row sees keys
@@ -1347,8 +1378,9 @@ def test_varlen_bisect_matches_twin(cuda, monkeypatch, variant, n_bodies,
 
 
 def test_varlen_bisect_empty_levels_launch(cuda):
-    """K0..K2 and the one-CTA-per-tick K0 write no output; they launch and
-    finish at the script's shapes on an all-empty table."""
+    """Every level, and the one-CTA-per-tick K0, launches and finishes at
+    the script's shapes on an all-empty table, whose ticks read one aux
+    copy and run no body."""
     from flash_attn_tpu_torch.diag import varlen_overhead_bisect as vb
 
     gen = torch.Generator(device=cuda).manual_seed(5)
@@ -1359,9 +1391,17 @@ def test_varlen_bisect_empty_levels_launch(cuda):
                      device=cuda)
     qi = torch.zeros(vb.T, dtype=torch.int32, device=cuda)
     fl = torch.full((vb.T,), 8, dtype=torch.int32, device=cuda)
+    code = torch.full((vb.T,), 7, dtype=torch.int32, device=cuda)
+    fl10 = torch.full((vb.T,), 8 | (15 << 4), dtype=torch.int32, device=cuda)
     before = vb.launches
-    for level in range(3):
+    for level in range(5):
         vb.launch(level, qi, qi, fl, q, q, q, qa, ka)
+    for kw in (dict(cost=True), dict(four_variants=True),
+               dict(lse_lanes=True), dict(four_variants=True, lse_lanes=True)):
+        vb.launch2(qi, qi, fl, q, q, q, qa, ka, **kw)
+    vb.launch3(qi, qi, fl, code, q, q, q, qa, ka)
+    for n_bodies, bh in ((2, 4), (4, 2)):
+        vb.launch4(n_bodies, bh, qi, qi, fl10, q, q, q)
     vb.launch_empty_ctas(qi, qi, fl, q, q, q)
     torch.cuda.synchronize()
-    assert vb.launches == before + 4
+    assert vb.launches == before + 13
