@@ -28,7 +28,16 @@ in `kernel_varlen` (cases (a)-(e)) and `kernel_varlen_bwd` (bitwise
 deterministic), and the next path is BERT-base's encoder at full width and
 depth (`bert`): 10 unpadded forwards of 64 sequences of 16-512 tokens
 through `BertModel(unpad_varlen=True)`, against the padded path and fp32
-on the CPU, and one gradient.  Then programmable attention: the flex
+on the CPU, and one gradient.  The dropout slice follows: the dense and
+varlen kernels' dropout instantiations against their plain versions with
+the same keep mask at GPT-2's, llama-1b's and ViT-B/16's training shapes
+and on the BERT batch (`kernel_dropout` (i)-(iv), times with and without
+dropout, SDPA with dropout as the library time), the kernels' own keep
+masks read through o and dV against `dropout_keep` bit for bit
+(`dropout_probe`), GPT-2 small trained 5 steps with attention dropout and
+a 2-layer model's gradients against fp32 on the CPU (`dropout_gpt`), and
+BERT-base unpadded with attention dropout (`dropout_bert`).  Then
+programmable attention: the flex
 kernels of `csrc/flex.cu` against their plain versions in `kernel_flex`
 (cases (a)-(i): causal, sliding window, document mask through aux,
 softcap, relative position, attn_bias, ragged lengths, the block-sparse
@@ -1573,13 +1582,14 @@ def varlen_inputs(lens_q, lens_k, h, hk, d, gen, dtype):
 
 
 def sdpa_varlen_library(q, k, v, cu_q, cu_k, lens_q, lens_k, causal,
-                        backward=False, do=None):
+                        backward=False, do=None, dropout_p=0.0):
     """The time of one PyTorch call computing the same packed attention
     (a yardstick only: the port never calls it), and which call: SDPA on
     `torch.nested` jagged tensors where this torch runs it on these inputs
     (equal q and k lengths, no empty sequence), else SDPA on the padded
     layout with a boolean mask of the live pairs.  With `backward`, the
-    time of `torch.autograd.grad` through that call."""
+    time of `torch.autograd.grad` through that call; with `dropout_p`,
+    SDPA's own dropout."""
     import torch
     import torch.nn.functional as F
 
@@ -1596,7 +1606,8 @@ def sdpa_varlen_library(q, k, v, cu_q, cu_k, lens_q, lens_k, causal,
     def run_njt(q_, k_, v_):
         return F.scaled_dot_product_attention(
             njt(q_, cu_q, lens_q), njt(k_, cu_k, lens_k),
-            njt(v_, cu_k, lens_k), is_causal=causal, **gqa)
+            njt(v_, cu_k, lens_k), is_causal=causal, dropout_p=dropout_p,
+            **gqa)
 
     which, fn = None, None
     if list(lens_q) == list(lens_k) and min(lens_q) > 0:
@@ -1627,7 +1638,8 @@ def sdpa_varlen_library(q, k, v, cu_q, cu_k, lens_q, lens_k, causal,
         def run_padded(q_, k_, v_):
             return F.scaled_dot_product_attention(
                 q_[idx_q].transpose(1, 2), k_[idx_k].transpose(1, 2),
-                v_[idx_k].transpose(1, 2), attn_mask=mask, **gqa)
+                v_[idx_k].transpose(1, 2), attn_mask=mask,
+                dropout_p=dropout_p, **gqa)
 
         which = (which + "; " if which else "") + "sdpa_padded_bool_mask"
         fn = run_padded
@@ -1895,12 +1907,13 @@ def reset_bert_counts():
     ff.launches = fb.launches_dq = fb.launches_dkv = 0
 
 
-def bert_grads(model, ids, types, mask, proj, unpad):
+def bert_grads(model, ids, types, mask, proj, unpad, deterministic=True):
     """Parameter gradients of sum(hidden * proj) on the valid rows, as one
     float32 vector on the CPU (in named_parameters order)."""
     import torch
 
-    h, _ = model(ids, mask, types, unpad_varlen=unpad)
+    h, _ = model(ids, mask, types, unpad_varlen=unpad,
+                 deterministic=deterministic)
     loss = (h.float() * proj * mask[..., None]).sum()
     params = [p for n, p in model.named_parameters()
               if not n.startswith("pooler")]
@@ -3705,6 +3718,537 @@ def families_phase():
     return dict(models=out, launches=counts)
 
 
+# Attention dropout (the kDropout kernels of flash_fwd.cu and flash_bwd.cu):
+# p = 0.1 and a seed other than 0 in the kernel cases, as a trainer with
+# attention dropout runs them.
+DROPOUT_P = 0.1
+DROPOUT_SEED = 1234567
+DROPOUT_KEEP_TOL = 0.005  # kept share of the probes' elements: 0.9 +- this
+DROPOUT_TRAIN_STEPS = 5
+DROPOUT_WARMUP_STEPS = 2
+DROPOUT_BERT_ITERS = 5
+
+
+def dropout_counts():
+    """The dropout instantiations' launch counts, and every launch of the
+    dense and varlen kernels."""
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.kernels import varlen as vl
+
+    return dict(flash_fwd=ff.launches, flash_bwd_dq=fb.launches_dq,
+                flash_bwd_dkv=fb.launches_dkv, varlen_fwd=vl.launches_fwd,
+                varlen_dq=vl.launches_dq, varlen_dkv=vl.launches_dkv,
+                flash_fwd_dropout=ff.launches_dropout,
+                flash_bwd_dq_dropout=fb.launches_dq_dropout,
+                flash_bwd_dkv_dropout=fb.launches_dkv_dropout,
+                varlen_fwd_dropout=vl.launches_fwd_dropout,
+                varlen_dq_dropout=vl.launches_dq_dropout,
+                varlen_dkv_dropout=vl.launches_dkv_dropout)
+
+
+def set_dropout_counts(counts):
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.kernels import varlen as vl
+
+    mods = dict(flash_fwd=(ff, "launches"), flash_bwd_dq=(fb, "launches_dq"),
+                flash_bwd_dkv=(fb, "launches_dkv"),
+                varlen_fwd=(vl, "launches_fwd"), varlen_dq=(vl, "launches_dq"),
+                varlen_dkv=(vl, "launches_dkv"))
+    for name, (mod, attr) in mods.items():
+        setattr(mod, attr, counts[name])
+        setattr(mod, attr + "_dropout", counts[name + "_dropout"])
+
+
+def sdpa_dropout_ms(q, k, v, do, causal):
+    """Device times of SDPA's forward and backward with dropout_p =
+    DROPOUT_P on the same (b, h, s, d) inputs: the same work as the port's
+    dropout kernels, but PyTorch's own random mask (its Philox stream), not
+    the port's.  A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    gqa = k.shape[1] != q.shape[1]
+
+    def fwd(q_, k_, v_):
+        return F.scaled_dot_product_attention(
+            q_, k_, v_, dropout_p=DROPOUT_P, is_causal=causal,
+            enable_gqa=gqa)
+
+    fwd_ms = time_ms(fwd, input_copies(q, k, v))
+    graphs = []
+    for qc, kc, vc, dc in input_copies(q, k, v, do):
+        qc, kc, vc = (t.detach().requires_grad_() for t in (qc, kc, vc))
+        graphs.append((fwd(qc, kc, vc), (qc, kc, vc), dc))
+    bwd_ms = time_ms(lambda out, ins, dc: torch.autograd.grad(
+        out, ins, dc, retain_graph=True), graphs)
+    return fwd_ms, bwd_ms
+
+
+def dropout_case(label, b, h, hk, s, d, causal, gen):
+    """The dense dropout kernels at one shape: forward and (dq, dk, dv)
+    against the plain version with the same keep mask (fp32 oracle, bf16
+    yardstick, `check_close`), the backward bitwise repeatable; device
+    times with and without dropout, each backward kernel apart (profiler),
+    the plain version's (`call_ms`) and SDPA's with dropout.  The bounds
+    are the no-dropout ones."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    before = dropout_counts()
+    q = torch.randn(b, h, s, d, generator=gen, device=DEV).bfloat16()
+    k = torch.randn(b, hk, s, d, generator=gen, device=DEV).bfloat16()
+    v = torch.randn(b, hk, s, d, generator=gen, device=DEV).bfloat16()
+    do = torch.randn(b, h, s, d, generator=gen, device=DEV).bfloat16()
+    lens = torch.full((b,), s, dtype=torch.int32, device=DEV)
+    kw = dict(softmax_scale=d ** -0.5, causal=causal)
+    dkw = dict(kw, dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED)
+    o, lse = ff.flash_attn_fwd_bhsd(q, k, v, lens, lens, **dkw)
+    grads = fb.flash_attn_bwd_bhsd(do, q, k, v, o, lse, lens, lens, **dkw)
+    again = fb.flash_attn_bwd_bhsd(do, q, k, v, o, lse, lens, lens, **dkw)
+    torch.cuda.synchronize()
+    if dropout_counts()["flash_fwd_dropout"] != before["flash_fwd_dropout"] \
+            + 1:
+        raise AssertionError(f"{label}: the dropout forward did not run")
+    bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
+    if not bitwise:
+        raise AssertionError(f"{label}: two dropout backwards differ")
+    del again
+    o_ref, lse_ref = ff.flash_attn_fwd_bhsd_ref(
+        q.float(), k.float(), v.float(), lens, lens, **dkw)
+    o_pt, lse_pt = ff.flash_attn_fwd_bhsd_ref(q, k, v, lens, lens, **dkw)
+    ok = torch.ones(b, h, s, dtype=torch.bool, device=DEV)
+    err_o, err_o_pt, _, _ = check_attention(f"{label} dropout", o, lse,
+                                            o_ref, lse_ref, o_pt, lse_pt, ok)
+    del o_ref, o_pt
+    ref = fb.flash_attn_bwd_bhsd_ref(do.float(), q.float(), k.float(),
+                                     v.float(), o.float(), lse, lens, lens,
+                                     **dkw)
+    pt = fb.flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, lens, lens, **dkw)
+    errs = {}
+    for name, x, r, y in zip(("dq", "dk", "dv"), grads, ref, pt):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+        errs[name] = check_close(x, r, y, label=f"{label} dropout {name}")
+    del ref, pt
+    torch.cuda.empty_cache()
+
+    live = live_pairs(s, s, lens, lens, causal, (-1, -1))
+    pairs = int(live.sum()) * h
+    q_side, kv_side = b * h * s * d * 2, b * hk * s * d * 2
+    fwd_bound = bound(4 * d * pairs, 2 * q_side + 2 * kv_side + b * h * s * 4)
+    stats = 2 * b * h * s * 4
+    bwd_bound = bound(10 * d * pairs, 4 * q_side + 4 * kv_side + stats)
+    dq_bound = bound(6 * d * pairs, 3 * q_side + 2 * kv_side + stats)
+    dkv_bound = bound(8 * d * pairs, 2 * q_side + 4 * kv_side + stats)
+    fargs = input_copies(q, k, v, lens, lens)
+    bargs = input_copies(do, q, k, v, o, lse, lens, lens)
+    times = {}
+    for tag, w in (("dropout", dkw), ("no_dropout", kw)):
+        times[tag] = dict(
+            fwd_ms=time_ms(lambda *a: ff.flash_attn_fwd_bhsd(*a, **w), fargs),
+            fwd_kernel_ms=kernel_device_ms(
+                lambda *a: ff.flash_attn_fwd_bhsd(*a, **w), fargs,
+                ("flash_fwd_kernel",))["flash_fwd_kernel"],
+            bwd_ms=time_ms(lambda *a: fb.flash_attn_bwd_bhsd(*a, **w), bargs),
+            **{f"{n[10:-7]}_kernel_ms": t for n, t in kernel_device_ms(
+                lambda *a: fb.flash_attn_bwd_bhsd(*a, **w), bargs,
+                ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")).items()})
+    plain_fwd = call_ms(lambda *a: ff.flash_attn_fwd_bhsd_ref(*a, **dkw),
+                        fargs, iters=3, warmup=1)
+    plain_bwd = call_ms(lambda *a: fb.flash_attn_bwd_bhsd_ref(*a, **dkw),
+                        bargs, iters=3, warmup=1)
+    lib_fwd, lib_bwd = sdpa_dropout_ms(q, k, v, do, causal)
+    set_dropout_counts(before)  # comparisons, not a main path
+    res = dict(phase="kernel_dropout", case=label, b=b, h=h, hk=hk, s=s, d=d,
+               causal=causal, dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED,
+               max_abs_err_o=err_o, plain_bf16_err_o=err_o_pt,
+               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
+               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
+               bitwise_repeat=bitwise, **times["dropout"],
+               no_dropout={k_: v_ for k_, v_ in times["no_dropout"].items()},
+               fwd_over_no_dropout=times["dropout"]["fwd_kernel_ms"]
+               / times["no_dropout"]["fwd_kernel_ms"],
+               bwd_over_no_dropout=times["dropout"]["bwd_ms"]
+               / times["no_dropout"]["bwd_ms"],
+               plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+               library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+               library="SDPA with dropout_p=0.1 (its own random mask, not "
+               "the port's)", fwd_bound_ms=fwd_bound[0],
+               fwd_bound_by=fwd_bound[1], bwd_bound_ms=bwd_bound[0],
+               bwd_bound_by=bwd_bound[1], dq_bound_ms=dq_bound[0],
+               dkv_bound_ms=dkv_bound[0])
+    emit(res)
+    return res
+
+
+def dropout_varlen_case(label, lens, h, d, gen):
+    """The packed varlen dropout kernels on the BERT batch's lengths
+    (non-causal): as `dropout_case`, the plain versions per sequence at
+    packed-stream coordinates; SDPA's library time as
+    `sdpa_varlen_library`'s, with dropout."""
+    import torch
+    from flash_attn_tpu_torch.kernels import varlen as vl
+    from flash_attn_tpu_torch.utils.testing import check_close
+
+    before = dropout_counts()
+    q, k, v, cu, _ = varlen_inputs(lens, lens, h, h, d, gen, torch.bfloat16)
+    do = torch.randn(q.shape, generator=gen, device=DEV).bfloat16()
+    ms = max(lens)
+    kw = dict(softmax_scale=d ** -0.5)
+    dkw = dict(kw, dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED)
+    o, lse = vl.varlen_attn_fwd(q, k, v, cu, cu, ms, ms, **dkw)
+    grads = vl.varlen_attn_bwd(do, q, k, v, o, lse, cu, cu, ms, ms, **dkw)
+    again = vl.varlen_attn_bwd(do, q, k, v, o, lse, cu, cu, ms, ms, **dkw)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(x, y) for x, y in zip(grads, again))
+    if not bitwise:
+        raise AssertionError(f"{label}: two dropout backwards differ")
+    o_ref, lse_ref = vl.varlen_attn_fwd_ref(q.float(), k.float(), v.float(),
+                                            cu, cu, ms, ms, **dkw)
+    o_pt, _ = vl.varlen_attn_fwd_ref(q, k, v, cu, cu, ms, ms, **dkw)
+    err_o, err_o_pt = check_close(o, o_ref, o_pt, label=f"{label} o")
+    if not torch.allclose(lse, lse_ref, atol=1e-3, rtol=1e-4):
+        raise AssertionError(f"{label}: lse differs from the plain version")
+    ref = vl.varlen_attn_bwd_ref(do.float(), q.float(), k.float(), v.float(),
+                                 o.float(), lse, cu, cu, ms, ms, **dkw)
+    pt = vl.varlen_attn_bwd_ref(do, q, k, v, o, lse, cu, cu, ms, ms, **dkw)
+    errs = {n: check_close(x, r, y, label=f"{label} {n}")
+            for n, x, r, y in zip(("dq", "dk", "dv"), grads, ref, pt)}
+    del ref, pt, o_ref, o_pt
+
+    pairs, keys = varlen_live_pairs(lens, lens, False, (-1, -1), ms)
+    n_pairs = sum(pairs) * h
+    tok = sum(lens) * h * d * 2
+    fwd_bound = bound(4 * d * n_pairs, 4 * tok + sum(lens) * h * 4)
+    bwd_bound = bound(10 * d * n_pairs, 8 * tok + 2 * sum(lens) * h * 4)
+    fargs = input_copies(q, k, v, cu, cu)
+    bargs = input_copies(do, q, k, v, o, lse, cu, cu)
+    times = {}
+    for tag, w in (("dropout", dkw), ("no_dropout", kw)):
+        times[tag] = dict(
+            fwd_kernel_ms=kernel_device_ms(
+                lambda *a: vl.varlen_attn_fwd(*a, ms, ms, **w), fargs,
+                ("flash_fwd_kernel",))["flash_fwd_kernel"],
+            bwd_ms=time_ms(lambda *a: vl.varlen_attn_bwd(*a, ms, ms, **w),
+                           bargs),
+            **{f"{n[10:-7]}_kernel_ms": t for n, t in kernel_device_ms(
+                lambda *a: vl.varlen_attn_bwd(*a, ms, ms, **w), bargs,
+                ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")).items()})
+    plain_fwd = call_ms(lambda *a: vl.varlen_attn_fwd_ref(*a, ms, ms, **dkw),
+                        fargs, iters=2, warmup=1)
+    plain_bwd = call_ms(lambda *a: vl.varlen_attn_bwd_ref(*a, ms, ms, **dkw),
+                        bargs, iters=2, warmup=1)
+    lib_fwd, which = sdpa_varlen_library(q, k, v, cu, cu, lens, lens, False,
+                                         dropout_p=DROPOUT_P)
+    lib_bwd, _ = sdpa_varlen_library(q, k, v, cu, cu, lens, lens, False,
+                                     backward=True, dropout_p=DROPOUT_P)
+    set_dropout_counts(before)
+    res = dict(phase="kernel_dropout", case=label, sequences=len(lens),
+               tokens=sum(lens), h=h, d=d, causal=False,
+               dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED,
+               max_abs_err_o=err_o, plain_bf16_err_o=err_o_pt,
+               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
+               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
+               bitwise_repeat=bitwise, **times["dropout"],
+               no_dropout=times["no_dropout"],
+               fwd_over_no_dropout=times["dropout"]["fwd_kernel_ms"]
+               / times["no_dropout"]["fwd_kernel_ms"],
+               bwd_over_no_dropout=times["dropout"]["bwd_ms"]
+               / times["no_dropout"]["bwd_ms"],
+               plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+               library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+               library=which + ", dropout_p=0.1 (its own random mask)",
+               fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+               bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+    emit(res)
+    return res
+
+
+def dropout_probe_phase():
+    """The kernels' own keep masks against the plain `dropout_keep`, bit for
+    bit (`utils.testing.dropout_probe_dense` / `_varlen`): the forward's
+    through o, the dK/dV kernel's through dV, dense (GPT-2's heads) and
+    varlen with the probe sequence after two of 20000 tokens (packed
+    coordinates from 40000); the kept share of all probe elements within
+    0.9 +- DROPOUT_KEEP_TOL."""
+    import torch
+    from flash_attn_tpu_torch.utils import testing
+
+    before = dropout_counts()
+    res, kept, total = dict(phase="dropout_probe"), 0, 0
+    for name, masks in (
+            ("dense", testing.dropout_probe_dense(8, 12, 64, DROPOUT_P,
+                                                  DROPOUT_SEED, DEV)),
+            ("varlen", testing.dropout_probe_varlen(
+                [20000, 20000], 12, 64, DROPOUT_P, DROPOUT_SEED, DEV))):
+        fwd, dkv, want = masks
+        res[name] = dict(fwd_equal=bool(torch.equal(fwd, want)),
+                         dkv_equal=bool(torch.equal(dkv, want)),
+                         fwd_mismatches=int((fwd != want).sum()),
+                         dkv_mismatches=int((dkv != want).sum()),
+                         elements=want.numel())
+        kept += int(fwd.sum()) + int(dkv.sum())
+        total += 2 * want.numel()
+    set_dropout_counts(before)
+    res["kept_share"] = kept / total
+    emit(res)
+    for name in ("dense", "varlen"):
+        if not (res[name]["fwd_equal"] and res[name]["dkv_equal"]):
+            raise AssertionError(f"dropout probe {name}: the kernels' keep "
+                                 f"masks differ from dropout_keep {res[name]}")
+    if abs(res["kept_share"] - (1 - DROPOUT_P)) > DROPOUT_KEEP_TOL:
+        raise AssertionError(f"dropout probe: kept share {res['kept_share']}")
+    return res
+
+
+def dropout_gpt_phase():
+    """GPT-2 124M (the train phase's config, attn_pdrop = DROPOUT_P, resid
+    and embd 0) at seq_len 1024, batch 8: DROPOUT_TRAIN_STEPS AdamW steps
+    with `deterministic=False` through `chunked_lm_loss` after
+    DROPOUT_WARMUP_STEPS (exactly 12 dropout launches of each kernel a step,
+    none without dropout), its loss unlike the deterministic one on the
+    same batch; then a 2-layer full-width model's gradients on the card
+    against fp32 on the CPU with the same masks (`check_grads`)."""
+    import torch
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
+    from flash_attn_tpu_torch.training.loss import chunked_lm_loss
+    from flash_attn_tpu_torch.training.optim import make_optimizer
+
+    tc = train_config()
+    cfg = tc.model.to_gpt_config()
+    cfg.attn_pdrop = DROPOUT_P
+    model = GPTLMHeadModel(cfg, device=DEV).init_weights(
+        torch.Generator().manual_seed(0))
+    opt, sched = make_optimizer(tc.optimizer, tc.scheduler, model)
+    b, s = tc.data.batch_size, tc.data.seq_len
+    ids = torch.randint(0, cfg.vocab_size, (b, s + 1), device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(5))
+
+    def loss_of(deterministic):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return chunked_lm_loss(model, ids,
+                                   chunk_tokens=tc.trainer.ce_chunk_tokens,
+                                   deterministic=deterministic)
+
+    def step():
+        loss = loss_of(False)
+        loss.backward()
+        torch.nn.utils.clip_grad_norm_(model.parameters(),
+                                       tc.optimizer.grad_clip)
+        opt.step()
+        sched.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    with torch.no_grad():
+        first_drop, first_det = float(loss_of(False)), float(loss_of(True))
+    for _ in range(DROPOUT_WARMUP_STEPS):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_dropout_counts({k: 0 for k in dropout_counts()})
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(DROPOUT_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dropout_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    del model, opt, sched
+    torch.cuda.empty_cache()
+
+    cfg2 = tc.model.to_gpt_config()
+    cfg2.attn_pdrop, cfg2.n_layer = DROPOUT_P, 2
+    gpu = GPTLMHeadModel(cfg2, device=DEV).init_weights(
+        torch.Generator().manual_seed(1))
+    cpu = cpu_reference(gpu)
+    one = ids[:1]
+
+    def grads(model, dev):
+        with torch.autocast(dev, dtype=torch.bfloat16, enabled=dev == "cuda"):
+            loss = chunked_lm_loss(model, one.to(dev), chunk_tokens=0,
+                                   deterministic=False)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach() for n, p in
+                             model.named_parameters()}
+
+    check = compare_grads(grads(gpu, "cuda"), grads(cpu, "cpu"))
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    L = cfg.n_layer
+    want = {k: 0 for k in counts}
+    want.update({n: L * DROPOUT_TRAIN_STEPS for n in (
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_dropout",
+        "flash_bwd_dq_dropout", "flash_bwd_dkv_dropout")})
+    res = dict(phase="dropout_gpt", model="gpt2-124M (random weights, seed "
+               "0), attn_pdrop 0.1, resid_pdrop 0, embd_pdrop 0",
+               seq_len=s, batch_size=b, steps=DROPOUT_TRAIN_STEPS,
+               step_ms=wall / DROPOUT_TRAIN_STEPS * 1e3,
+               tokens_per_s=b * s * DROPOUT_TRAIN_STEPS / wall,
+               max_memory_allocated=peak, losses=losses,
+               first_loss_dropout=first_drop,
+               first_loss_deterministic=first_det, launches=counts,
+               train_check=check)
+    emit(res)
+    if counts != want:
+        raise AssertionError(f"dropout_gpt: launches {counts}, expected "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(first_drop - LN_VOCAB) > 0.5:
+        raise AssertionError(f"dropout_gpt: losses {first_drop}, {losses}")
+    if first_drop == first_det:
+        raise AssertionError("dropout_gpt: the loss with dropout equals the "
+                             "loss without")
+    check_grads("dropout_gpt train_check", check)
+    return res
+
+
+def dropout_bert_phase():
+    """BERT-base (attention_probs_dropout_prob = DROPOUT_P, hidden 0) at the
+    bert phase's batch, unpadded, `deterministic=False`: DROPOUT_BERT_ITERS
+    timed forwards (exactly 12 varlen dropout launches each), unlike the
+    deterministic forward; against fp32 on the CPU with the same masks on
+    the first 4 sequences (error within 2x the deterministic one's + 1e-2);
+    one gradient on BERT_GRAD_SEQS sequences (12 + 12 + 12 dropout
+    launches), cosine >= GRAD_COSINE against fp32 on the CPU."""
+    import torch
+    from flash_attn_tpu_torch.models.bert import BertConfig, BertModel
+
+    cfg = BertConfig(hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=DROPOUT_P)
+    L = cfg.num_hidden_layers
+    model = BertModel(cfg, device=DEV, dtype=torch.bfloat16).init_weights(
+        torch.Generator().manual_seed(0))
+    ids, types, mask = bert_batch(DEV, cfg.vocab_size)
+    fwd = dict(unpad_varlen=True, deterministic=False)
+    with torch.no_grad():
+        model(ids, mask, types, **fwd)
+        torch.cuda.synchronize()
+        set_dropout_counts({k: 0 for k in dropout_counts()})
+        t0 = time.perf_counter()
+        for _ in range(DROPOUT_BERT_ITERS):
+            h, _ = model(ids, mask, types, **fwd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dropout_counts()
+        h_det, _ = model(ids, mask, types, unpad_varlen=True)
+    ref = BertModel(cfg, device="cpu")
+    ref.load_state_dict({k: v.float().cpu()
+                         for k, v in model.state_dict().items()})
+    n = 4
+    sel = mask[:n].cpu()
+    cpu_in = (ids[:n].cpu(), sel, types[:n].cpu())
+    with torch.no_grad():
+        h_ref, _ = ref(*cpu_in, **fwd)
+        h_ref_det, _ = ref(*cpu_in, unpad_varlen=True)
+    err = float((h[:n].cpu()[sel].float() - h_ref[sel]).abs().max())
+    err_det = float((h_det[:n].cpu()[sel].float() - h_ref_det[sel]).abs()
+                    .max())
+    differs = float((h[mask].float() - h_det[mask].float()).abs().max())
+
+    g = BERT_GRAD_SEQS
+    proj = torch.randn(g, BERT_SEQ, cfg.hidden_size,
+                       generator=torch.Generator().manual_seed(2))
+    set_dropout_counts({k: 0 for k in dropout_counts()})
+    g_card = bert_grads(model, ids[:g], types[:g], mask[:g], proj.to(DEV),
+                        True, deterministic=False)
+    torch.cuda.synchronize()
+    grad_counts = dropout_counts()
+    g_cpu = bert_grads(ref, ids[:g].cpu(), types[:g].cpu(), mask[:g].cpu(),
+                       proj, True, deterministic=False)
+    del ref, model
+    torch.cuda.empty_cache()
+    want = {k: 0 for k in counts}
+    want.update(varlen_fwd=L * DROPOUT_BERT_ITERS,
+                varlen_fwd_dropout=L * DROPOUT_BERT_ITERS)
+    want_g = {k: 0 for k in counts}
+    want_g.update({n: L for n in ("varlen_fwd", "varlen_dq", "varlen_dkv",
+                                  "varlen_fwd_dropout", "varlen_dq_dropout",
+                                  "varlen_dkv_dropout")})
+    res = dict(phase="dropout_bert", model="BERT-base (12 layers, random "
+               "weights, seed 0), attention_probs_dropout_prob 0.1, "
+               "hidden_dropout_prob 0", sequences=BERT_BATCH,
+               tokens=int(mask.sum()), forwards=DROPOUT_BERT_ITERS,
+               forward_ms=wall / DROPOUT_BERT_ITERS * 1e3,
+               sequences_per_s=BERT_BATCH * DROPOUT_BERT_ITERS / wall,
+               launches=counts, cpu_fp32_max_abs_err=err,
+               cpu_fp32_max_abs_err_deterministic=err_det,
+               max_abs_diff_from_deterministic=differs,
+               grad_sequences=g, grad_launches=grad_counts,
+               grad_cosine_vs_cpu_fp32=cosine(g_card, g_cpu))
+    emit(res)
+    if counts != want:
+        raise AssertionError(f"dropout_bert: launches {counts}, expected "
+                             f"{want}")
+    if grad_counts != want_g:
+        raise AssertionError(f"dropout_bert grad: launches {grad_counts}")
+    if not torch.isfinite(h).all() or h[~mask].any():
+        raise AssertionError("dropout_bert: non-finite output or padded "
+                             "rows not 0")
+    if not err <= 2 * err_det + 1e-2:
+        raise AssertionError(f"dropout_bert: fp32 CPU error {err} > 2 x "
+                             f"{err_det} + 1e-2")
+    if not differs > 0:
+        raise AssertionError("dropout_bert: output equals the "
+                             "deterministic one")
+    if not res["grad_cosine_vs_cpu_fp32"] >= GRAD_COSINE:
+        raise AssertionError("dropout_bert: gradients disagree")
+    return res
+
+
+def dropout_entry(cases, keys, which, launches, probe):
+    """The `dropout` entry of a kernels-line row: the first of `keys`'
+    cases' times with and without dropout (`which`: "fwd", the forward
+    kernel alone; "dq" or "dkv", one backward kernel, profiler; "bwd", the
+    whole backward), plain, library (SDPA with dropout) and bound (the
+    no-dropout one) ms and error; the path's dropout launches and the mask
+    probe's result; every case by_case."""
+    def one(r):
+        if which == "fwd":
+            ms, no = r["fwd_kernel_ms"], r["no_dropout"]["fwd_kernel_ms"]
+            lib, plain, bnd = (r["library_fwd_ms"], r["plain_fwd_ms"],
+                               r["fwd_bound_ms"])
+            err = r["max_abs_err_o"]
+        else:
+            key = "bwd_ms" if which == "bwd" else f"{which}_kernel_ms"
+            ms, no = r[key], r["no_dropout"][key]
+            lib, plain = r["library_bwd_ms"], r["plain_bwd_ms"]
+            bnd = r["bwd_bound_ms" if which == "bwd" else f"{which}_bound_ms"]
+            err = max(r[f"max_abs_err_{n}"] for n in (
+                ("dq",) if which == "dq" else ("dk", "dv") if which == "dkv"
+                else ("dq", "dk", "dv")))
+        return dict(case=r["case"], ms=ms, ms_no_dropout=no,
+                    over_no_dropout=ms / no, plain_ms=plain, library_ms=lib,
+                    bound_ms=bnd, max_abs_err=err)
+
+    return dict(one(cases[keys[0]]), launches=launches, mask_probe=probe,
+                library="SDPA with dropout_p=0.1: its own random mask, the "
+                "same work", dropout_p=DROPOUT_P,
+                by_case={k: one(cases[k]) for k in keys})
+
+
+def dropout_phases(gen):
+    """Kernel cases (i)-(iv), the mask probe, and the GPT-2 and BERT-base
+    paths with attention dropout."""
+    cases = dict(
+        i=dropout_case("i: GPT-2 training shape", 8, 12, 12, 1024, 64, True,
+                       gen),
+        ii=dropout_case("ii: llama-1b training shape", 8, 16, 4, 2048, 128,
+                        True, gen),
+        iii=dropout_case("iii: ViT-B/16 training shape", VIT_BATCH, 12, 12,
+                         VIT_TOKENS, 64, False, gen),
+        iv=dropout_varlen_case("iv: the BERT batch", bert_batch_lengths(),
+                               12, 64, gen))
+    probe = dropout_probe_phase()
+    gpt = dropout_gpt_phase()
+    bert = dropout_bert_phase()
+    return cases, probe, gpt, bert
+
+
 def main():
     import torch
 
@@ -3800,6 +4344,7 @@ def main():
     kv_by_run = {run: r["flash_decode_ref_launches"]
                  for run, r in kvpath.items()}
     bert = bert_phase()
+    dcases, dprobe, dgpt, dbert = dropout_phases(gen)
     ffwd, fbwd, fcompiled = kernel_flex_phases()
     flexpath = flex_phase()
     lserve = llama_serve_phase()
@@ -3830,10 +4375,12 @@ def main():
              + lserve["flash_fwd_launches"]
              + ltrain["launches"]["flash_fwd"]
              + vit["launches"]["flash_fwd"]
-             + fam["launches"]["flash_fwd"],
+             + fam["launches"]["flash_fwd"]
+             + dgpt["launches"]["flash_fwd"],
              launches_by_path=dict(
                  serve=serve["flash_fwd_launches"],
                  train=train["launches"]["flash_fwd"],
+                 dropout_gpt=dgpt["launches"]["flash_fwd"],
                  llama_serve=lserve["flash_fwd_launches"],
                  llama_train=ltrain["launches"]["flash_fwd"],
                  llama_train_evaluations=ltrain["eval_launches"]["flash_fwd"],
@@ -3845,6 +4392,9 @@ def main():
              plain_ms=fwd["a"]["plain_ms"], bound_ms=fwd["a"]["bound_ms"],
              bound_by=fwd["a"]["bound_by"],
              library_ms=fwd["a"]["library_ms"], ptxas=fwd_ptxas(False),
+             dropout=dropout_entry(dcases, ("i", "ii", "iii"), "fwd",
+                                   dgpt["launches"]["flash_fwd_dropout"],
+                                   dprobe["dense"]["fwd_equal"]),
              by_case={k: dict(ms=r["kernel_ms"],
                               kernel_device_ms=r["kernel_device_ms"],
                               plain_ms=r["plain_ms"],
@@ -3881,12 +4431,17 @@ def main():
              replaces="flash_attn_tpu/kernels/flash_bwd.py:121",
              launches=train["launches"]["flash_bwd_dq"]
              + ltrain["launches"]["flash_bwd_dq"]
-             + vit["launches"]["flash_bwd_dq"],
+             + vit["launches"]["flash_bwd_dq"]
+             + dgpt["launches"]["flash_bwd_dq"],
              launches_by_path=dict(
                  train=train["launches"]["flash_bwd_dq"],
+                 dropout_gpt=dgpt["launches"]["flash_bwd_dq"],
                  llama_train=ltrain["launches"]["flash_bwd_dq"],
                  vit_train=vit["launches"]["flash_bwd_dq"]),
              max_abs_err=a["max_abs_err_dq"], ms=a["dq_kernel_ms"],
+             dropout=dropout_entry(dcases, ("i", "ii", "iii"), "dq",
+                                   dgpt["launches"]["flash_bwd_dq_dropout"],
+                                   "held through the gradient check"),
              plain_ms=a["plain_ms"], bound_ms=a["dq_bound_ms"],
              bound_by=a["dq_bound_by"], library_ms=a["library_ms"],
              by_case={k: dict(ms=r["dq_kernel_ms"], plain_ms=r["plain_ms"],
@@ -3903,13 +4458,18 @@ def main():
              replaces="flash_attn_tpu/kernels/flash_bwd.py:232",
              launches=train["launches"]["flash_bwd_dkv"]
              + ltrain["launches"]["flash_bwd_dkv"]
-             + vit["launches"]["flash_bwd_dkv"],
+             + vit["launches"]["flash_bwd_dkv"]
+             + dgpt["launches"]["flash_bwd_dkv"],
              launches_by_path=dict(
                  train=train["launches"]["flash_bwd_dkv"],
+                 dropout_gpt=dgpt["launches"]["flash_bwd_dkv"],
                  llama_train=ltrain["launches"]["flash_bwd_dkv"],
                  vit_train=vit["launches"]["flash_bwd_dkv"]),
              max_abs_err=max(a["max_abs_err_dk"], a["max_abs_err_dv"]),
              ms=a["dkv_kernel_ms"], plain_ms=a["plain_ms"],
+             dropout=dropout_entry(dcases, ("i", "ii", "iii"), "dkv",
+                                   dgpt["launches"]["flash_bwd_dkv_dropout"],
+                                   dprobe["dense"]["dkv_equal"]),
              bound_ms=a["dkv_bound_ms"], bound_by=a["dkv_bound_by"],
              library_ms=a["library_ms"],
              by_case={k: dict(ms=r["dkv_kernel_ms"], plain_ms=r["plain_ms"],
@@ -3946,10 +4506,19 @@ def main():
              kernel="flash_fwd_kernel in its varlen mode (flash_fwd_varlen)",
              replaces="flash_attn_tpu/kernels/varlen_sched.py:211",
              launches=bert["launches"]["varlen_fwd"]
-             + bert["grad_launches"]["varlen_fwd"],
+             + bert["grad_launches"]["varlen_fwd"]
+             + dbert["launches"]["varlen_fwd"]
+             + dbert["grad_launches"]["varlen_fwd"],
              launches_by_path=dict(
                  bert_forward=bert["launches"]["varlen_fwd"],
-                 bert_grad=bert["grad_launches"]["varlen_fwd"]),
+                 bert_grad=bert["grad_launches"]["varlen_fwd"],
+                 dropout_bert_forward=dbert["launches"]["varlen_fwd"],
+                 dropout_bert_grad=dbert["grad_launches"]["varlen_fwd"]),
+             dropout=dropout_entry(
+                 dcases, ("iv",), "fwd",
+                 dbert["launches"]["varlen_fwd_dropout"]
+                 + dbert["grad_launches"]["varlen_fwd_dropout"],
+                 dprobe["varlen"]["fwd_equal"]),
              case=vfwd["a"]["case"], max_abs_err=vfwd["a"]["max_abs_err_o"],
              ms=vfwd["a"]["kernel_device_ms"],
              whole_call_ms=vfwd["a"]["kernel_ms"],
@@ -3970,10 +4539,17 @@ def main():
              kernel="flash_bwd_dq_kernel (with the dO.O preprocess) then "
              "flash_bwd_dkv_kernel in their varlen mode (flash_bwd_varlen)",
              replaces="flash_attn_tpu/kernels/varlen_sched.py:643",
-             launches=bert["grad_launches"]["varlen_dq"],
-             launches_dkv=bert["grad_launches"]["varlen_dkv"],
-             launches_by_path=dict(bert_grad=bert["grad_launches"][
-                 "varlen_dq"]),
+             launches=bert["grad_launches"]["varlen_dq"]
+             + dbert["grad_launches"]["varlen_dq"],
+             launches_dkv=bert["grad_launches"]["varlen_dkv"]
+             + dbert["grad_launches"]["varlen_dkv"],
+             launches_by_path=dict(
+                 bert_grad=bert["grad_launches"]["varlen_dq"],
+                 dropout_bert_grad=dbert["grad_launches"]["varlen_dq"]),
+             dropout=dropout_entry(
+                 dcases, ("iv",), "bwd",
+                 dbert["grad_launches"]["varlen_dq_dropout"],
+                 dprobe["varlen"]["dkv_equal"]),
              case=vbwd["a"]["case"],
              max_abs_err=max(vbwd["a"][f"max_abs_err_{n}"]
                              for n in ("dq", "dk", "dv")),

@@ -142,6 +142,44 @@ __device__ __forceinline__ int2 key_band(const P& p, int row, int offset,
   return make_int2(p.has_lower ? row + offset - p.wl : 0, hi);
 }
 
+// Attention dropout: the keep mask of flash_attn_tpu/kernels/flash_fwd.py::
+// dropout_keep (:80), a stateless hash of absolute positions, so that the
+// forward and both backward kernels draw the same mask whatever their
+// tiles: x = row C3 + col C4 + (seed ^ b C1 ^ h C2), lowbias32-mixed, and
+// keep <=> (x & 0xFFFFFF) >= thresh, where thresh = ceil(float32(p) 2^24)
+// is computed on the host (kernels/flash_fwd.py::dropout_threshold): the
+// integer form of JAX's float32 compare u >= p.  Multiplication mod 2^32
+// and >> on uint32_t give JAX's int32 wraparound and logical shifts bit for
+// bit.  h is the q head.  The dense layout hashes the tensor's batch index,
+// row and key; the packed varlen layout batch 0 and the token indices in
+// the packed streams (varlen_sched.py:307-314).  A kernel keeps the
+// per-row (or per-key) term and the base in registers and adds the tile's
+// column (or row) term once a tile, so that an element costs one add, the
+// mixer and a compare.
+constexpr uint32_t kHashC1 = 0x9E3779B1u, kHashC2 = 0x85EBCA77u;
+constexpr uint32_t kHashC3 = 0xC2B2AE3Du, kHashC4 = 0x27D4EB2Fu;
+
+// The dropout's parameters: seed, thresh as above (0: no dropout), and
+// rp = 1 / (1 - p) rounded to float32, as JAX scales the kept entries.
+struct Dropout {
+  uint32_t seed, thresh;
+  float rp;
+};
+
+__device__ __forceinline__ uint32_t drop_base(uint32_t seed, int b, int h) {
+  return seed ^ ((uint32_t)b * kHashC1) ^ ((uint32_t)h * kHashC2);
+}
+
+// keep for x = row C3 + col C4 + drop_base(...)
+__device__ __forceinline__ bool drop_keep(uint32_t x, uint32_t thresh) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return (x & 0xFFFFFFu) >= thresh;
+}
+
 // Whether every (row, key) of rows [r0, r0 + nr) and keys [c0, c0 + nc) is
 // live, so that the tile needs no mask test.
 template <class P>

@@ -57,6 +57,22 @@
 //   against the band of keys its row sees.  Calls with neither softcap nor
 //   ALiBi run kernels compiled apart (kMods = false), free of the
 //   per-element mod arithmetic.
+// * Dropout (kDropout, beside kMods as in flash_fwd.cu, with and without
+//   the mods): both kernels recompute the forward's keep mask
+//   (fa_common.cuh's drop_keep; seed, threshold and scale in BwdMaps, so
+//   BwdParams keeps its layout) and apply it as _bwd_dkv_kernel:300-314
+//   does: dP is dropped and scaled by 1 / (1 - p), dS = P (dP - delta) takes
+//   the undropped P, and dV the dropped P, its 1 / (1 - p) applied once at
+//   the store.  delta = rowsum(dO O) of the forward's (dropped) O needs no
+//   change.  The dQ thread keeps its rows' hash terms and adds each key
+//   tile's column term; the dK/dV thread keeps its keys' terms (per GQA
+//   head) and adds each stage's row term; each element is hashed where it
+//   is used, beside the exponentials (hashing a tile into bits between
+//   issuing its products and waiting for them was 7-14 % slower).
+//   Registers again: with dropout and a mod, the d = 64 dQ kernel spilled
+//   48-120 bytes a thread at 128-key stages, and takes 64-key stages; the
+//   d = 128 dK/dV kernel with dropout spilled 16-28 at 64-row stages, and
+//   takes 32-row stages (DqTiles, DkvTiles).
 // * What is hard: registers.  dK/dV's consumers hold dK and dV (64 + 64
 //   fp32 a thread at d = 128), S^T and dP^T (32 + 32) and their 16-bit
 //   packs; setmaxnreg gives them 240 and the producer 24, which is why the
@@ -211,13 +227,13 @@ __device__ __forceinline__ float dot8(float sum, uint4 a, uint4 b) {
 // and walks K/V in kKeys-key tiles through a ring of kStages; warpgroup 0
 // is the producer.  Tiles as
 // hopper.cuh's: D / 64 column blocks of (rows, 64) in the 128-byte swizzle,
-// 1024-byte aligned.
-template <int D>
+// 1024-byte aligned.  kTight: the kernel carries both the mods and dropout.
+template <int D, bool kTight>
 struct DqTiles {
   static constexpr int kRows = 128;
   // keys of a K/V stage: 128 at d = 64 (S, dP, dQ and dS fit in 240
-  // registers), 64 at d = 128
-  static constexpr int kKeys = D == 64 ? 128 : 64;
+  // registers), 64 at d = 128 and with both the mods and dropout
+  static constexpr int kKeys = D == 64 && !kTight ? 128 : 64;
   // q tiles a block can own: 2 at d = 64, where a second set of Q, dO and
   // O fits beside the ring, so that the second tile's loads and start hide
   // behind the first tile's products (kernels/flash_bwd.py::dq_items
@@ -258,12 +274,12 @@ __device__ __forceinline__ int2 key_tiles(const BwdParams& p, int row0,
 // The dK/dV kernel's: a block owns 128 keys (two consumer warpgroups of 64)
 // with K and V resident, and walks Q / dO in kRows-row tiles through a ring
 // whose stages also carry the rows' lse2 and delta.  kRows is 64, and 32
-// with a mod at d = 128: there dK, dV, S^T, dP^T and the mod's arithmetic
-// spilled 24-44 bytes a thread at 64 rows.
-template <int D, bool kMods>
+// with a mod or dropout (kExtra) at d = 128: there dK, dV, S^T, dP^T and
+// the mod's arithmetic spilled 24-44 bytes a thread at 64 rows.
+template <int D, bool kExtra>
 struct DkvTiles {
   static constexpr int kKeys = 128;
-  static constexpr int kRows = kMods && D == 128 ? 32 : 64;
+  static constexpr int kRows = kExtra && D == 128 ? 32 : 64;
   static constexpr int kThreads = 3 * 128;
   static constexpr int kKBytes = kKeys * D * 2;     // K or V
   static constexpr int kTileBytes = kRows * D * 2;  // Q or dO
@@ -281,22 +297,28 @@ struct DkvTiles {
 
 // The TMA descriptors (built on the host by launch): q, do and o in boxes
 // of the kernel's q rows, k and v of its keys; the dK/dV kernel reads no o.
+// Then the dropout's parameters, which only the kDropout kernels read.
 struct BwdMaps {
   CUtensorMap q, dout, o, k, v;
+  Dropout drop;
 };
 
 // dS of one key tile for one dQ consumer thread: s (S, then dS) and dp in
 // the m64nK accumulator layout (element e of n8 block jj: row rows[e >> 1],
 // key col0 + 8 jj + 2 tig + (e & 1)), packed into pa as the A operand of
-// dQ += dS K.  kMask: the masks are tested (edge tiles).
-template <bool kMods, bool kMask, int kKeys, typename T>
+// dQ += dS K.  kMask: the masks are tested (edge tiles).  kDropout: dP is
+// dropped and scaled first; drow are the rows' hash terms, dtile the
+// column term of key col0 + 2 tig.
+template <bool kMods, bool kMask, bool kDropout, int kKeys, typename T>
 __device__ __forceinline__ void dq_tile_ds(const BwdParams& p, float slope,
                                            float* s,
                                            const float* dp, uint32_t (*pa)[4],
                                            int col0, const int* rows,
                                            int offset, int sk_b,
                                            const float* lse2, const float* dlt,
-                                           int tig) {
+                                           int tig, const uint32_t* drow,
+                                           uint32_t dtile,
+                                           const Dropout& drop) {
   int2 band[2] = {make_int2(0, INT_MAX), make_int2(0, INT_MAX)};
   if constexpr (kMask) {
 #pragma unroll
@@ -309,9 +331,15 @@ __device__ __forceinline__ void dq_tile_ds(const BwdParams& p, float slope,
       const int i = e >> 1;
       const int col = col0 + jj * 8 + tig * 2 + (e & 1);
       const bool keep = !kMask || (col >= band[i].x && col <= band[i].y);
+      float dpv = dp[jj * 4 + e];
+      if constexpr (kDropout) {
+        const uint32_t x =
+            drow[i] + dtile + (uint32_t)(jj * 8 + (e & 1)) * kHashC4;
+        dpv = drop_keep(x, drop.thresh) ? dpv * drop.rp : 0.f;
+      }
       float ds;
-      p_and_ds<kMods>(p, slope, s[jj * 4 + e], dp[jj * 4 + e],
-                      rows[i] + offset - col, keep, lse2[i], dlt[i], &ds);
+      p_and_ds<kMods>(p, slope, s[jj * 4 + e], dpv, rows[i] + offset - col,
+                      keep, lse2[i], dlt[i], &ds);
       s[jj * 4 + e] = ds;
     }
   // the accumulator of two adjacent n8 blocks is the A fragment of one k16
@@ -323,11 +351,12 @@ __device__ __forceinline__ void dq_tile_ds(const BwdParams& p, float slope,
       pa[kk][r] = Mma<T>::pack(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
-template <typename T, int D, bool kVarlen, bool kMods>
-__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+template <typename T, int D, bool kVarlen, bool kMods, bool kDropout>
+__global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
+                                  1)
     flash_bwd_dq_kernel(const BwdParams p,
                         const __grid_constant__ BwdMaps maps) {
-  using Cfg = DqTiles<D>;
+  using Cfg = DqTiles<D, kMods && kDropout>;
   constexpr int kRows = Cfg::kRows;
   constexpr int kKeys = Cfg::kKeys;
   constexpr int kMaxItems = Cfg::kMaxItems;
@@ -444,6 +473,13 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
   const int r_lo = cw * 64 + warp * 16 + gid;
   const float slope = alibi_slope(p, bb, hq);
   const size_t loff = L.l_head(hq);
+  // dropout: the (seed, batch, head) base and this thread's column term at
+  // a tile's key 0
+  uint32_t dbase = 0u, dcol = 0u;
+  if constexpr (kDropout) {
+    dbase = drop_base(maps.drop.seed, kVarlen ? 0 : bb, hq);
+    dcol = (uint32_t)(k_start + tig * 2) * kHashC4;
+  }
   if (cw == 1) their_turn<true>(cw);  // warpgroup 0 goes first
 
   int it = 0;  // the ring's stages, counted over the items
@@ -452,6 +488,12 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
     const int w_row0 = row0 + cw * 64;
     const int rows[2] = {row0 + r_lo, row0 + r_lo + 8};
     const int2 kt = key_tiles<kRows, kKeys>(p, row0, rows_in, offset, sk_b);
+    uint32_t drow[2] = {0u, 0u};  // the rows' dropout hash terms
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        drow[i] = (uint32_t)(q_start + rows[i]) * kHashC3 + dbase;
+    }
     float lse2[2], dlt[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -524,12 +566,15 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
       fence_regs<kKeys / 4>(&pa[0][0]);
       if (t > 0 && lane == 0) mbar_arrive(&bar_empty[prev]);
 
+      const uint32_t dtile = dcol + (uint32_t)col0 * kHashC4;
       if (interior(p, w_row0, 64, col0, kKeys, offset, sk_b))
-        dq_tile_ds<kMods, false, kKeys, T>(p, slope, s, dp, pa, col0, rows,
-                                           offset, sk_b, lse2, dlt, tig);
+        dq_tile_ds<kMods, false, kDropout, kKeys, T>(
+            p, slope, s, dp, pa, col0, rows, offset, sk_b, lse2, dlt, tig,
+            drow, dtile, maps.drop);
       else
-        dq_tile_ds<kMods, true, kKeys, T>(p, slope, s, dp, pa, col0, rows,
-                                          offset, sk_b, lse2, dlt, tig);
+        dq_tile_ds<kMods, true, kDropout, kKeys, T>(
+            p, slope, s, dp, pa, col0, rows, offset, sk_b, lse2, dlt, tig,
+            drow, dtile, maps.drop);
     }
     if (kt.y > 0) {  // the last tile's dS K
       const int last = (it + kStages - 1) % kStages;
@@ -565,8 +610,10 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
 // P^T) and dpt (dP^T, then dS^T) in the m64nR accumulator layout (element
 // e of n8 block jj: key key_lo + 8 (e >> 1), q row row0 + 8 jj + 2 tig +
 // (e & 1)), the rows' lse2 and delta at ml, packed into pa and pds as the A
-// operands of dV += P^T dO and dK += dS^T Q.
-template <bool kMods, bool kMask, int kRows, typename T>
+// operands of dV += P^T dO and dK += dS^T Q.  kDropout: dP^T is dropped
+// and scaled, and P^T for dV dropped (its scale applied at the store); dkey
+// are the keys' hash terms, dstage the row term of row row0 + 2 tig.
+template <bool kMods, bool kMask, bool kDropout, int kRows, typename T>
 __device__ __forceinline__ void dkv_tile_p_ds(const BwdParams& p,
                                               float slope, float* st,
                                               float* dpt,
@@ -574,7 +621,10 @@ __device__ __forceinline__ void dkv_tile_p_ds(const BwdParams& p,
                                               uint32_t (*pds)[4],
                                               const float* ml, int row0,
                                               int key_lo, int offset,
-                                              int sk_b, int tig) {
+                                              int sk_b, int tig,
+                                              const uint32_t* dkey,
+                                              uint32_t dstage,
+                                              const Dropout& drop) {
   int2 band[2] = {make_int2(INT_MIN, INT_MAX), make_int2(INT_MIN, INT_MAX)};
   if constexpr (kMask) {
 #pragma unroll
@@ -593,11 +643,18 @@ __device__ __forceinline__ void dkv_tile_p_ds(const BwdParams& p,
         const int c = e & 1, i = e >> 1;
         const int row = row0 + qc + c;
         const bool keep = !kMask || (row >= band[i].x && row <= band[i].y);
+        float dpv = dpt[jj * 4 + e];
+        bool kept = true;
+        if constexpr (kDropout) {
+          kept = drop_keep(dkey[i] + dstage + (uint32_t)(jj * 8 + c) * kHashC3,
+                           drop.thresh);
+          dpv = kept ? dpv * drop.rp : 0.f;
+        }
         float ds;
-        st[jj * 4 + e] = p_and_ds<kMods>(
-            p, slope, st[jj * 4 + e], dpt[jj * 4 + e],
-            row + offset - key_lo - 8 * i, keep, c ? l2.y : l2.x,
-            c ? dl.y : dl.x, &ds);
+        const float pe = p_and_ds<kMods>(
+            p, slope, st[jj * 4 + e], dpv, row + offset - key_lo - 8 * i,
+            keep, c ? l2.y : l2.x, c ? dl.y : dl.x, &ds);
+        st[jj * 4 + e] = kept ? pe : 0.f;
         dpt[jj * 4 + e] = ds;
       }
     }
@@ -609,11 +666,12 @@ __device__ __forceinline__ void dkv_tile_p_ds(const BwdParams& p,
   }
 }
 
-template <typename T, int D, bool kVarlen, bool kMods>
-__global__ void __launch_bounds__(DkvTiles<D, kMods>::kThreads, 1)
+template <typename T, int D, bool kVarlen, bool kMods, bool kDropout>
+__global__ void __launch_bounds__(
+    DkvTiles<D, kMods || kDropout>::kThreads, 1)
     flash_bwd_dkv_kernel(const BwdParams p,
                          const __grid_constant__ BwdMaps maps) {
-  using Cfg = DkvTiles<D, kMods>;
+  using Cfg = DkvTiles<D, kMods || kDropout>;
   constexpr int kRows = Cfg::kRows;
   constexpr int kKeys = Cfg::kKeys;
   constexpr int kStages = Cfg::kStages;
@@ -737,6 +795,15 @@ __global__ void __launch_bounds__(DkvTiles<D, kMods>::kThreads, 1)
   int it = 0;
   for (int hq = hkv * p.g; hq < (hkv + 1) * p.g; ++hq) {
     const float slope = alibi_slope(p, bb, hq);
+    // dropout: the keys' hash terms (key C4 plus the (seed, batch, q head)
+    // base)
+    uint32_t dkey[2] = {0u, 0u};
+    if constexpr (kDropout) {
+      const uint32_t base = drop_base(maps.drop.seed, kVarlen ? 0 : bb, hq);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        dkey[i] = (uint32_t)(k_start + key_lo + 8 * i) * kHashC4 + base;
+    }
     for (int t = 0; t < n_q; ++t, ++it) {
       const int row0 = (qt_lo + t) * kRows;
       const int stage = it % kStages;
@@ -755,14 +822,15 @@ __global__ void __launch_bounds__(DkvTiles<D, kMods>::kThreads, 1)
       fence_regs<kRows / 2>(dpt);
 
       uint32_t pa[kRows / 16][4], pds[kRows / 16][4];
+      const uint32_t dstage = (uint32_t)(q_start + row0 + tig * 2) * kHashC3;
       if (interior(p, row0, kRows, w_col0, 64, offset, sk_b))
-        dkv_tile_p_ds<kMods, false, kRows, T>(p, slope, st, dpt, pa, pds,
-                                              meta(stage), row0, key_lo,
-                                              offset, sk_b, tig);
+        dkv_tile_p_ds<kMods, false, kDropout, kRows, T>(
+            p, slope, st, dpt, pa, pds, meta(stage), row0, key_lo, offset,
+            sk_b, tig, dkey, dstage, maps.drop);
       else
-        dkv_tile_p_ds<kMods, true, kRows, T>(p, slope, st, dpt, pa, pds,
-                                             meta(stage), row0, key_lo,
-                                             offset, sk_b, tig);
+        dkv_tile_p_ds<kMods, true, kDropout, kRows, T>(
+            p, slope, st, dpt, pa, pds, meta(stage), row0, key_lo, offset,
+            sk_b, tig, dkey, dstage, maps.drop);
 
       // dV += P^T dO, dK += dS^T Q
       my_turn<true>(cw);
@@ -791,6 +859,7 @@ __global__ void __launch_bounds__(DkvTiles<D, kMods>::kThreads, 1)
                                            p.hk, p.sq, p.sk, p.total_q, D);
   T* dkp = static_cast<T*>(p.dk) + Lo.k_head(hkv);
   T* dvp = static_cast<T*>(p.dv) + Lo.k_head(hkv);
+  const float dv_scale = kDropout ? maps.drop.rp : 1.f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = key_lo + 8 * i;
@@ -801,7 +870,8 @@ __global__ void __launch_bounds__(DkvTiles<D, kMods>::kThreads, 1)
       *reinterpret_cast<uint32_t*>(dkp + base + n * 8) = Mma<T>::pack(
           dk[4 * n + 2 * i] * p.scale, dk[4 * n + 2 * i + 1] * p.scale);
       *reinterpret_cast<uint32_t*>(dvp + base + n * 8) =
-          Mma<T>::pack(dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
+          Mma<T>::pack(dv[4 * n + 2 * i] * dv_scale,
+                       dv[4 * n + 2 * i + 1] * dv_scale);
     }
   }
 }
@@ -809,10 +879,11 @@ __global__ void __launch_bounds__(DkvTiles<D, kMods>::kThreads, 1)
 // Builds the two kernels' tensor maps and launches the dQ kernel, then the
 // dK/dV kernel.  Dense tensors are (b, heads, s, d); a varlen stream
 // (total, heads, d) is mapped as one batch of `total` rows.
-template <typename T, int D, bool kVarlen, bool kMods>
-int launch(const BwdParams& p, int total_k, cudaStream_t stream) {
-  using Dq = DqTiles<D>;
-  using Dkv = DkvTiles<D, kMods>;
+template <typename T, int D, bool kVarlen, bool kMods, bool kDropout>
+int launch(const BwdParams& p, const Dropout& drop, int total_k,
+           cudaStream_t stream) {
+  using Dq = DqTiles<D, kMods && kDropout>;
+  using Dkv = DkvTiles<D, kMods || kDropout>;
   const int nb = kVarlen ? 1 : p.b;
   const int sq = kVarlen ? p.total_q : p.sq;
   const int sk = kVarlen ? total_k : p.sk;
@@ -830,6 +901,7 @@ int launch(const BwdParams& p, int total_k, cudaStream_t stream) {
     return encode_map<T>(m, base, D, p.hk, sk, nb, k_sh, k_ss, k_sb, rows);
   };
   BwdMaps dq_maps{}, dkv_maps{};
+  dq_maps.drop = dkv_maps.drop = drop;
   int err = q_map(&dq_maps.q, p.q, Dq::kRows);
   if (!err) err = q_map(&dq_maps.dout, p.dout, Dq::kRows);
   if (!err) err = q_map(&dq_maps.o, p.o, Dq::kRows);
@@ -840,8 +912,8 @@ int launch(const BwdParams& p, int total_k, cudaStream_t stream) {
   if (!err) err = k_map(&dkv_maps.k, p.k, Dkv::kKeys);
   if (!err) err = k_map(&dkv_maps.v, p.v, Dkv::kKeys);
   if (err) return err;
-  auto dq_kernel = flash_bwd_dq_kernel<T, D, kVarlen, kMods>;
-  auto dkv_kernel = flash_bwd_dkv_kernel<T, D, kVarlen, kMods>;
+  auto dq_kernel = flash_bwd_dq_kernel<T, D, kVarlen, kMods, kDropout>;
+  auto dkv_kernel = flash_bwd_dkv_kernel<T, D, kVarlen, kMods, kDropout>;
   cudaError_t e = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Dq::kSmem);
   if (e != cudaSuccess) return e;
@@ -867,26 +939,31 @@ void set_host_constants(BwdParams* p) {
   p->cap_k2 = p->softcap > 0.f ? 2.f * kLog2e / p->softcap : 0.f;
 }
 
-// Calls with neither softcap nor ALiBi run the kMods = false kernels.
+// Calls with neither softcap nor ALiBi run the kMods = false kernels;
+// calls with dropout the kDropout ones.
 template <typename T, int D, bool kVarlen>
-int launch_mods(const BwdParams& p, int total_k, cudaStream_t stream) {
-  if (p.softcap > 0.f || p.alibi != nullptr)
-    return launch<T, D, kVarlen, true>(p, total_k, stream);
-  return launch<T, D, kVarlen, false>(p, total_k, stream);
+int launch_mods(const BwdParams& p, const Dropout& drop, int total_k,
+                cudaStream_t stream) {
+  const bool mods = p.softcap > 0.f || p.alibi != nullptr;
+  if (drop.thresh != 0)
+    return mods ? launch<T, D, kVarlen, true, true>(p, drop, total_k, stream)
+                : launch<T, D, kVarlen, false, true>(p, drop, total_k, stream);
+  if (mods) return launch<T, D, kVarlen, true, false>(p, drop, total_k, stream);
+  return launch<T, D, kVarlen, false, false>(p, drop, total_k, stream);
 }
 
 template <bool kVarlen>
-int dispatch(const BwdParams& p, int total_k, int d, int dtype,
-             void* stream) {
+int dispatch(const BwdParams& p, const Dropout& drop, int total_k, int d,
+             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
-    return launch_mods<__nv_bfloat16, 64, kVarlen>(p, total_k, s);
+    return launch_mods<__nv_bfloat16, 64, kVarlen>(p, drop, total_k, s);
   if (dtype == 0 && d == 128)
-    return launch_mods<__nv_bfloat16, 128, kVarlen>(p, total_k, s);
+    return launch_mods<__nv_bfloat16, 128, kVarlen>(p, drop, total_k, s);
   if (dtype == 1 && d == 64)
-    return launch_mods<__half, 64, kVarlen>(p, total_k, s);
+    return launch_mods<__half, 64, kVarlen>(p, drop, total_k, s);
   if (dtype == 1 && d == 128)
-    return launch_mods<__half, 128, kVarlen>(p, total_k, s);
+    return launch_mods<__half, 128, kVarlen>(p, drop, total_k, s);
   return cudaErrorInvalidValue;
 }
 
@@ -905,7 +982,9 @@ extern "C" const char* fa_error_string(int err) {
 // dk, dv (b, hk, sk, d), all contiguous and 16-byte aligned; lse and dlse
 // (or null) (b, h, sq) fp32; stats 2 * b * h * stats_len fp32 of scratch
 // (stats_len = sq rounded up to 128); dq_items the q tiles a dQ block owns
-// (2 is taken at d = 64 only; kernels/flash_bwd.py::dq_items).
+// (2 is taken at d = 64 only; kernels/flash_bwd.py::dq_items); drop_seed,
+// drop_thresh, drop_rp the forward's dropout (fa_common.cuh's Dropout; a
+// threshold of 0 is no dropout).
 extern "C" int flash_bwd(const void* dout, const void* q, const void* k,
                          const void* v, const void* o, const float* lse,
                          const float* dlse, float* stats, void* dq, void* dk,
@@ -913,7 +992,8 @@ extern "C" int flash_bwd(const void* dout, const void* q, const void* k,
                          const float* alibi, int b, int h, int hk, int sq,
                          int sk, int d, int dtype, float scale, int has_upper,
                          int wr, int has_lower, int wl, float softcap,
-                         int stats_len, int dq_items, void* stream) {
+                         int stats_len, int dq_items, int drop_seed,
+                         int drop_thresh, float drop_rp, void* stream) {
   if (b == 0 || h == 0 || sq == 0 || sk == 0) return 0;
   BwdParams p{q,     k,         v,         o,         dout,
               lse,   dlse,      stats,     dq,        dk,
@@ -923,15 +1003,17 @@ extern "C" int flash_bwd(const void* dout, const void* q, const void* k,
               softcap, 0, stats_len};
   set_host_constants(&p);
   p.dq_items = dq_items;
-  return dispatch<false>(p, sk, d, dtype, stream);
+  const Dropout drop{(uint32_t)drop_seed, (uint32_t)drop_thresh, drop_rp};
+  return dispatch<false>(p, drop, sk, d, dtype, stream);
 }
 
 // The packed varlen mode: do, q, o, dq (total_q, h, d), k, v, dk, dv
 // (total_k, hk, d), contiguous and 16-byte aligned; lse (h, total_q); cu_q,
 // cu_k (b + 1,) int32 offsets; max_sq, max_sk the longest sequence (they
 // size the grids); stats 2 * h * stats_len fp32 of scratch (stats_len from
-// kernels/flash_bwd.py::varlen_stats_rows); dq_items as flash_bwd's.  Tokens
-// outside every sequence are not written.
+// kernels/flash_bwd.py::varlen_stats_rows); dq_items and the dropout's as
+// flash_bwd's, hashed at packed-stream coordinates.  Tokens outside every
+// sequence are not written.
 extern "C" int flash_bwd_varlen(const void* dout, const void* q, const void* k,
                                 const void* v, const void* o, const float* lse,
                                 float* stats, void* dq, void* dk, void* dv,
@@ -941,7 +1023,8 @@ extern "C" int flash_bwd_varlen(const void* dout, const void* q, const void* k,
                                 int total_k, int d, int dtype, float scale,
                                 int has_upper, int wr, int has_lower, int wl,
                                 float softcap, int stats_len, int dq_items,
-                                void* stream) {
+                                int drop_seed, int drop_thresh,
+                                float drop_rp, void* stream) {
   if (b == 0 || h == 0 || max_sq == 0 || max_sk == 0) return 0;
   BwdParams p{q,     k,         v,      o,         dout,
               lse,   nullptr,   stats,  dq,        dk,
@@ -951,5 +1034,6 @@ extern "C" int flash_bwd_varlen(const void* dout, const void* q, const void* k,
               softcap, total_q, stats_len};
   set_host_constants(&p);
   p.dq_items = dq_items;
-  return dispatch<true>(p, total_k, d, dtype, stream);
+  const Dropout drop{(uint32_t)drop_seed, (uint32_t)drop_thresh, drop_rp};
+  return dispatch<true>(p, drop, total_k, d, dtype, stream);
 }

@@ -48,6 +48,19 @@
 //   the exponent, and the element loop is a bare max.  The mod kernels
 //   compute tanh on the special function unit (hopper.cuh's tanh_ex2), as
 //   the backward does, so both see the same scores.
+// * Dropout (kDropout, a template argument beside kMods, both with and
+//   without the mods: instantiated with the mods only, a dropout forward
+//   took 1.46-1.69x the time without dropout at the training shapes, and
+//   without them 1.16-1.36x, on an H100 80GB HBM3 at 700 W; the file
+//   builds in 39 s, 30 s before): the keep mask is fa_common.cuh's drop_keep,
+//   whose seed, threshold and scale ride in FwdMaps (FwdParams keeps its
+//   size).  Each consumer thread keeps its two rows' hash terms and its
+//   first key's column term, adds the tile's column term, and per element
+//   mixes and compares as P is packed (hashing a tile into bits while its
+//   Q K^T ran was no faster).  The row sums l (and so the lse) are those of
+//   the undropped P, as _fwd_kernel:336-348 has them; dropped entries enter
+//   P V as 0, and the 1 / (1 - p) of the kept ones is folded into the
+//   epilogue's 1 / l.
 // * Order: under a causal or right-windowed mask the blocks run in reverse
 //   order of their q tile, heaviest first.  Dense: the tile is the grid's
 //   slowest dimension, so every head's heaviest tiles start before any
@@ -104,9 +117,11 @@ struct FwdParams {
 
 // The TMA descriptors (built on the host by launch), passed beside
 // FwdParams so that it keeps its layout: q in boxes of the kernel's rows,
-// k and v of its keys.
+// k and v of its keys; then the dropout's parameters, which only the
+// kDropout kernels read.
 struct FwdMaps {
   CUtensorMap q, k, v;
+  Dropout drop;
 };
 
 // The tiles and shared memory of head dim D: a block owns kRows q rows (one
@@ -180,7 +195,7 @@ __device__ __forceinline__ void score_tile(const FwdParams& p, float* s,
     }
 }
 
-template <typename T, int D, bool kVarlen, bool kMods>
+template <typename T, int D, bool kVarlen, bool kMods, bool kDropout>
 __global__ void __launch_bounds__(FwdTiles<D>::kThreads,
                                   FwdTiles<D>::kMinBlocks)
     flash_fwd_kernel(const FwdParams p, const __grid_constant__ FwdMaps maps) {
@@ -286,6 +301,17 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads,
   // the exponent's factor on s: the scale in log2 units without a mod (the
   // launcher sends a scale <= 0 to kMods), 1 with one
   const float sc = kMods ? 1.f : p.scale * kLog2e;
+  // dropout: each row's hash term (row C3 plus the (seed, batch, head)
+  // base) and this thread's column term at a tile's key 0
+  uint32_t drow[2] = {0u, 0u};
+  uint32_t dcol = 0u;
+  if constexpr (kDropout) {
+    const uint32_t base = drop_base(maps.drop.seed, kVarlen ? 0 : bb, hq);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      drow[i] = (uint32_t)(q_start + rows[i]) * kHashC3 + base;
+    dcol = (uint32_t)(k_start + tig * 2) * kHashC4;
+  }
 
   float acc[D / 2];  // O: the m64nD accumulator
 #pragma unroll
@@ -350,15 +376,20 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads,
       acc[4 * n + 3] *= alpha[1];
     }
     // P as the A operand: the accumulator of two adjacent n8 blocks is the
-    // A fragment of one k16 step.
+    // A fragment of one k16 step.  Dropout zeroes P after the row sums.
 #pragma unroll
     for (int kk = 0; kk < kKeys / 16; ++kk) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const float p0 = fast_exp2(fmaf(s[8 * kk + 2 * r], sc, -m_use[r & 1]));
-        const float p1 =
-            fast_exp2(fmaf(s[8 * kk + 2 * r + 1], sc, -m_use[r & 1]));
+        float p0 = fast_exp2(fmaf(s[8 * kk + 2 * r], sc, -m_use[r & 1]));
+        float p1 = fast_exp2(fmaf(s[8 * kk + 2 * r + 1], sc, -m_use[r & 1]));
         l_run[r & 1] += p0 + p1;
+        if constexpr (kDropout) {
+          const uint32_t x = drow[r & 1] + dcol + (uint32_t)col0 * kHashC4 +
+                             (uint32_t)(8 * (2 * kk + (r >> 1))) * kHashC4;
+          p0 = drop_keep(x, maps.drop.thresh) ? p0 : 0.f;
+          p1 = drop_keep(x + kHashC4, maps.drop.thresh) ? p1 : 0.f;
+        }
         pa[kk][r] = Mma<T>::pack(p0, p1);
       }
     }
@@ -388,7 +419,7 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads,
     const float l = quad_sum(l_run[i]);
     const int row = rows[i];
     if (row >= Lo.q_rows) continue;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const float inv = l > 0.f ? (kDropout ? maps.drop.rp : 1.f) / l : 0.f;
     T* orow = o + (size_t)row * Lo.q_rs + tig * 2;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -402,8 +433,9 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads,
 // heads, s, d); a varlen stream (total, heads, d) is mapped as one batch of
 // `total` rows.  With no key at all (sk = 0) the K/V maps are built over q,
 // which the kernel then never reads through them.
-template <typename T, int D, bool kVarlen, bool kMods>
-int launch(const FwdParams& p, int total_k, cudaStream_t stream) {
+template <typename T, int D, bool kVarlen, bool kMods, bool kDropout>
+int launch(const FwdParams& p, const Dropout& drop, int total_k,
+           cudaStream_t stream) {
   using Cfg = FwdTiles<D>;
   constexpr int kRows = Cfg::kRows;
   const int nb = kVarlen ? 1 : p.b;
@@ -414,6 +446,7 @@ int launch(const FwdParams& p, int total_k, cudaStream_t stream) {
   const long long q_ss = kVarlen ? (long long)p.h * D : D;
   const long long q_sb = (long long)p.h * sq * D;
   FwdMaps maps{};
+  maps.drop = drop;
   int err = encode_map<T>(&maps.q, p.q, D, p.h, sq, nb, q_sh, q_ss, q_sb,
                           kRows);
   if (sk > 0) {
@@ -430,7 +463,7 @@ int launch(const FwdParams& p, int total_k, cudaStream_t stream) {
     maps.k = maps.v = maps.q;
   }
   if (err) return err;
-  auto kernel = flash_fwd_kernel<T, D, kVarlen, kMods>;
+  auto kernel = flash_fwd_kernel<T, D, kVarlen, kMods, kDropout>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
   if (e != cudaSuccess) return e;
@@ -442,26 +475,30 @@ int launch(const FwdParams& p, int total_k, cudaStream_t stream) {
 }
 
 // Calls with neither softcap nor ALiBi, and a positive scale, run the
-// kMods = false kernels.
+// kMods = false kernels; calls with dropout the kDropout ones.
 template <typename T, int D, bool kVarlen>
-int launch_mods(const FwdParams& p, int total_k, cudaStream_t stream) {
-  if (p.softcap > 0.f || p.alibi != nullptr || !(p.scale > 0.f))
-    return launch<T, D, kVarlen, true>(p, total_k, stream);
-  return launch<T, D, kVarlen, false>(p, total_k, stream);
+int launch_mods(const FwdParams& p, const Dropout& drop, int total_k,
+                cudaStream_t stream) {
+  const bool mods = p.softcap > 0.f || p.alibi != nullptr || !(p.scale > 0.f);
+  if (drop.thresh != 0)
+    return mods ? launch<T, D, kVarlen, true, true>(p, drop, total_k, stream)
+                : launch<T, D, kVarlen, false, true>(p, drop, total_k, stream);
+  if (mods) return launch<T, D, kVarlen, true, false>(p, drop, total_k, stream);
+  return launch<T, D, kVarlen, false, false>(p, drop, total_k, stream);
 }
 
 template <bool kVarlen>
-int dispatch(const FwdParams& p, int total_k, int d, int dtype,
-             void* stream) {
+int dispatch(const FwdParams& p, const Dropout& drop, int total_k, int d,
+             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
-    return launch_mods<__nv_bfloat16, 64, kVarlen>(p, total_k, s);
+    return launch_mods<__nv_bfloat16, 64, kVarlen>(p, drop, total_k, s);
   if (dtype == 0 && d == 128)
-    return launch_mods<__nv_bfloat16, 128, kVarlen>(p, total_k, s);
+    return launch_mods<__nv_bfloat16, 128, kVarlen>(p, drop, total_k, s);
   if (dtype == 1 && d == 64)
-    return launch_mods<__half, 64, kVarlen>(p, total_k, s);
+    return launch_mods<__half, 64, kVarlen>(p, drop, total_k, s);
   if (dtype == 1 && d == 128)
-    return launch_mods<__half, 128, kVarlen>(p, total_k, s);
+    return launch_mods<__half, 128, kVarlen>(p, drop, total_k, s);
   return cudaErrorInvalidValue;
 }
 
@@ -476,23 +513,28 @@ extern "C" const char* fa_error_string(int err) {
 
 // dtype: 0 = bf16, 1 = fp16.  q, o (b, h, sq, d), k, v (b, hk, sk, d), all
 // contiguous and 16-byte aligned; lse (b, h, sq) fp32; seqused_q/k (b,)
-// int32; alibi (b, h) fp32 or null.  Returns cudaGetLastError() after the
-// launch (or a tensor-map error, see fa_error_string).
+// int32; alibi (b, h) fp32 or null; drop_seed, drop_thresh, drop_rp the
+// dropout's (fa_common.cuh's Dropout; a threshold of 0 is no dropout).
+// Returns cudaGetLastError() after the launch (or a tensor-map error, see
+// fa_error_string).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, const int* seqused_q, const int* seqused_k,
                          const float* alibi, int b, int h, int hk, int sq,
                          int sk, int d, int dtype, float scale, int has_upper,
                          int wr, int has_lower, int wl, float softcap,
+                         int drop_seed, int drop_thresh, float drop_rp,
                          void* stream) {
   if (b == 0 || h == 0 || sq == 0) return 0;
   FwdParams p{q, k, v, o, lse, seqused_q, seqused_k, alibi, b, h, hk, 0, sq,
               sk, scale, has_upper, wr, has_lower, wl, softcap};
-  return dispatch<false>(p, sk, d, dtype, stream);
+  const Dropout drop{(uint32_t)drop_seed, (uint32_t)drop_thresh, drop_rp};
+  return dispatch<false>(p, drop, sk, d, dtype, stream);
 }
 
 // The packed varlen mode: q, o (total_q, h, d), k, v (total_k, hk, d),
 // contiguous and 16-byte aligned; lse (h, total_q); cu_q, cu_k (b + 1,)
-// int32 offsets; max_sq, max_sk the longest sequence (they size the grid).
+// int32 offsets; max_sq, max_sk the longest sequence (they size the grid);
+// the dropout's as flash_fwd's, hashed at packed-stream coordinates.
 // Tokens outside every sequence are not written.
 extern "C" int flash_fwd_varlen(const void* q, const void* k, const void* v,
                                 void* o, float* lse, const int* cu_q,
@@ -501,9 +543,11 @@ extern "C" int flash_fwd_varlen(const void* q, const void* k, const void* v,
                                 int total_q, int total_k, int d, int dtype,
                                 float scale, int has_upper, int wr,
                                 int has_lower, int wl, float softcap,
+                                int drop_seed, int drop_thresh, float drop_rp,
                                 void* stream) {
   if (b == 0 || h == 0 || max_sq == 0) return 0;
   FwdParams p{q, k, v, o, lse, cu_q, cu_k, alibi, b, h, hk, total_q, max_sq,
               max_sk, scale, has_upper, wr, has_lower, wl, softcap};
-  return dispatch<true>(p, total_k, d, dtype, stream);
+  const Dropout drop{(uint32_t)drop_seed, (uint32_t)drop_thresh, drop_rp};
+  return dispatch<true>(p, drop, total_k, d, dtype, stream);
 }

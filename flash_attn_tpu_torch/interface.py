@@ -22,13 +22,21 @@ dequantised to bf16 outside the kernels (forward only).
 
 * `deterministic` is accepted and ignored: the backward is always
   deterministic (`interface.py:15`).
-* `return_attn_probs=True` returns (out, lse, None) and carries the lse's
-  gradient (`dlse`) into the backward.
-* Not ported yet, and raising `NotImplementedError`: `dropout_p > 0`
-  (dense and varlen); in `flash_attn_func`, `qv`, `sinks`, fp8 descale and
-  `attention_chunk`.  The CUDA kernels take bf16 and fp16 with head dims
-  64 and 128 and raise `NotImplementedError` on anything else (a float32 q
-  on CUDA included).
+* Attention dropout (`dropout_p` in [0, 1), else `ValueError`) runs inside
+  the kernels: the keep mask is a stateless hash of (`dropout_seed`, None
+  meaning 0, batch, q head, row, key), `kernels.flash_fwd.dropout_keep`,
+  bit for bit the JAX package's.  The dense and padded varlen routes hash
+  each tensor's own batch index, row and key; the packed varlen route
+  batch 0 and the token indices in the packed streams.  fp8 and paged
+  varlen with dropout raise `NotImplementedError`, as in JAX.
+* `return_attn_probs=True` returns (out, lse, S_dmask) and carries the
+  lse's gradient (`dlse`) into the backward.  S_dmask is None, or, for a
+  dense call with dropout, the debug probabilities of `_attn_probs_dmask`
+  (kept entries P / (1 - p), dropped -P).
+* Not ported yet, and raising `NotImplementedError`: in `flash_attn_func`,
+  `qv`, `sinks`, fp8 descale and `attention_chunk`.  The CUDA kernels take
+  bf16 and fp16 with head dims 64 and 128 and raise `NotImplementedError`
+  on anything else (a float32 q on CUDA included).
 """
 
 from __future__ import annotations
@@ -43,7 +51,10 @@ from flash_attn_tpu_torch.kernels.flash_bwd import flash_attn_bwd_bhsd
 from flash_attn_tpu_torch.kernels.flash_decode import (  # noqa: F401
     FP8_DTYPES, decode_attn_ref_layout, flash_attn_with_kvcache,
     fuse_kv_cache, split_kv_cache)
-from flash_attn_tpu_torch.kernels.flash_fwd import flash_attn_fwd_bhsd
+from flash_attn_tpu_torch.kernels.flash_fwd import (check_dropout,
+                                                    dropout_mask,
+                                                    dropout_seed_value,
+                                                    flash_attn_fwd_bhsd)
 from flash_attn_tpu_torch.kernels.varlen import (MAX_SEQLEN,
                                                  flash_attn_varlen_sched_func)
 
@@ -51,11 +62,13 @@ from flash_attn_tpu_torch.kernels.varlen import (MAX_SEQLEN,
 class FlashAttnFunc(torch.autograd.Function):
     """(q, k, v) in (b, h, s, d), contiguous -> (o, lse) with the backward
     kernel as its gradient.  seqused_q/k (b,) int32 limit each batch row's
-    query rows and keys; None means the full lengths."""
+    query rows and keys; None means the full lengths.  The dropout's p and
+    seed are kept for the backward, which recomputes the keep mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, softmax_scale, causal, window_size, softcap,
-                alibi_slopes, seqused_q=None, seqused_k=None):
+                alibi_slopes, seqused_q=None, seqused_k=None, dropout_p=0.0,
+                dropout_seed=None):
         b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
         if seqused_q is None:
             seqused_q = torch.full((b,), sq, dtype=torch.int32,
@@ -65,7 +78,8 @@ class FlashAttnFunc(torch.autograd.Function):
                                    device=q.device)
         kw = dict(softmax_scale=softmax_scale, causal=causal,
                   window_size=window_size, softcap=softcap,
-                  alibi_slopes=alibi_slopes)
+                  alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+                  dropout_seed=dropout_seed)
         o, lse = flash_attn_fwd_bhsd(q, k, v, seqused_q, seqused_k, **kw)
         ctx.save_for_backward(q, k, v, o, lse, seqused_q, seqused_k)
         ctx.kw = kw
@@ -78,18 +92,53 @@ class FlashAttnFunc(torch.autograd.Function):
         do = torch.zeros_like(o) if do is None else do.contiguous()
         dq, dk, dv = flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q,
                                          seqused_k, dlse=dlse, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return (dq, dk, dv) + (None,) * 9
 
 
 def _attn_bhsd(q, k, v, *, softmax_scale, causal=False, window_size=(-1, -1),
                softcap=0.0, alibi_slopes=None, seqused_q=None,
-               seqused_k=None):
+               seqused_k=None, dropout_p=0.0, dropout_seed=None):
     """Differentiable attention on (b, h, s, d) operands with per-batch
     seqused (`interface.py:123`).  Returns (o, lse (b, h, sq))."""
     return FlashAttnFunc.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), float(softmax_scale),
         bool(causal), (int(window_size[0]), int(window_size[1])),
-        float(softcap), alibi_slopes, seqused_q, seqused_k)
+        float(softcap), alibi_slopes, seqused_q, seqused_k, float(dropout_p),
+        dropout_seed)
+
+
+def _attn_probs_dmask(q, k, lse, *, softmax_scale, causal, window_size,
+                      softcap, alibi_slopes, dropout_p, dropout_seed):
+    """The debug S_dmask of `return_attn_probs` with dropout
+    (`interface.py::_attn_probs_dmask:155`): post-softmax probabilities
+    from the kernel's lse, kept entries P / (1 - p) and dropped ones -P, so
+    that `S_dmask >= 0` recovers the keep mask.  Plain PyTorch on the
+    tensors' device, O(b h sq sk) memory.  q: (b, sq, h, d); k: (b, sk,
+    hk, d); lse (b, h, sq).  Returns (b, h, sq, sk) float32."""
+    b, sq, h, _ = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    dev = q.device
+    kf = k.repeat_interleave(h // hk, dim=2) if h != hk else k
+    s = torch.einsum("bihd,bjhd->bhij", q.float(), kf.float()) * softmax_scale
+    if softcap > 0.0:
+        s = torch.tanh(s / softcap) * softcap
+    rows = torch.arange(sq, device=dev)[:, None]
+    cols = torch.arange(sk, device=dev)[None, :]
+    offset = sk - sq  # bottom-right aligned, the kernels' convention
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, device=dev).float()
+        slopes = slopes.reshape(-1, h).expand(b, h)
+        s = s - slopes[:, :, None, None] * (rows + offset - cols).abs()
+    wl, wr = int(window_size[0]), 0 if causal else int(window_size[1])
+    mask = torch.zeros((sq, sk), dtype=torch.bool, device=dev)
+    if wr >= 0:
+        mask = mask | (cols > rows + offset + wr)
+    if wl >= 0:
+        mask = mask | (cols < rows + offset - wl)
+    p = torch.where(mask, 0.0, torch.exp(s - lse.float()[..., None]))
+    keep = dropout_mask(dropout_seed_value(dropout_seed), dropout_p, b, h, sq,
+                        sk, dev)
+    return torch.where(keep, p / (1.0 - dropout_p), -p)
 
 
 def flash_attn_func(q, k, v, dropout_p=0.0, softmax_scale=None, causal=False,
@@ -101,12 +150,12 @@ def flash_attn_func(q, k, v, dropout_p=0.0, softmax_scale=None, causal=False,
     """Multi-head attention, (b, s, h, d) layout (`interface.py:209`).
 
     q: (b, sq, h, d); k, v: (b, sk, hk, d) with h % hk == 0.  Returns out
-    (b, sq, h, d), or (out, lse (b, h, sq) float32, None) when
-    `return_attn_probs`.  Runs on the tensors' device: the CUDA kernels on
-    CUDA tensors, the plain versions on CPU tensors."""
-    del deterministic, dropout_seed  # always deterministic; no dropout yet
-    if dropout_p > 0.0:
-        raise NotImplementedError("attention dropout is not ported yet")
+    (b, sq, h, d), or (out, lse (b, h, sq) float32, S_dmask) when
+    `return_attn_probs` (S_dmask None without dropout).  Runs on the
+    tensors' device: the CUDA kernels on CUDA tensors, the plain versions
+    on CPU tensors."""
+    del deterministic  # always deterministic
+    check_dropout(dropout_p)
     if qv is not None:
         raise NotImplementedError("qv is not ported yet")
     if sinks is not None:
@@ -120,30 +169,41 @@ def flash_attn_func(q, k, v, dropout_p=0.0, softmax_scale=None, causal=False,
     o, lse = _attn_bhsd(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         softmax_scale=softmax_scale, causal=causal, window_size=window_size,
-        softcap=softcap, alibi_slopes=alibi_slopes)
+        softcap=softcap, alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+        dropout_seed=dropout_seed)
     o = o.transpose(1, 2)
-    return (o, lse, None) if return_attn_probs else o
+    if not return_attn_probs:
+        return o
+    s_dmask = None
+    if dropout_p > 0.0:
+        s_dmask = _attn_probs_dmask(
+            q, k, lse.detach(), softmax_scale=softmax_scale, causal=causal,
+            window_size=window_size, softcap=softcap,
+            alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+            dropout_seed=dropout_seed)
+    return o, lse, s_dmask
 
 
 def flash_attn_qkvpacked_func(qkv, dropout_p=0.0, softmax_scale=None,
                               causal=False, window_size=(-1, -1), softcap=0.0,
                               alibi_slopes=None, deterministic=False,
-                              return_attn_probs=False):
+                              return_attn_probs=False, dropout_seed=None):
     """qkv: (b, s, 3, h, d) (`interface.py:310`)."""
     return flash_attn_func(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
                            dropout_p, softmax_scale, causal, window_size,
                            softcap, alibi_slopes, deterministic,
-                           return_attn_probs)
+                           return_attn_probs, dropout_seed=dropout_seed)
 
 
 def flash_attn_kvpacked_func(q, kv, dropout_p=0.0, softmax_scale=None,
                              causal=False, window_size=(-1, -1), softcap=0.0,
                              alibi_slopes=None, deterministic=False,
-                             return_attn_probs=False):
+                             return_attn_probs=False, dropout_seed=None):
     """kv: (b, s, 2, hk, d) (`interface.py:329`)."""
     return flash_attn_func(q, kv[:, :, 0], kv[:, :, 1], dropout_p,
                            softmax_scale, causal, window_size, softcap,
-                           alibi_slopes, deterministic, return_attn_probs)
+                           alibi_slopes, deterministic, return_attn_probs,
+                           dropout_seed=dropout_seed)
 
 
 def _varlen_to_padded(x, cu_seqlens, max_seqlen):
@@ -188,10 +248,12 @@ def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
     hk, d) and each sequence's q tokens are its newest, at the end of its
     seqused_k (or cu_seqlens_k) keys: chunked prefill against a paged cache.
     fp8 q/k/v take per-(sequence, kv head) descales and give a bf16 output
-    with no gradient.  Differentiable on the packed and padded routes."""
-    del deterministic, dropout_seed
-    if not 0.0 <= dropout_p < 1.0:
-        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    with no gradient.  Differentiable on the packed and padded routes.
+    Dropout hashes packed-stream coordinates on the packed route and each
+    sequence's own rows and keys (batch index, position) on the padded
+    one, as JAX does; with `return_attn_probs` S_dmask is None."""
+    del deterministic
+    check_dropout(dropout_p)
     if qv is not None:
         if q.dtype in FP8_DTYPES:
             raise NotImplementedError("qv is not supported with fp8 inputs")
@@ -218,9 +280,6 @@ def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
             softmax_scale=softmax_scale, causal=causal,
             window_size=window_size, softcap=softcap,
             alibi_slopes=alibi_slopes, return_lse=return_attn_probs)
-    if dropout_p > 0.0:
-        raise NotImplementedError("varlen attention dropout is not ported "
-                                  "yet (ROADMAP Queue 2b)")
     d = q.shape[-1]
     b = cu_seqlens_q.shape[0] - 1
     if softmax_scale is None:
@@ -237,16 +296,18 @@ def flash_attn_varlen_func(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
             q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
             softmax_scale=float(softmax_scale), causal=causal,
             window_size=window_size, softcap=softcap,
-            alibi_slopes=alibi_slopes)
+            alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+            dropout_seed=dropout_seed)
     return _varlen_padded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                           max_seqlen_k, softmax_scale, causal, window_size,
                           softcap, alibi_slopes, return_attn_probs, seqused_q,
-                          seqused_k)
+                          seqused_k, dropout_p, dropout_seed)
 
 
 def _varlen_padded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                    max_seqlen_k, softmax_scale, causal, window_size, softcap,
-                   alibi_slopes, return_lse, seqused_q, seqused_k):
+                   alibi_slopes, return_lse, seqused_q, seqused_k,
+                   dropout_p=0.0, dropout_seed=None):
     """The padded route (`interface.py:518-545`): gather the packed streams
     to (b, max_seqlen), run the dense kernels with per-sequence seqused,
     zero the rows past each sequence's used length and scatter back."""
@@ -269,7 +330,8 @@ def _varlen_padded(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
     o, lse = _attn_bhsd(qp, kp, vp, softmax_scale=softmax_scale,
                         causal=causal, window_size=window_size,
                         softcap=softcap, alibi_slopes=slopes,
-                        seqused_q=used_q, seqused_k=used_k)
+                        seqused_q=used_q, seqused_k=used_k,
+                        dropout_p=dropout_p, dropout_seed=dropout_seed)
     o = o.transpose(1, 2)  # (b, max_sq, h, d)
     row_valid = torch.arange(max_sq, device=dev)[None, :] < used_q[:, None]
     o = torch.where(row_valid[:, :, None, None], o, 0)
@@ -364,12 +426,14 @@ def flash_attn_varlen_qkvpacked_func(qkv, cu_seqlens, max_seqlen,
                                      causal=False, window_size=(-1, -1),
                                      softcap=0.0, alibi_slopes=None,
                                      deterministic=False,
-                                     return_attn_probs=False):
+                                     return_attn_probs=False,
+                                     dropout_seed=None):
     """qkv: (total, 3, h, d) (`interface.py:613`)."""
     return flash_attn_varlen_func(
         qkv[:, 0], qkv[:, 1], qkv[:, 2], cu_seqlens, cu_seqlens, max_seqlen,
         max_seqlen, dropout_p, softmax_scale, causal, window_size, softcap,
-        alibi_slopes, deterministic, return_attn_probs)
+        alibi_slopes, deterministic, return_attn_probs,
+        dropout_seed=dropout_seed)
 
 
 def flash_attn_varlen_kvpacked_func(q, kv, cu_seqlens_q, cu_seqlens_k,
@@ -377,12 +441,14 @@ def flash_attn_varlen_kvpacked_func(q, kv, cu_seqlens_q, cu_seqlens_k,
                                     softmax_scale=None, causal=False,
                                     window_size=(-1, -1), softcap=0.0,
                                     alibi_slopes=None, deterministic=False,
-                                    return_attn_probs=False):
+                                    return_attn_probs=False,
+                                    dropout_seed=None):
     """kv: (total_k, 2, hk, d) (`interface.py:634`)."""
     return flash_attn_varlen_func(
         q, kv[:, 0], kv[:, 1], cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
         max_seqlen_k, dropout_p, softmax_scale, causal, window_size, softcap,
-        alibi_slopes, deterministic, return_attn_probs)
+        alibi_slopes, deterministic, return_attn_probs,
+        dropout_seed=dropout_seed)
 
 
 def flash_attn_combine(out_partial, lse_partial, out=None, out_dtype=None):

@@ -19,7 +19,9 @@ windows, GQA, softcap and ALiBi follow the forward
 (`kernels/flash_fwd.py`); rows at or past seqused_q contribute nothing
 (callers pass do = 0 there), keys at or past seqused_k get dk = dv = 0, and
 a row with lse = +inf gets dq = 0.  dk and dv come back reduced over each
-GQA group.
+GQA group.  Dropout recomputes the forward's keep mask from (seed, batch, q
+head, row, key): dP is dropped and scaled by 1 / (1 - p), dV takes the
+dropped, scaled P, and dS the undropped P (`_bwd_dkv_kernel:300-314`).
 """
 
 from __future__ import annotations
@@ -31,14 +33,22 @@ import torch
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.flash_fwd import (HEAD_DIMS, _DTYPE_CODE,
                                                     _aligned, _lengths,
-                                                    _unsupported, mask_params,
+                                                    _unsupported,
+                                                    dropout_args,
+                                                    dropout_mask,
+                                                    dropout_scale,
+                                                    dropout_seed_value,
+                                                    mask_params,
                                                     normalize_window)
 
 KERNEL = "flash_bwd"
 
-# Launches of each CUDA kernel (plain CPU runs do not count).
+# Launches of each CUDA kernel (plain CPU runs do not count), and of their
+# dropout instantiations among them.
 launches_dq = 0
 launches_dkv = 0
+launches_dq_dropout = 0
+launches_dkv_dropout = 0
 # q tiles each block of the last dQ launch owned (`dq_items`).
 last_dq_items = 0
 
@@ -96,13 +106,17 @@ def flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, seqused_q, seqused_k, *,
                             softmax_scale: float, causal: bool = False,
                             window_size=(-1, -1), softcap: float = 0.0,
                             alibi_slopes=None, dlse=None, sinks=None,
-                            dropout_p: float = 0.0, attention_chunk: int = 0):
-    """Plain PyTorch version of `flash_attn_bwd_bhsd` (same signature).
+                            dropout_p: float = 0.0, attention_chunk: int = 0,
+                            dropout_seed=None, dropout_packed_offsets=None):
+    """Plain PyTorch version of `flash_attn_bwd_bhsd` (same signature, plus
+    `dropout_packed_offsets` as `flash_fwd.flash_attn_fwd_bhsd_ref`'s).
 
     Computes the gradients explicitly from the saved lse: p = exp(s - lse),
     dp = dO V^T, ds = p (dp - delta), with the products in the inputs' dtype
     (so a bf16 call is the low-precision yardstick of the tolerance rule) and
-    the softmax algebra in float32."""
+    the softmax algebra in float32.  With dropout (`_bwd_dkv_kernel:
+    300-314`): dp is dropped and scaled, dV takes the dropped, scaled P,
+    and dS the undropped one."""
     b, h, sq, d = q.shape
     _, hk, sk, _ = k.shape
     _unsupported(q, v.shape[-1], sinks, dropout_p, attention_chunk)
@@ -134,12 +148,20 @@ def flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     # masked: exp(-inf - lse) = 0, also where lse = +inf
     p = torch.exp(s.masked_fill(mask, -torch.inf) - lse.float()[..., None])
     dp = torch.matmul(do, vx.transpose(-1, -2)).float()
+    pd = p
+    if dropout_p > 0.0:
+        keep = dropout_mask(dropout_seed_value(dropout_seed), dropout_p, b, h,
+                            sq, sk, dev, dropout_packed_offsets)
+        rp = dropout_scale(dropout_p)
+        pd = torch.where(keep, p, 0.0) * rp
+        dp = torch.where(keep, dp, 0.0) * rp
+        del keep
     ds = p * (dp - _delta(do, o, dlse)[..., None])
     if softcap > 0.0:
         ds = ds * dcap
     dq = torch.matmul(ds.to(dt), kx).float() * softmax_scale
     dk = torch.matmul(ds.transpose(-1, -2).to(dt), q).float() * softmax_scale
-    dv = torch.matmul(p.transpose(-1, -2).to(dt), do).float()
+    dv = torch.matmul(pd.transpose(-1, -2).to(dt), do).float()
     if g > 1:
         dk = dk.view(b, hk, g, sk, d).sum(2)
         dv = dv.view(b, hk, g, sk, d).sum(2)
@@ -150,18 +172,23 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
                         softmax_scale: float, causal: bool = False,
                         window_size=(-1, -1), softcap: float = 0.0,
                         alibi_slopes=None, dlse=None, sinks=None,
-                        dropout_p: float = 0.0, attention_chunk: int = 0):
+                        dropout_p: float = 0.0, attention_chunk: int = 0,
+                        dropout_seed=None):
     """Backward attention.  do, q, o: (b, h, sq, d); k, v: (b, hk, sk, d);
     lse (and dlse, the cotangent of lse, or None): (b, h, sq) float32;
     seqused_q/k: (b,) int32.  Returns (dq, dk, dv) in the inputs' dtypes.
+    `dropout_p` and `dropout_seed` must be the forward's: the kernels
+    recompute its keep mask.
 
     CPU tensors run the plain version; CUDA tensors launch
     `csrc/flash_bwd.cu` (bf16 or fp16, d in {64, 128}) or raise."""
-    global launches_dq, launches_dkv
+    global launches_dq, launches_dkv, launches_dq_dropout
+    global launches_dkv_dropout
     kwargs = dict(softmax_scale=softmax_scale, causal=causal,
                   window_size=window_size, softcap=softcap,
                   alibi_slopes=alibi_slopes, dlse=dlse, sinks=sinks,
-                  dropout_p=dropout_p, attention_chunk=attention_chunk)
+                  dropout_p=dropout_p, attention_chunk=attention_chunk,
+                  dropout_seed=dropout_seed)
     if q.device.type == "cpu":
         return flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, seqused_q,
                                        seqused_k, **kwargs)
@@ -221,10 +248,13 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
         b, h, hk, sq, sk, d, _DTYPE_CODE[q.dtype], float(softmax_scale),
         int(has_upper), wr, int(has_lower), wl, float(softcap), rows,
         _dq_items_for(q.device, d, -(-sq // STATS_TILE), h, b),
+        *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL)
     launches_dq += 1
     launches_dkv += 1
+    launches_dq_dropout += dropout_p > 0.0
+    launches_dkv_dropout += dropout_p > 0.0
     return dq, dk, dv
 
 
@@ -233,7 +263,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_bwd.argtypes = ([P] * 14 + [I] * 7
-                                  + [F, I, I, I, I, F, I, I, P])
+                                  + [F, I, I, I, I, F, I, I, I, I, F, P])
         lib.flash_bwd.restype = I
         _build.declare_error_string(lib)
         lib._typed = True

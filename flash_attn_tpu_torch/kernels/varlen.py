@@ -20,7 +20,10 @@ CUDA tensors, and run their plain versions `varlen_attn_fwd_ref` /
 `varlen_attn_bwd_ref`, which loop over the sequences, on CPU tensors.
 They read and write the packed streams in place: the JAX wrapper's
 `swapaxes` to (h, total, d) (`:380-382`) is a layout need of the TPU, not
-part of the function.
+part of the function.  Attention dropout hashes its keep mask
+(`flash_fwd.dropout_keep`) at packed-stream coordinates, as the JAX kernels
+do (`:307-314`, `:717-730`): batch 0, the q head, and the row's and the
+key's token indices in the streams.
 
 The TPU's way of skipping tile pairs has no counterpart here: `token_aux`
 (per-token segment words), `build_varlen_schedule`,
@@ -56,7 +59,8 @@ from flash_attn_tpu_torch.kernels.flash_bwd import (STATS_TILE,
                                                     flash_attn_bwd_bhsd_ref,
                                                     varlen_stats_rows)
 from flash_attn_tpu_torch.kernels.flash_fwd import (HEAD_DIMS, _DTYPE_CODE,
-                                                    _aligned,
+                                                    _aligned, check_dropout,
+                                                    dropout_args,
                                                     flash_attn_fwd_bhsd_ref,
                                                     mask_params,
                                                     normalize_window)
@@ -65,10 +69,14 @@ KERNEL_FWD = "flash_fwd"
 KERNEL_BWD = "flash_bwd"
 MAX_SEQLEN = 0xFFFF  # per-sequence limit of the JAX aux words (`:1063`)
 
-# Launches of each CUDA kernel (plain CPU runs do not count).
+# Launches of each CUDA kernel (plain CPU runs do not count), and of their
+# dropout instantiations among them.
 launches_fwd = 0
 launches_dq = 0
 launches_dkv = 0
+launches_fwd_dropout = 0
+launches_dq_dropout = 0
+launches_dkv_dropout = 0
 
 
 def _bounds(cu):
@@ -86,9 +94,11 @@ def _per_seq_slopes(alibi_slopes, h, device):
 def varlen_attn_fwd_ref(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                         max_seqlen_k, *, softmax_scale: float,
                         causal: bool = False, window_size=(-1, -1),
-                        softcap: float = 0.0, alibi_slopes=None):
+                        softcap: float = 0.0, alibi_slopes=None,
+                        dropout_p: float = 0.0, dropout_seed=None):
     """Plain PyTorch version of `varlen_attn_fwd` (same signature): each
-    sequence through the plain dense forward, one at a time."""
+    sequence through the plain dense forward, one at a time, its dropout
+    mask at packed-stream coordinates."""
     total_q, h, d = q.shape
     window = normalize_window(window_size, causal, int(max_seqlen_k))
     slopes = _per_seq_slopes(alibi_slopes, h, q.device)
@@ -104,7 +114,8 @@ def varlen_attn_fwd_ref(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
             q[q0:q1].transpose(0, 1)[None], k[k0:k1].transpose(0, 1)[None],
             v[k0:k1].transpose(0, 1)[None], *used,
             softmax_scale=softmax_scale, causal=causal, window_size=window,
-            softcap=softcap, alibi_slopes=slopes)
+            softcap=softcap, alibi_slopes=slopes, dropout_p=dropout_p,
+            dropout_seed=dropout_seed, dropout_packed_offsets=([q0], [k0]))
         o[q0:q1] = oi[0].transpose(0, 1)
         lse[:, q0:q1] = li[0]
     return o, lse
@@ -113,9 +124,11 @@ def varlen_attn_fwd_ref(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
 def varlen_attn_bwd_ref(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
                         max_seqlen_q, max_seqlen_k, *, softmax_scale: float,
                         causal: bool = False, window_size=(-1, -1),
-                        softcap: float = 0.0, alibi_slopes=None):
+                        softcap: float = 0.0, alibi_slopes=None,
+                        dropout_p: float = 0.0, dropout_seed=None):
     """Plain PyTorch version of `varlen_attn_bwd` (same signature): each
-    sequence through the plain dense backward, one at a time."""
+    sequence through the plain dense backward, one at a time, its dropout
+    mask at packed-stream coordinates."""
     h = q.shape[1]
     window = normalize_window(window_size, causal, int(max_seqlen_k))
     slopes = _per_seq_slopes(alibi_slopes, h, q.device)
@@ -133,7 +146,8 @@ def varlen_attn_bwd_ref(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
             bhsd(do, q0, q1), bhsd(q, q0, q1), bhsd(k, k0, k1),
             bhsd(v, k0, k1), bhsd(o, q0, q1), lse[None, :, q0:q1], *used,
             softmax_scale=softmax_scale, causal=causal, window_size=window,
-            softcap=softcap, alibi_slopes=slopes)
+            softcap=softcap, alibi_slopes=slopes, dropout_p=dropout_p,
+            dropout_seed=dropout_seed, dropout_packed_offsets=([q0], [k0]))
         dq[q0:q1] = g[0][0].transpose(0, 1)
         dk[k0:k1] = g[1][0].transpose(0, 1)
         dv[k0:k1] = g[2][0].transpose(0, 1)
@@ -176,20 +190,24 @@ def _cuda_common(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_k, causal,
 def varlen_attn_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                     max_seqlen_k, *, softmax_scale: float,
                     causal: bool = False, window_size=(-1, -1),
-                    softcap: float = 0.0, alibi_slopes=None):
+                    softcap: float = 0.0, alibi_slopes=None,
+                    dropout_p: float = 0.0, dropout_seed=None):
     """Packed varlen forward.  q: (total_q, h, d); k, v: (total_k, hk, d);
     cu_seqlens_q/k: (b + 1,) int32; max_seqlen_q/k: the longest sequence
     (Python ints); alibi_slopes: (h,) or None.  A one-sided window is
     normalised to max_seqlen_k on its open side.  Returns o (total_q, h, d)
-    in q's dtype and lse (h, total_q) float32.
+    in q's dtype and lse (h, total_q) float32.  Dropout hashes its keep
+    mask at packed-stream coordinates (`varlen_sched.py:307-314`): batch 0,
+    q head, the row's and the key's token index in the streams.
 
     CPU tensors run the plain version; CUDA tensors launch
     `csrc/flash_fwd.cu`'s varlen mode (bf16 or fp16, d in {64, 128}) or
     raise."""
-    global launches_fwd
+    global launches_fwd, launches_fwd_dropout
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap,
-              alibi_slopes=alibi_slopes)
+              alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+              dropout_seed=dropout_seed)
     if q.device.type == "cpu":
         return varlen_attn_fwd_ref(q, k, v, cu_seqlens_q, cu_seqlens_k,
                                    max_seqlen_q, max_seqlen_k, **kw)
@@ -213,29 +231,34 @@ def varlen_attn_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
         b, h, k.shape[1], int(max_seqlen_q), int(max_seqlen_k), total_q,
         k.shape[0], d, _DTYPE_CODE[q.dtype], float(softmax_scale),
         int(has_upper), wr, int(has_lower), wl, float(softcap),
+        *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL_FWD)
     launches_fwd += 1
+    launches_fwd_dropout += dropout_p > 0.0
     return o, lse
 
 
 def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
                     max_seqlen_q, max_seqlen_k, *, softmax_scale: float,
                     causal: bool = False, window_size=(-1, -1),
-                    softcap: float = 0.0, alibi_slopes=None):
+                    softcap: float = 0.0, alibi_slopes=None,
+                    dropout_p: float = 0.0, dropout_seed=None):
     """Packed varlen backward.  do, o as q (total_q, h, d); lse (h, total_q)
-    float32; the rest as `varlen_attn_fwd`.  Returns (dq, dk, dv) in the
-    inputs' dtypes, dk and dv reduced over each GQA group.  Rows with
-    lse = +inf get dq = 0, keys no query sees get dk = dv = 0, and tokens
-    outside every sequence get 0.
+    float32; the rest as `varlen_attn_fwd`, dropout as the forward's.
+    Returns (dq, dk, dv) in the inputs' dtypes, dk and dv reduced over each
+    GQA group.  Rows with lse = +inf get dq = 0, keys no query sees get dk =
+    dv = 0, and tokens outside every sequence get 0.
 
     CPU tensors run the plain version; CUDA tensors launch
     `csrc/flash_bwd.cu`'s varlen mode, whose dQ kernel also forms the dO.O
     preprocess delta = rowsum(dO * O), or raise."""
-    global launches_dq, launches_dkv
+    global launches_dq, launches_dkv, launches_dq_dropout
+    global launches_dkv_dropout
     kw = dict(softmax_scale=softmax_scale, causal=causal,
               window_size=window_size, softcap=softcap,
-              alibi_slopes=alibi_slopes)
+              alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+              dropout_seed=dropout_seed)
     if q.device.type == "cpu":
         return varlen_attn_bwd_ref(do, q, k, v, o, lse, cu_seqlens_q,
                                    cu_seqlens_k, max_seqlen_q, max_seqlen_k,
@@ -270,25 +293,30 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
         k.shape[0], d, _DTYPE_CODE[q.dtype], float(softmax_scale),
         int(has_upper), wr, int(has_lower), wl, float(softcap), rows,
         _dq_items_for(q.device, d, -(-int(max_seqlen_q) // STATS_TILE), h, b),
+        *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL_BWD)
     launches_dq += 1
     launches_dkv += 1
+    launches_dq_dropout += dropout_p > 0.0
+    launches_dkv_dropout += dropout_p > 0.0
     return dq, dk, dv
 
 
 class FlashAttnVarlenFunc(torch.autograd.Function):
     """Packed varlen attention with the varlen backward as its gradient (the
     `custom_vjp` `_sched_core`, `varlen_sched.py:908`).  Returns o; saves
-    q, k, v, o and lse."""
+    q, k, v, o and lse, and the dropout's p and seed, from which the
+    backward recomputes the keep mask."""
 
     @staticmethod
     def forward(ctx, q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                 max_seqlen_k, softmax_scale, causal, window_size, softcap,
-                alibi_slopes):
+                alibi_slopes, dropout_p=0.0, dropout_seed=None):
         kw = dict(softmax_scale=softmax_scale, causal=causal,
                   window_size=window_size, softcap=softcap,
-                  alibi_slopes=alibi_slopes)
+                  alibi_slopes=alibi_slopes, dropout_p=dropout_p,
+                  dropout_seed=dropout_seed)
         o, lse = varlen_attn_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k,
                                  max_seqlen_q, max_seqlen_k, **kw)
         ctx.save_for_backward(q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k)
@@ -301,7 +329,7 @@ class FlashAttnVarlenFunc(torch.autograd.Function):
         q, k, v, o, lse, cu_q, cu_k = ctx.saved_tensors
         dq, dk, dv = varlen_attn_bwd(do, q, k, v, o, lse, cu_q, cu_k,
                                      *ctx.max_seqlens, **ctx.kw)
-        return (dq, dk, dv) + (None,) * 9
+        return (dq, dk, dv) + (None,) * 11
 
 
 def flash_attn_varlen_sched_func(q, k, v, cu_seqlens_q, cu_seqlens_k,
@@ -318,10 +346,10 @@ def flash_attn_varlen_sched_func(q, k, v, cu_seqlens_q, cu_seqlens_k,
     to 65535, max_seqlen_q/k required, a one-sided window normalised to
     max_seqlen_k (not to total_k).  Whether cu_seqlens_q is cu_seqlens_k
     (`same_stream`, `:1068`) changes the TPU's pruning only, and nothing
-    here.  `block_q/k/h` are ignored; dropout is not ported."""
-    del dropout_seed, block_q, block_k, block_h
-    if dropout_p > 0.0:
-        raise NotImplementedError("varlen attention dropout is not ported yet")
+    here.  `block_q/k/h` are ignored.  Dropout (`dropout_seed` None is 0)
+    hashes packed-stream positions."""
+    del block_q, block_k, block_h
+    check_dropout(dropout_p)
     total_q, h, d = q.shape
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
@@ -340,13 +368,15 @@ def flash_attn_varlen_sched_func(q, k, v, cu_seqlens_q, cu_seqlens_k,
               .reshape(h))
     return FlashAttnVarlenFunc.apply(
         q, k, v, cu_q, cu_k, int(max_seqlen_q), int(max_seqlen_k),
-        float(softmax_scale), bool(causal), window, float(softcap), slopes)
+        float(softmax_scale), bool(causal), window, float(softcap), slopes,
+        float(dropout_p), dropout_seed)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # `flash_fwd_varlen`'s parameters, in order: the dense entry point's with
 # total_q and total_k (the K/V tensor maps' rows) after the max lengths.
-VARLEN_FWD_ARGTYPES = (_P,) * 8 + (_I,) * 9 + (_F, _I, _I, _I, _I, _F, _P)
+VARLEN_FWD_ARGTYPES = ((_P,) * 8 + (_I,) * 9 + (_F, _I, _I, _I, _I, _F)
+                       + (_I, _I, _F, _P))
 
 
 def _lib_fwd():
@@ -364,7 +394,8 @@ def _lib_bwd():
     if not getattr(lib, "_typed_varlen", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_bwd_varlen.argtypes = ([P] * 13 + [I] * 9
-                                         + [F, I, I, I, I, F, I, I, P])
+                                         + [F, I, I, I, I, F, I, I, I, I,
+                                            F, P])
         lib.flash_bwd_varlen.restype = I
         _build.declare_error_string(lib)
         lib._typed_varlen = True

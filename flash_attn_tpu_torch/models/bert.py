@@ -13,10 +13,14 @@ gives the mask's lengths to the dense kernels as per-batch `seqused`.
 `BertConfig` carries the attribute names of `transformers.BertConfig`, with
 the defaults of `bert-base-uncased`'s config.json.  `hidden_act="gelu"` is
 the tanh approximation, as the JAX package's `ACT2FN` maps it
-(`modules/mlp.py:23-26`); Hugging Face's BERT uses the erf form.  Dropout is
-not ported: the forward is the JAX `deterministic=True` path, and
-`deterministic=False` with a dropout probability above 0 raises
-NotImplementedError rather than run without the dropout.
+(`modules/mlp.py:23-26`); Hugging Face's BERT uses the erf form.  With
+`deterministic=False` the attention dropout (`attention_probs_dropout_prob`)
+runs in the attention kernels on the unpadded path (the packed varlen
+kernels, seed 0 in every layer, as JAX's MHA passes no seed); the padded
+path's `key_padding_mask` branch takes none, as in JAX.  The hidden
+dropout (`hidden_dropout_prob`, drawn with `jax.random` in JAX) is not
+ported: `deterministic=False` with it above 0 raises NotImplementedError
+rather than run without it.
 """
 
 from __future__ import annotations
@@ -58,15 +62,15 @@ def _act(config):
 
 
 def _check_deterministic(config, deterministic):
-    """JAX's `deterministic=False` applies the configured dropout, which the
-    port does not have yet: raise where it would change the result."""
-    probs = (config.hidden_dropout_prob, config.attention_probs_dropout_prob)
-    if not deterministic and max(probs) > 0:
+    """JAX's `deterministic=False` applies the configured dropout; the
+    port has the attention dropout but not the hidden one yet: raise where
+    it would change the result."""
+    if not deterministic and config.hidden_dropout_prob > 0:
         raise NotImplementedError(
-            "BERT dropout (hidden_dropout_prob, attention_probs_dropout_prob "
-            f"= {probs}) is not ported yet (dropout through the model, "
-            "ROADMAP.md Queue 1.3): pass deterministic=True or set both "
-            "probabilities to 0")
+            f"BERT hidden dropout (hidden_dropout_prob = "
+            f"{config.hidden_dropout_prob}) is not ported yet (dropout "
+            "through the model, ROADMAP.md Queue 1.3): pass "
+            "deterministic=True or set it to 0")
 
 
 class BertEmbeddings(nn.Module):
@@ -111,7 +115,8 @@ class BertModel(nn.Module):
         self.layers = nn.ModuleList(
             Block(c.hidden_size,
                   MHA(c.hidden_size, c.num_attention_heads, causal=False,
-                      layer_idx=i, **kw),
+                      layer_idx=i, dropout=c.attention_probs_dropout_prob,
+                      **kw),
                   Mlp(c.hidden_size, c.intermediate_size,
                       activation=_act(c), **kw),
                   prenorm=False, norm_eps=c.layer_norm_eps, **kw)
@@ -130,8 +135,9 @@ class BertModel(nn.Module):
         """input_ids, attention_mask (1 = token), token_type_ids: (b, s).
         Returns (hidden (b, s, hidden), pooled (b, hidden) or None).  With
         `unpad_varlen` and a mask the encoder runs on the packed tokens and
-        the padded rows of the output are 0.  `deterministic=False` raises
-        NotImplementedError while a dropout probability is above 0."""
+        the padded rows of the output are 0.  `deterministic=False` runs the
+        attention dropout (the unpadded path only, as in JAX) and raises
+        NotImplementedError while `hidden_dropout_prob` is above 0."""
         _check_deterministic(self.config, deterministic)
         b, s = input_ids.shape
         h = self.embeddings(input_ids, token_type_ids, position_ids)
@@ -140,11 +146,13 @@ class BertModel(nn.Module):
             hp, indices, cu_seqlens, max_s, _ = unpad_input(h, mask)
             hp = hp[None]  # (1, total_nnz, hidden): the packed stream
             for layer in self.layers:
-                hp, _ = layer(hp, cu_seqlens=cu_seqlens, max_seqlen=max_s)
+                hp, _ = layer(hp, cu_seqlens=cu_seqlens, max_seqlen=max_s,
+                              deterministic=deterministic)
             h = pad_input(hp[0], indices, b, s)
         else:
             for layer in self.layers:
-                h, _ = layer(h, key_padding_mask=mask)
+                h, _ = layer(h, key_padding_mask=mask,
+                             deterministic=deterministic)
         pooled = None
         if self.pooler_dense is not None:
             pooled = torch.tanh(self.pooler_dense(h[:, 0]))

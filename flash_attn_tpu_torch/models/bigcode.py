@@ -18,7 +18,9 @@ def bigcode_config_to_gpt2_config(bigcode_config) -> GPTConfig:
         n_head_kv=1 if c.multi_query else c.n_head, n_inner=c.n_inner,
         activation_function=c.activation_function,
         layer_norm_epsilon=c.layer_norm_epsilon,
-        tie_word_embeddings=True)
+        tie_word_embeddings=True,
+        **{k: getattr(c, k, 0.0) for k in ("resid_pdrop", "embd_pdrop",
+                                           "attn_pdrop")})
 
 
 def remap_state_dict_hf_bigcode(state_dict, config: GPTConfig):

@@ -34,7 +34,9 @@ def falcon_config_to_gpt2_config(falcon_config) -> GPTConfig:
         rotary_emb_fraction=1.0, rotary_emb_interleaved=False,
         tie_word_embeddings=True, qkv_proj_bias=bias, out_proj_bias=bias,
         mlp_fc1_bias=bias, mlp_fc2_bias=bias, parallel_block=c.parallel_attn,
-        parallel_block_tied_norm=not new_arch)
+        parallel_block_tied_norm=not new_arch,
+        resid_pdrop=getattr(c, "hidden_dropout", 0.0),
+        attn_pdrop=getattr(c, "attention_dropout", 0.0))
 
 
 def remap_state_dict_hf_falcon(state_dict, config: GPTConfig):

@@ -10,6 +10,14 @@ the same way: rotary (full or partial, interleaved or rotate-half), grouped
 and multi-query KV heads, RMSNorm, and parallel blocks with tied or untied
 norms.  Post-norm, muP and tensor parallelism raise `NotImplementedError`.
 
+Dropout follows JAX's `deterministic` argument (default True): with
+`deterministic=False` each layer's attention dropout (`attn_pdrop`) runs in
+the attention kernels, whose keep mask is a hash of position with seed 0,
+the same in every layer and step as in JAX.  The residual and embedding
+dropouts (`resid_pdrop`, `embd_pdrop`, drawn with `jax.random` in JAX) are
+not ported: `deterministic=False` with either above 0 raises
+`NotImplementedError`.
+
 `remat_blocks` rematerialises each block in the backward (`create_block:
 138-153`, `nn.remat`): `remat_policy="none"` recomputes the whole block
 (`torch.utils.checkpoint`), "dots" and "dots_no_batch" keep the outputs of
@@ -75,6 +83,11 @@ class GPTConfig:
     use_alibi: bool = False
     no_abs_pos_emb: bool = False
     multiple_of: int = 128
+    # dropout probabilities, under the Hugging Face names JAX reads
+    # (`create_mixer_cls:57`, `create_block:125-130`)
+    attn_pdrop: float = 0.0
+    resid_pdrop: float = 0.0
+    embd_pdrop: float = 0.0
     remat_blocks: bool = False
     remat_policy: str = "none"  # "none" | "dots" | "dots_no_batch"
     # Not ported: any other value raises NotImplementedError.
@@ -132,7 +145,8 @@ REMAT_SAVED_OPS = {
 def remat_block(block, policy: str, *args, **kwargs):
     """block(*args, **kwargs) under activation checkpointing with the
     policy's saved products.  No random state is kept: the blocks draw none
-    (dropout is not ported)."""
+    (the attention dropout's keep mask is a hash of position, which the
+    recompute reproduces)."""
     saved = REMAT_SAVED_OPS[policy]
     kw = dict(use_reentrant=False, preserve_rng_state=False)
     if saved:
@@ -161,8 +175,8 @@ def create_mixer(config: GPTConfig, layer_idx: int, device, dtype,
                rotary_emb_scale_base=config.rotary_emb_scale_base,
                rotary_emb_interleaved=config.rotary_emb_interleaved,
                window_size=config.window_size, softcap=config.attn_softcap,
-               use_alibi=config.use_alibi, rotary_emb=rotary_emb,
-               device=device, dtype=dtype)
+               use_alibi=config.use_alibi, dropout=config.attn_pdrop,
+               rotary_emb=rotary_emb, device=device, dtype=dtype)
 
 
 def create_mlp(config: GPTConfig, device, dtype):
@@ -222,14 +236,24 @@ class GPTModel(nn.Module):
         self.ln_f = _Norm(config.n_embd, config.layer_norm_epsilon,
                           is_rms=config.rms_norm, device=device, dtype=dtype)
 
-    def forward(self, input_ids, position_ids=None, inference_params=None):
+    def forward(self, input_ids, position_ids=None, inference_params=None,
+                deterministic: bool = True):
+        """`deterministic=False` runs the attention dropout (a cache never
+        does) and raises `NotImplementedError` while `resid_pdrop` or
+        `embd_pdrop` is above 0."""
+        c = self.config
+        if not deterministic and max(c.resid_pdrop, c.embd_pdrop) > 0:
+            raise NotImplementedError(
+                f"GPT residual / embedding dropout (resid_pdrop "
+                f"{c.resid_pdrop}, embd_pdrop {c.embd_pdrop}) is not ported "
+                "yet: only attn_pdrop runs with deterministic=False")
         s = input_ids.shape[1]
         if position_ids is None and inference_params is not None:
             lengths = inference_params.lengths_per_sample
             position_ids = lengths[:, None] + torch.arange(
                 s, device=input_ids.device, dtype=lengths.dtype)[None, :]
         hidden_states = self.embeddings(input_ids, position_ids)
-        kw = {}
+        kw = dict(deterministic=deterministic)
         if self.rotary_emb is not None:
             kw["rotary"] = rotary_factors(self.rotary_emb, s, inference_params)
         parallel = self.config.parallel_block
@@ -288,9 +312,10 @@ class GPTLMHeadModel(nn.Module):
         return init_weights(self, generator, std)
 
     def forward(self, input_ids, position_ids=None, inference_params=None,
-                num_last_tokens: int = 0):
+                num_last_tokens: int = 0, deterministic: bool = True):
         hidden_states = self.transformer(input_ids, position_ids,
-                                         inference_params=inference_params)
+                                         inference_params=inference_params,
+                                         deterministic=deterministic)
         if num_last_tokens > 0:
             hidden_states = hidden_states[:, -num_last_tokens:]
         if self.lm_head is None:

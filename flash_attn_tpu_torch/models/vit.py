@@ -6,10 +6,12 @@ timm's ViT on the port's blocks: `PatchEmbed` over NHWC images, the class
 token (concatenated after the position add under `no_embed_class`), pre-norm
 `Block`s of a non-causal `MHA` (the dense attention kernels) and an erf-GELU
 `Mlp`, then the final norm on the sequence, or on the pooled feature
-(`fc_norm`, the default of `global_pool="avg"`), and the head.  Dropout and
-stochastic depth are not ported: a rate above 0 raises
-`NotImplementedError`, and the model computes the JAX `deterministic=True`
-path.
+(`fc_norm`, the default of `global_pool="avg"`), and the head.  The
+attention dropout (`attn_drop_rate`) runs in the dense non-causal kernels
+under `deterministic=False` (JAX's argument, default True; seed 0 in every
+block, as JAX's MHA passes no seed).  The position / residual dropout and
+stochastic depth (`drop_rate`, `drop_path_rate`, drawn with `jax.random` in
+JAX) are not ported: a rate above 0 raises `NotImplementedError`.
 
 `state_dict_from_jax_params` carries the JAX model's parameters across;
 `remap_state_dict_hf_vit` reads a Hugging Face `ViTModel` /
@@ -47,8 +49,7 @@ class VisionTransformer(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         device = default_device(device)
-        rates = dict(drop_rate=drop_rate, attn_drop_rate=attn_drop_rate,
-                     drop_path_rate=drop_path_rate)
+        rates = dict(drop_rate=drop_rate, drop_path_rate=drop_path_rate)
         if any(v > 0 for v in rates.values()):
             raise NotImplementedError(
                 f"dropout is not ported yet: {rates}")
@@ -66,7 +67,7 @@ class VisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim,
                   MHA(embed_dim, num_heads, causal=False, layer_idx=i,
-                      device=device, dtype=dtype),
+                      dropout=attn_drop_rate, device=device, dtype=dtype),
                   Mlp(embed_dim, hidden, activation=gelu_exact,
                       device=device, dtype=dtype),
                   device=device, dtype=dtype)
@@ -105,11 +106,11 @@ class VisionTransformer(nn.Module):
             return torch.cat([cls, x + pe], dim=1)
         return torch.cat([cls, x], dim=1) + pe
 
-    def forward_features(self, x):
+    def forward_features(self, x, deterministic: bool = True):
         x = self._pos_embed(self.patch_embed(x))
         residual = None
         for blk in self.blocks:
-            x, residual = blk(x, residual)
+            x, residual = blk(x, residual, deterministic=deterministic)
         x = x.float() + residual.float()
         return x if self.norm is None else self.norm(x)
 
@@ -124,9 +125,12 @@ class VisionTransformer(nn.Module):
             return feat
         return self.head(feat)
 
-    def forward(self, x, pre_logits: bool = False):
-        return self.forward_head(self.forward_features(x),
-                                 pre_logits=pre_logits)
+    def forward(self, x, pre_logits: bool = False,
+                deterministic: bool = True):
+        """`deterministic=False` runs the attention dropout."""
+        return self.forward_head(
+            self.forward_features(x, deterministic=deterministic),
+            pre_logits=pre_logits)
 
 
 def vit_base_patch16_224(**kwargs):

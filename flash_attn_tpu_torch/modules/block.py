@@ -4,10 +4,10 @@
 
 Both kinds pass their mixer keyword arguments (`key_padding_mask`,
 `cu_seqlens`, `max_seqlen`) through to the mixer, as JAX's `**mixer_kwargs`
-does.  Dropout and stochastic depth are not ported: the blocks compute the
-JAX `deterministic=True` path (the trainer's GPT-2 runs with every dropout
-at 0, as the JAX `ModelConfig.to_gpt2_config` sets it, and BERT is driven
-in evaluation mode).
+does, and `deterministic` with them: the mixer's attention dropout runs
+when it is False.  The blocks' own residual dropouts and stochastic depth
+(`resid_dropout1/2`, `drop_path1/2`, drawn with `jax.random` in JAX) are not
+ported: the models that set them raise on `deterministic=False`.
 """
 
 from __future__ import annotations
@@ -60,7 +60,8 @@ class Block(nn.Module):
         self.mlp = mlp
 
     def forward(self, hidden_states, residual=None, inference_params=None,
-                **mixer_kwargs):
+                deterministic: bool = True, **mixer_kwargs):
+        mixer_kwargs["deterministic"] = deterministic
         if not self.prenorm:
             m = self.mixer(hidden_states, inference_params=inference_params,
                            **mixer_kwargs)
@@ -103,7 +104,9 @@ class ParallelBlock(nn.Module):
         self.mlp = mlp
 
     def forward(self, hidden_states1, hidden_states2=None, residual=None,
-                inference_params=None, **mixer_kwargs):
+                inference_params=None, deterministic: bool = True,
+                **mixer_kwargs):
+        mixer_kwargs["deterministic"] = deterministic
         res_dtype = (torch.float32 if self.residual_in_fp32
                      else hidden_states1.dtype)
         acc = hidden_states1.to(res_dtype)

@@ -10,6 +10,13 @@ per-batch `seqused` lengths and its padded rows are zeroed (`:251-266`).
 With a cache, attention runs through the forward-only prefill and decode
 kernels.
 
+Attention dropout (`dropout`) follows JAX's `deterministic` argument
+(default True), not `nn.Module.training`: with `deterministic=False` the
+packed and the dense branch pass `dropout_p=dropout` to the kernels, with
+no seed (seed 0, as JAX's MHA passes none: every layer and step draws the
+same keep mask, a pure function of position).  The `key_padding_mask`
+branch passes none, as JAX's does (`:251-266`), and nor does a cache.
+
 Rotary (`rotary_emb_dim > 0`) rotates q and k before the branches, as JAX
 does: without a cache at positions 0 .. s - 1 over tables of s rows (so a
 packed (1, total) stream is rotated by stream position, not per sequence,
@@ -98,7 +105,8 @@ class MHA(nn.Module):
                  rotary_emb_base: float = 10000.0,
                  rotary_emb_scale_base: Optional[float] = None,
                  rotary_emb_interleaved: bool = False, window_size=(-1, -1),
-                 softcap: float = 0.0, use_alibi: bool = False, *,
+                 softcap: float = 0.0, use_alibi: bool = False,
+                 dropout: float = 0.0, *,
                  rotary_emb: Optional[RotaryEmbedding] = None, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -118,6 +126,7 @@ class MHA(nn.Module):
         self.layer_idx = layer_idx
         self.window_size = tuple(window_size)
         self.softcap = softcap
+        self.dropout = dropout
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
         self.Wqkv = nn.Linear(embed_dim, (h + 2 * hk) * d, bias=qkv_proj_bias,
                               device=device, dtype=dtype)
@@ -135,12 +144,14 @@ class MHA(nn.Module):
 
     def forward(self, x, inference_params: Optional[InferenceParams] = None,
                 key_padding_mask=None, cu_seqlens=None, max_seqlen=None,
-                rotary=None):
+                rotary=None, deterministic: bool = True):
         """x: (b, s, embed_dim), or (1, total, embed_dim) packed with
         `cu_seqlens` (b + 1,) int32 and `max_seqlen`; key_padding_mask:
         (b, s) bool prefix mask, True = valid token.  A cache ignores both,
         as in JAX.  `rotary`: this call's `rotary_factors`, computed here
-        when None."""
+        when None.  `deterministic=False` applies the attention dropout
+        (see the module's note)."""
+        dropout_p = 0.0 if deterministic else self.dropout
         b, s, _ = x.shape
         h, hk, d = self.num_heads, self.num_heads_kv, self.head_dim
         qkv = self.Wqkv(x)
@@ -160,15 +171,17 @@ class MHA(nn.Module):
             ctx = flash_attn_varlen_func(
                 q.reshape(b * s, h, d), k.reshape(b * s, hk, d),
                 v.reshape(b * s, hk, d), cu_seqlens, cu_seqlens, max_seqlen,
-                max_seqlen, causal=self.causal,
+                max_seqlen, dropout_p=dropout_p, causal=self.causal,
                 **self._kernel_kwargs(1)).reshape(b, s, h, d)
         elif inference_params is None:
-            lengths = (None if key_padding_mask is None
-                       else key_padding_mask.sum(-1, dtype=torch.int32))
+            lengths = None
+            if key_padding_mask is not None:  # no dropout here, as in JAX
+                lengths = key_padding_mask.sum(-1, dtype=torch.int32)
+                dropout_p = 0.0
             o, _ = _attn_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=self.causal,
                               seqused_q=lengths, seqused_k=lengths,
-                              **self._kernel_kwargs(b))
+                              dropout_p=dropout_p, **self._kernel_kwargs(b))
             ctx = o.transpose(1, 2)
             if key_padding_mask is not None:
                 ctx = torch.where(key_padding_mask[:, :, None, None].bool(),

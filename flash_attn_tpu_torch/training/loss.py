@@ -30,11 +30,13 @@ def lm_head_weight(model):
 
 def chunked_lm_loss(model, batch, chunk_tokens: int = 16384,
                     label_smoothing: float = 0.0,
-                    lse_square_scale: float = 0.0, ignore_index: int = -100):
+                    lse_square_scale: float = 0.0, ignore_index: int = -100,
+                    deterministic: bool = True):
     """Mean next-token loss of `batch` (b, s+1) token ids, over the labels
-    that are not `ignore_index`."""
+    that are not `ignore_index`.  `deterministic=False` runs the model's
+    attention dropout (`models.gpt.GPTModel.forward`)."""
     inputs, targets = batch[:, :-1], batch[:, 1:]
-    hidden = model.transformer(inputs)
+    hidden = model.transformer(inputs, deterministic=deterministic)
     b, s, d = hidden.shape
     n = b * s
     h2 = hidden.reshape(n, d)

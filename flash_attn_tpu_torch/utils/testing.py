@@ -162,3 +162,59 @@ def dequantise_cache(cache, descale, block_table=None, cache_batch_idx=None):
             idx = i if cache_batch_idx is None else int(cache_batch_idx[i])
         out[idx] = cache[idx].float() * descale[i].float().view(hk, 1)
     return out
+
+
+def dropout_probe_dense(b, h, d, dropout_p, dropout_seed, device):
+    """The dense CUDA kernels' own dropout keep masks, read through their
+    outputs (the JAX package's tests read the TPU kernels' the same way,
+    `tests/kernels/test_flash_attn.py:411`): q = k = 0 gives every row the
+    uniform P = 1 / d over d keys, so with v = identity the forward's o[i,
+    j] = keep[i, j] P / (1 - p), and with dO = identity the dK/dV kernel's
+    dV[k, j] = keep[j, k] P / (1 - p).  The dQ kernel's mask shows only
+    through its gradient.  Returns (the forward's keep, the dK/dV kernel's,
+    `kernels.flash_fwd.dropout_mask`'s), each (b, h, d, d) bool on
+    `device`."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    zeros = torch.zeros(b, h, d, d, dtype=torch.bfloat16, device=device)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=device).expand(
+        b, h, d, d).contiguous()
+    lens = torch.full((b,), d, dtype=torch.int32, device=device)
+    kw = dict(softmax_scale=d ** -0.5, dropout_p=dropout_p,
+              dropout_seed=dropout_seed)
+    o, lse = flash_fwd.flash_attn_fwd_bhsd(zeros, zeros, eye, lens, lens, **kw)
+    dv = flash_bwd.flash_attn_bwd_bhsd(eye, zeros, zeros, eye, o, lse, lens,
+                                       lens, **kw)[2]
+    want = flash_fwd.dropout_mask(flash_fwd.dropout_seed_value(dropout_seed),
+                                  dropout_p, b, h, d, d, device)
+    return o != 0, (dv != 0).transpose(-1, -2), want
+
+
+def dropout_probe_varlen(lead, h, d, dropout_p, dropout_seed, device):
+    """`dropout_probe_dense` for the packed varlen kernels: sequences of the
+    lengths `lead` (q = k = v = dO = 0), then the probe sequence of d
+    tokens, whose packed coordinates start at sum(lead).  Returns the probe
+    sequence's masks, each (h, d, d) bool."""
+    from flash_attn_tpu_torch.kernels import flash_fwd, varlen
+
+    lens = list(lead) + [d]
+    start, total = sum(lead), sum(lens)
+    cu = torch.tensor([0] + lens, device=device).cumsum(0).int()
+    zeros = torch.zeros(total, h, d, dtype=torch.bfloat16, device=device)
+    eye = zeros.clone()
+    eye[start:] = torch.eye(d, dtype=torch.bfloat16, device=device)[:, None]
+    kw = dict(softmax_scale=d ** -0.5, dropout_p=dropout_p,
+              dropout_seed=dropout_seed)
+    o, lse = varlen.varlen_attn_fwd(zeros, zeros, eye, cu, cu, max(lens),
+                                    max(lens), **kw)
+    dv = varlen.varlen_attn_bwd(eye, zeros, zeros, eye, o, lse, cu, cu,
+                                max(lens), max(lens), **kw)[2]
+    pos = start + torch.arange(d, device=device)
+    want = flash_fwd.dropout_keep(
+        flash_fwd.dropout_seed_value(dropout_seed), 0,
+        torch.arange(h, device=device).view(h, 1, 1), pos.view(1, d, 1),
+        pos.view(1, 1, d), dropout_p)
+    # o[start + i, head, j] -> (head, i, j); dV[start + k, head, j] ->
+    # (head, j, k)
+    return ((o[start:] != 0).permute(1, 0, 2),
+            (dv[start:] != 0).permute(1, 2, 0), want)

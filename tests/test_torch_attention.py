@@ -211,12 +211,16 @@ def test_check_close_rule():
         port_testing.check_close(torch.full((4,), 3e-3), ref, pt)
 
 
-@pytest.mark.parametrize("kw", [dict(dropout_p=0.1), dict(sinks=torch.zeros(4)),
+@pytest.mark.parametrize("kw", [dict(dropout_p=1.0), dict(sinks=torch.zeros(4)),
                                 dict(attention_chunk=8)])
 def test_fwd_unsupported_options_raise(kw):
+    """Options not ported raise NotImplementedError; dropout is ported
+    (`tests/test_torch_dropout.py`), and a p outside [0, 1) raises
+    ValueError, as in JAX."""
     c = CASES["gqa"]
     q, k, v, _ = make_inputs(c)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if "dropout_p" in kw
+                       else NotImplementedError):
         port_fwd.flash_attn_fwd_bhsd(
             torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
             [24, 24], [64, 64], softmax_scale=0.1, **kw)

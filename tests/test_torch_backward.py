@@ -191,24 +191,29 @@ def test_function_matches_autograd_of_plain_forward(probs):
         torch.testing.assert_close(g_func, g_ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(dropout_p=0.1),
+@pytest.mark.parametrize("kw", [dict(dropout_p=1.0),
                                 dict(sinks=torch.zeros(4)),
                                 dict(attention_chunk=8)])
 def test_bwd_unsupported_options_raise(kw):
+    """As `test_fwd_unsupported_options_raise`: dropout is ported, and a p
+    outside [0, 1) raises ValueError."""
     q = torch.zeros(1, 4, 8, 32)
     lse = torch.zeros(1, 4, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if "dropout_p" in kw
+                       else NotImplementedError):
         port_bwd.flash_attn_bwd_bhsd(q, q, q, q, q, lse, [8], [8],
                                      softmax_scale=0.1, **kw)
 
 
 @pytest.mark.parametrize("kw", [
-    dict(dropout_p=0.1), dict(qv=torch.zeros(1, 8, 4, 32)),
+    dict(dropout_p=1.0), dict(qv=torch.zeros(1, 8, 4, 32)),
     dict(sinks=torch.zeros(4)), dict(q_descale=torch.ones(1, 4)),
     dict(attention_chunk=4)])
 def test_flash_attn_func_unsupported_options_raise(kw):
+    """Dropout is ported; a p outside [0, 1) raises ValueError."""
     q = torch.zeros(1, 8, 4, 32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if "dropout_p" in kw
+                       else NotImplementedError):
         flash_attn_func(q, q, q, **kw)
 
 

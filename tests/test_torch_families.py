@@ -408,9 +408,13 @@ def test_vit_factories_and_dropout_raise():
     assert vit.vit_base_patch16_224(device="meta").blocks[0].mixer.\
         num_heads == 12
     assert len(vit.vit_large_patch16_224(device="meta").blocks) == 24
-    for rate in ("drop_rate", "attn_drop_rate", "drop_path_rate"):
+    # the attention dropout is ported (`tests/test_torch_dropout.py`); the
+    # position / residual dropout and stochastic depth are not
+    for rate in ("drop_rate", "drop_path_rate"):
         with pytest.raises(NotImplementedError):
             vit.VisionTransformer(**VIT, **{rate: 0.1}, device="cpu")
+    m = vit.VisionTransformer(**VIT, attn_drop_rate=0.1, device="cpu")
+    assert m.blocks[0].mixer.dropout == 0.1
 
 
 @pytest.fixture(scope="module")

@@ -1405,3 +1405,122 @@ def test_varlen_bisect_empty_levels_launch(cuda):
     vb.launch_empty_ctas(qi, qi, fl, q, q, q)
     torch.cuda.synchronize()
     assert vb.launches == before + 13
+
+
+DROPOUT_P, DROPOUT_SEED = 0.1, 1234567
+
+
+@pytest.mark.parametrize("layout", ["dense", "varlen"])
+def test_dropout_kernels_keep_mask_is_dropout_keep(cuda, layout):
+    """The kernels' own keep masks (the forward's through o, the dK/dV
+    kernel's through dV; `utils.testing.dropout_probe_*`) equal the plain
+    `dropout_keep` bit for bit, the varlen probe at packed coordinates
+    past 2^15; the kept share is 1 - p within 0.005."""
+    from flash_attn_tpu_torch.utils import testing
+
+    if layout == "dense":
+        fwd, dkv, want = testing.dropout_probe_dense(
+            4, 12, 64, DROPOUT_P, DROPOUT_SEED, cuda)
+    else:
+        fwd, dkv, want = testing.dropout_probe_varlen(
+            [20000, 20000], 12, 64, DROPOUT_P, DROPOUT_SEED, cuda)
+    assert torch.equal(fwd, want)
+    assert torch.equal(dkv, want)
+    assert abs(want.float().mean().item() - (1 - DROPOUT_P)) < 0.005
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", ["causal_gqa", "window_softcap_alibi"])
+def test_dropout_kernels_match_plain(cuda, dtype, d, case):
+    """The dropout forward and (dq, dk, dv) against the plain version with
+    the same keep mask; the dropout instantiations launched (and counted
+    apart); the backward bitwise repeatable."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, sq, sk = 2, 200, 300
+    h, hk = (8, 2) if case == "causal_gqa" else (4, 4)
+    kw = dict(softmax_scale=d ** -0.5, causal=case == "causal_gqa",
+              dropout_p=0.17, dropout_seed=-3)
+    if case == "window_softcap_alibi":
+        kw.update(window_size=(48, 8), softcap=30.0,
+                  alibi_slopes=torch.rand(b, h, generator=gen, device=cuda))
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, hk, sk, d, generator=gen, device=cuda).to(dtype)
+    do = torch.randn(b, h, sq, d, generator=gen, device=cuda).to(dtype)
+    lq = torch.full((b,), sq, dtype=torch.int32, device=cuda)
+    lk = torch.full((b,), sk, dtype=torch.int32, device=cuda)
+    before = (flash_fwd.launches_dropout, flash_bwd.launches_dq_dropout,
+              flash_bwd.launches_dkv_dropout)
+    o, lse = flash_fwd.flash_attn_fwd_bhsd(q, k, v, lq, lk, **kw)
+    grads = flash_bwd.flash_attn_bwd_bhsd(do, q, k, v, o, lse, lq, lk, **kw)
+    assert (flash_fwd.launches_dropout, flash_bwd.launches_dq_dropout,
+            flash_bwd.launches_dkv_dropout) == tuple(x + 1 for x in before)
+    o_ref, lse_ref = flash_fwd.flash_attn_fwd_bhsd_ref(
+        q.float(), k.float(), v.float(), lq, lk, **kw)
+    o_pt, lse_pt = flash_fwd.flash_attn_fwd_bhsd_ref(q, k, v, lq, lk, **kw)
+    check_close(o, o_ref, o_pt, label="o")
+    check_close(lse, lse_ref, lse_pt, label="lse")
+    ref = flash_bwd.flash_attn_bwd_bhsd_ref(
+        do.float(), q.float(), k.float(), v.float(), o.float(), lse, lq, lk,
+        **kw)
+    pt = flash_bwd.flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, lq, lk, **kw)
+    for name, x, r, y in zip(("dq", "dk", "dv"), grads, ref, pt):
+        check_close(x, r, y, label=name)
+    again = flash_bwd.flash_attn_bwd_bhsd(do, q, k, v, o, lse, lq, lk, **kw)
+    for x, y in zip(grads, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_varlen_dropout_kernels_match_plain(cuda, d):
+    """The packed varlen dropout kernels against their plain versions at
+    packed-stream coordinates (causal GQA, cross lengths), the backward
+    bitwise repeatable."""
+    from flash_attn_tpu_torch.kernels import varlen
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, cu_q, cu_k, mq, mk, kw = _varlen_inputs("gqa_cross_empty",
+                                                     torch.bfloat16, d, gen,
+                                                     cuda)
+    kw.update(dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED)
+    args = (cu_q, cu_k, mq, mk)
+    before = varlen.launches_fwd_dropout, varlen.launches_dq_dropout
+    o, lse = varlen.varlen_attn_fwd(q, k, v, *args, **kw)
+    o_ref, _ = varlen.varlen_attn_fwd_ref(q.float(), k.float(), v.float(),
+                                          *args, **kw)
+    o_pt, _ = varlen.varlen_attn_fwd_ref(q, k, v, *args, **kw)
+    check_close(o, o_ref, o_pt, label="o")
+    do = torch.randn(q.shape, generator=gen, device=cuda).bfloat16()
+    grads = varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+    assert (varlen.launches_fwd_dropout, varlen.launches_dq_dropout) == (
+        before[0] + 1, before[1] + 1)
+    ref = varlen.varlen_attn_bwd_ref(do.float(), q.float(), k.float(),
+                                     v.float(), o.float(), lse, *args, **kw)
+    pt = varlen.varlen_attn_bwd_ref(do, q, k, v, o, lse, *args, **kw)
+    for name, x, r, y in zip(("dq", "dk", "dv"), grads, ref, pt):
+        check_close(x, r, y, label=name)
+    again = varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+    for x, y in zip(grads, again):
+        assert torch.equal(x, y)
+
+
+def test_no_dropout_launches_the_kernels_without_dropout(cuda):
+    """dropout_p = 0 (the default, and a deterministic model) launches the
+    instantiations without dropout, counted in `launches` and not in
+    `launches_dropout`; dropout_p > 0 the dropout ones."""
+    from flash_attn_tpu_torch.interface import flash_attn_func
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=gen, device=cuda)
+               .bfloat16().requires_grad_() for _ in range(3))
+    counts = lambda: (flash_fwd.launches, flash_fwd.launches_dropout,  # noqa
+                      flash_bwd.launches_dq, flash_bwd.launches_dq_dropout)
+    before = counts()
+    flash_attn_func(q, k, v, causal=True).sum().backward()
+    assert counts() == (before[0] + 1, before[1], before[2] + 1, before[3])
+    flash_attn_func(q, k, v, dropout_p=0.0, causal=True).sum().backward()
+    flash_attn_func(q, k, v, dropout_p=DROPOUT_P,
+                    causal=True).sum().backward()
+    assert counts() == (before[0] + 3, before[1] + 1, before[2] + 3,
+                        before[3] + 1)

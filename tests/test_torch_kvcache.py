@@ -274,14 +274,20 @@ def test_paged_varlen_prefill_matches_jax(causal, window, alibi, seqused):
 
 
 def test_varlen_unported_branches_raise():
-    """Varlen dropout is the one branch left unported, on the packed and
-    the padded route alike."""
+    """Varlen dropout runs on the packed and the padded route
+    (`tests/test_torch_dropout.py`); the branches that refuse it in JAX
+    refuse it here: paged varlen prefill (an inference path) and fp8."""
     q = torch.zeros(6, 2, 32)
     cu = torch.tensor([0, 2, 6], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        port.flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        port.flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, dropout_p=0.1,
+    pages = torch.zeros(2, 16, 2, 32)
+    table = torch.zeros(2, 1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="dropout_p=0"):
+        port.flash_attn_varlen_func(q, pages, pages, cu, None, 4, 16,
+                                    dropout_p=0.1, block_table=table,
+                                    seqused_k=torch.tensor([4, 8]))
+    q8 = q.to(torch.float8_e4m3fn)
+    with pytest.raises(NotImplementedError, match="fp8"):
+        port.flash_attn_varlen_func(q8, q8, q8, cu, cu, 4, 4, dropout_p=0.1,
                                     return_attn_probs=True)
 
 

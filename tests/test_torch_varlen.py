@@ -317,8 +317,10 @@ def test_router(monkeypatch):
 def test_argument_checks():
     q = torch.zeros(10, 2, 64)
     cu = torch.tensor([0, 4, 10]).int()
-    with pytest.raises(NotImplementedError):
-        interface.flash_attn_varlen_func(q, q, q, cu, cu, 6, 6, dropout_p=0.1)
+    with pytest.raises(NotImplementedError, match="fp8"):
+        q8 = q.to(torch.float8_e4m3fn)
+        interface.flash_attn_varlen_func(q8, q8, q8, cu, cu, 6, 6,
+                                         dropout_p=0.1)
     with pytest.raises(ValueError):
         interface.flash_attn_varlen_func(q, q, q, cu, cu, 6, 6, dropout_p=1.0)
     with pytest.raises(ValueError, match="65535"):
