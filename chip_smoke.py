@@ -203,7 +203,10 @@ def check_attention(name, o, lse, o_ref, lse_ref, o_pt, lse_pt, rows_ok):
 
 def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
              causal=True, window=(-1, -1), softcap=0.0, alibi=False,
-             library=None):
+             library=None, phase="kernel_fwd", timed=True):
+    """The dense forward against its plain version (fp32 oracle, bf16
+    yardstick) on rows < seqused_q; with `timed`, kernel, plain version and
+    `library` timed beside the bound (counted at the call's d)."""
     import torch
     from flash_attn_tpu_torch.kernels import flash_fwd as ff
 
@@ -226,6 +229,16 @@ def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
                < squ[:, None, None]).expand(b, h, sq)
     err_o, err_o_pt, err_l, err_l_pt = check_attention(
         label, o, lse, o_ref, lse_ref, o_pt, lse_pt, rows_ok)
+    del o_ref, lse_ref, o_pt, lse_pt
+    res = dict(phase=phase, case=label, b=b, h=h, hk=hk, sq=sq, sk=sk,
+               d=d, kernel_d=ff.kernel_head_dim(d), causal=causal,
+               window=list(window), softcap=softcap, alibi=alibi,
+               max_abs_err_o=err_o, plain_bf16_err_o=err_o_pt,
+               max_abs_err_lse=err_l, plain_bf16_err_lse=err_l_pt,
+               rows=ff.fwd_rows(ff.kernel_head_dim(d)))
+    if not timed:
+        emit(res)
+        return res
 
     live = live_pairs(sq, sk, squ, sku, causal, window)
     pairs = int(live.sum()) * h
@@ -248,15 +261,11 @@ def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     library_ms = None
     if library is not None:
         library_ms = time_ms(library, input_copies(q, k, v, live))
-    res = dict(phase="kernel_fwd", case=label, b=b, h=h, hk=hk, sq=sq, sk=sk,
-               d=d, causal=causal, window=list(window), softcap=softcap,
-               alibi=alibi, max_abs_err_o=err_o, plain_bf16_err_o=err_o_pt,
-               max_abs_err_lse=err_l, plain_bf16_err_lse=err_l_pt,
-               kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
-               kernel_device_ms=kernel_device, rows=ff.fwd_rows(d),
-               plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=library_ms, flops=flops,
-               bytes=bytes_, share_of_bound=bound_ms / kernel_ms)
+    res.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+               kernel_device_ms=kernel_device, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               flops=flops, bytes=bytes_,
+               share_of_bound=bound_ms / kernel_ms)
     emit(res)
     return res
 
@@ -324,7 +333,7 @@ def bound(flops, bytes_, peak_flops=PEAK_FLOPS):
 
 def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
              causal=True, window=(-1, -1), softcap=0.0, alibi=False,
-             library=False, repeat=False):
+             library=False, repeat=False, phase="kernel_bwd"):
     """The backward kernels against the plain version (fp32 oracle, bf16
     yardstick) on dq (rows < seqused_q), dk and dv; times of the whole
     backward, of each kernel (profiler; the dQ kernel's time includes the
@@ -405,8 +414,8 @@ def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     library_ms = None
     if library:
         library_ms = sdpa_backward_ms(q, k, v, do, causal=causal)
-    res = dict(phase="kernel_bwd", case=label, b=b, h=h, hk=hk, sq=sq, sk=sk,
-               d=d, causal=causal, window=list(window), softcap=softcap,
+    res = dict(phase=phase, case=label, b=b, h=h, hk=hk, sq=sq, sk=sk,
+               d=d, kernel_d=ff.kernel_head_dim(d), causal=causal, window=list(window), softcap=softcap,
                alibi=alibi, seqused_q=list(seqused_q),
                seqused_k=list(seqused_k),
                **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
@@ -465,7 +474,7 @@ def sdpa_causal(q, k, v, live):
 
 
 def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=0,
-                block_k=None, library=False):
+                block_k=None, library=False, phase="kernel_decode"):
     import torch
     import torch.nn.functional as F
     from flash_attn_tpu_torch.kernels import flash_decode as fd
@@ -507,7 +516,7 @@ def decode_case(label, b, h, hk, sq, smax, d, gen, num_splits=0,
                 *a[:3], attn_mask=a[3], enable_gqa=hk != h),
             input_copies(q, kc, vc, mask))
     blocks = fd.row_tiles(h // hk * sq) * ns * b * hk
-    res = dict(phase="kernel_decode", case=label, b=b, h=h, hk=hk, sq=sq,
+    res = dict(phase=phase, case=label, b=b, h=h, hk=hk, sq=sq,
                smax=smax, d=d, num_splits_requested=num_splits,
                num_splits=ns,
                cache_seqlens=lens.tolist(), max_abs_err_o=err_o,
@@ -953,7 +962,8 @@ def _int8_tiled_one(label, q, kc, vc, lens, num_splits, **kw):
     return res
 
 
-def kvcache_case(label, q, kc, vc, lens, library=None, **kw):
+def kvcache_case(label, q, kc, vc, lens, library=None,
+                 phase="kernel_kvcache", timed=True, **kw):
     """`decode_attn_ref_layout` against its plain version: the fp32 oracle
     on the dequantised cache and the plain version in the cache's own
     precision (the low-precision yardstick) under `check_close`; kernel,
@@ -1005,6 +1015,16 @@ def kvcache_case(label, q, kc, vc, lens, library=None, **kw):
     if kc.dtype == torch.int8:
         tiled = int8_tiled_check(label, q, kc, vc, lens, splits=(1, ns),
                                  **kw)
+    res = dict(phase=phase, case=label, b=b, h=h, hk=hk, sq=sq,
+               d=d, cache_dtype=str(kc.dtype), fused=fused,
+               paged=kw.get("block_table") is not None,
+               cache_seqlens=lens.tolist(), num_splits=ns,
+               max_abs_err_o=err_o, plain_lowp_err_o=err_o_pt,
+               max_abs_err_lse=err_l, plain_lowp_err_lse=err_l_pt,
+               int8_tiled=tiled)
+    if not timed:
+        emit(res)
+        return res, o, lse
 
     if kw.get("block_table") is not None:
         cap = kw["block_table"].shape[1] * (kc.shape[2] if fused
@@ -1040,14 +1060,7 @@ def kvcache_case(label, q, kc, vc, lens, library=None, **kw):
     fd.launches = before  # timing launches are not the main path's
     library_ms = library() if library is not None else None
     blocks = fd.row_tiles(h // hk * sq) * ns * b * hk
-    res = dict(phase="kernel_kvcache", case=label, b=b, h=h, hk=hk, sq=sq,
-               d=d, cache_dtype=str(kc.dtype), fused=fused,
-               paged=kw.get("block_table") is not None,
-               cache_seqlens=lens.tolist(), num_splits=ns,
-               max_abs_err_o=err_o, plain_lowp_err_o=err_o_pt,
-               max_abs_err_lse=err_l, plain_lowp_err_lse=err_l_pt,
-               int8_tiled=tiled,
-               kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+    res.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, bytes=bytes_, flops=4 * d * pairs,
                live_keys=live_keys, share_of_bound=bound_ms / kernel_ms,
@@ -1663,7 +1676,7 @@ def sdpa_varlen_library(q, k, v, cu_q, cu_k, lens_q, lens_k, causal,
 
 def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
                     causal=False, window=(-1, -1), softcap=0.0, alibi=False,
-                    with_library=True):
+                    with_library=True, phase="kernel_varlen", timed=True):
     """The packed varlen forward (`varlen_attn_fwd`, flash_fwd.cu's varlen
     mode) against its plain version: the fp32 oracle and the plain version
     in the inputs' precision under the 2x rule, on every token (rows with
@@ -1693,6 +1706,16 @@ def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
     if not torch.isfinite(o).all():
         raise AssertionError(f"{label}: non-finite output")
     del o_ref, lse_ref, o_pt, lse_pt
+    rows = ff.fwd_rows(ff.kernel_head_dim(d))
+    res = dict(phase=phase, case=label, dtype=dtype, h=h, hk=hk,
+               d=d, sequences=len(lens_q), total_q=sum(lens_q),
+               total_k=sum(lens_k), max_seqlen_q=mq, max_seqlen_k=mk,
+               causal=causal, window=list(window), softcap=softcap,
+               alibi=alibi, max_abs_err_o=err_o, plain_lowp_err_o=err_o_pt,
+               max_abs_err_lse=err_l, plain_lowp_err_lse=err_l_pt, rows=rows)
+    if not timed:
+        emit(res)
+        return res
 
     pairs, keys = varlen_live_pairs(lens_q, lens_k, causal, window, mk)
     live_pairs_h = sum(pairs) * h
@@ -1716,21 +1739,13 @@ def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
             window == (-1, -1):
         library_ms, library = sdpa_varlen_library(q, k, v, cu_q, cu_k,
                                                   lens_q, lens_k, causal)
-    rows = ff.fwd_rows(d)
     tiles = sum(-(-n // rows) for n in lens_q) * h
-    res = dict(phase="kernel_varlen", case=label, dtype=dtype, h=h, hk=hk,
-               d=d, sequences=len(lens_q), total_q=sum(lens_q),
-               total_k=sum(lens_k), max_seqlen_q=mq, max_seqlen_k=mk,
-               causal=causal, window=list(window), softcap=softcap,
-               alibi=alibi, max_abs_err_o=err_o, plain_lowp_err_o=err_o_pt,
-               max_abs_err_lse=err_l, plain_lowp_err_lse=err_l_pt,
-               kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
+    res.update(kernel_ms=kernel_ms, kernel_call_ms=kernel_call_ms,
                kernel_device_ms=kernel_device,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms, library=library,
                flops=4 * d * live_pairs_h, bytes=bytes_,
-               share_of_bound=bound_ms / kernel_device,
-               rows=rows, blocks_live=tiles,
+               share_of_bound=bound_ms / kernel_device, blocks_live=tiles,
                blocks_launched=-(-mq // rows) * h * len(lens_q))
     emit(res)
     return res
@@ -1738,7 +1753,8 @@ def varlen_fwd_case(label, lens_q, lens_k, h, hk, d, gen, dtype="bfloat16",
 
 def varlen_bwd_case(label, lens_q, lens_k, h, hk, d, gen, causal=False,
                     window=(-1, -1), softcap=0.0, alibi=False,
-                    with_library=True):
+                    with_library=True, phase="kernel_varlen_bwd",
+                    timed=True):
     """The packed varlen backward (`varlen_attn_bwd`, flash_bwd.cu's varlen
     mode) against the plain backward (fp32 oracle, bf16 yardstick) on dq,
     dk and dv; two runs bitwise equal; keys no query sees get 0.  Whole
@@ -1782,6 +1798,17 @@ def varlen_bwd_case(label, lens_q, lens_k, h, hk, d, gen, causal=False,
         if lq == 0 and (dk[starts[i]:starts[i] + n].any()
                         or dv[starts[i]:starts[i] + n].any()):
             raise AssertionError(f"{label}: dk/dv of keys no query sees")
+    res = dict(phase=phase, case=label, h=h, hk=hk, d=d,
+               sequences=len(lens_q), total_q=sum(lens_q),
+               total_k=sum(lens_k), causal=causal, window=list(window),
+               softcap=softcap, alibi=alibi,
+               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
+               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
+               bitwise_repeat=bitwise_repeat)
+    if not timed:
+        vl.launches_fwd, vl.launches_dq, vl.launches_dkv = before
+        emit(res)
+        return res
 
     live = sum(pairs) * h
     elt = 2
@@ -1805,13 +1832,7 @@ def varlen_bwd_case(label, lens_q, lens_k, h, hk, d, gen, causal=False,
             window == (-1, -1):
         library_ms, library = sdpa_varlen_library(
             q, k, v, cu_q, cu_k, lens_q, lens_k, causal, backward=True)
-    res = dict(phase="kernel_varlen_bwd", case=label, h=h, hk=hk, d=d,
-               sequences=len(lens_q), total_q=sum(lens_q),
-               total_k=sum(lens_k), causal=causal, window=list(window),
-               softcap=softcap, alibi=alibi,
-               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
-               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
-               bitwise_repeat=bitwise_repeat, kernel_ms=kernel_ms,
+    res.update(kernel_ms=kernel_ms,
                dq_kernel_ms=dev_ms["flash_bwd_dq_kernel"],
                dkv_kernel_ms=dev_ms["flash_bwd_dkv_kernel"],
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1862,6 +1883,150 @@ def kernel_varlen_phases():
                                causal=True)
     torch.cuda.empty_cache()
     return fwd, bwd
+
+
+# The head dims of the slice beyond 64 and 128: the repo's GPT-3 2.7B
+# recipe (80), GPT-NeoX-20B (96), GPT-J-6B (256), the JAX sweep's others
+# (32, 160, 192, 224), and 100, which is not a multiple of 8 and goes
+# through the wrappers' zero-padded copies.  Each runs in the kernels'
+# tile of d rounded up to a multiple of 64 (`kernel_head_dim`); the
+# backward takes d up to 128.
+HEADDIM_DS = (32, 80, 96, 100, 160, 192, 224, 256)
+
+
+def quantise_paged_fp8(cache, table):
+    """fp8 e4m3 pages and per-(sequence, kv head) descales (b, hk) of a bf16
+    paged cache: each sequence's amax over its own pages maps to 448."""
+    import torch
+
+    hk = cache.shape[-2]
+    out = torch.empty(cache.shape, dtype=torch.float8_e4m3fn,
+                      device=cache.device)
+    descale = torch.empty(table.shape[0], hk, device=cache.device)
+    for i in range(table.shape[0]):
+        pages = table[i].long()
+        x = cache[pages].float()
+        descale[i] = x.abs().amax(dim=(0, 1, 3)).clamp_min(1e-9) / 448.0
+        out[pages] = (x / descale[i].view(hk, 1)).to(torch.float8_e4m3fn)
+    return out, descale
+
+
+def headdim_paged_decode(tag, d, gen):
+    """Paged decode at head dim d (4 sequences of 2048 keys in 256-row
+    pages, GQA 16 over 4) on int8 and fp8 e4m3 caches, each against its
+    plain versions (`kvcache_case`, untimed)."""
+    import torch
+
+    b, page, pps, h, hk = 4, 256, 8, 16, 4
+    table = torch.randperm(b * pps, generator=gen, device=DEV).view(
+        b, pps).int()
+    shape = (b * pps, page, hk, d)
+    kc = torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    vc = torch.randn(shape, generator=gen, device=DEV).bfloat16()
+    q = torch.randn(b, 1, h, d, generator=gen, device=DEV).bfloat16()
+    lens = torch.randint(300, pps * page + 1, (b,), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    out = []
+    for name, quantise in (("int8", quantise_paged_int8),
+                           ("fp8 e4m3", quantise_paged_fp8)):
+        kq, kds = quantise(kc, table)
+        vq, vds = quantise(vc, table)
+        r, _, _ = kvcache_case(f"{tag}: paged {name} decode", q, kq, vq,
+                               lens, block_table=table, k_descale=kds,
+                               v_descale=vds, phase="kernel_headdim",
+                               timed=False)
+        out.append(r)
+    return out
+
+
+def kernel_headdim_phase(gen):
+    """At every d of HEADDIM_DS, each case held to its plain version: the
+    dense forward (causal GQA at a training shape, timed beside SDPA's
+    flash backend; non-causal over ragged lengths with an empty key
+    range), the packed varlen forward (causal GQA), decode on a heads-first
+    bf16 cache (GPT-J's serving shape, timed beside SDPA) and on paged
+    int8 and fp8 caches; at d <= 128 the dense backward (timed beside
+    SDPA's) and the varlen backward.  The wrappers' pad copies are counted
+    (d = 100 only).  Bounds count the work at the true d (what the kernels
+    refuse is held by `tests/test_torch_gpu.py`)."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+
+    docs = varlen_lengths(torch.Generator().manual_seed(17), 6, 64, 1024)
+    out = {}
+    for d in HEADDIM_DS:
+        tag, r = f"d {d}", {}
+        pads = ff.pad_copies
+        kw = dict(phase="kernel_headdim")
+        r["fwd"] = fwd_case(f"{tag}: causal GQA", 2, 16, 4, 2048, 2048, d,
+                            [2048] * 2, [2048] * 2, gen, library=sdpa_causal,
+                            **kw)
+        r["fwd_ragged"] = fwd_case(
+            f"{tag}: non-causal, ragged", 3, 8, 8, 300, 500, d,
+            [300, 200, 300], [500, 97, 0], gen, causal=False, timed=False,
+            **kw)
+        r["varlen"] = varlen_fwd_case(f"{tag}: varlen causal GQA", docs,
+                                      docs, 16, 4, d, gen, causal=True,
+                                      timed=False, **kw)
+        r["decode"] = decode_case(f"{tag}: decode bf16", 8, 16, 16, 1, 2048,
+                                  d, gen, library=True, **kw)
+        r["decode_int8"], r["decode_fp8"] = headdim_paged_decode(tag, d, gen)
+        if d <= ff.MAX_BWD_HEAD_DIM:
+            r["bwd"] = bwd_case(f"{tag}: causal GQA", 2, 16, 4, 2048, 2048, d,
+                                [2048] * 2, [2048] * 2, gen, library=True,
+                                repeat=True, **kw)
+            r["varlen_bwd"] = varlen_bwd_case(
+                f"{tag}: varlen causal GQA", docs, docs, 16, 4, d, gen,
+                causal=True, timed=False, **kw)
+        r["pad_copies"] = ff.pad_copies - pads
+        if (r["pad_copies"] > 0) != (d % 8 != 0):
+            raise AssertionError(f"d {d}: {r['pad_copies']} pad copies")
+        out[d] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def headdim_summary(hd):
+    """`kernel_headdim_phase`'s cases by kernel and head dim, for the
+    kernels line: times (kernel, plain version, bound at the true d, SDPA)
+    where the case was timed, else the errors alone; the forward's and
+    decode's ptxas summaries at the new D come in `ptxas`."""
+    def timed(r, err, ms="kernel_ms", bound_ms="bound_ms"):
+        return dict(ms=r[ms], plain_ms=r["plain_ms"], bound_ms=r[bound_ms],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    share_of_bound=r[bound_ms] / r[ms], max_abs_err=err)
+
+    def errs(r, *names):
+        return max(r[f"max_abs_err_{n}"] for n in names)
+
+    out = {k: {} for k in ("flash_fwd", "flash_decode", "flash_bwd_dq",
+                           "flash_bwd_dkv", "flash_decode_ref",
+                           "flash_fwd_varlen", "flash_bwd_varlen")}
+    for d, r in hd.items():
+        out["flash_fwd"][d] = dict(
+            timed(r["fwd"], r["fwd"]["max_abs_err_o"]),
+            kernel_device_ms=r["fwd"]["kernel_device_ms"],
+            kernel_d=r["fwd"]["kernel_d"],
+            ragged_max_abs_err=r["fwd_ragged"]["max_abs_err_o"],
+            pad_copies=r["pad_copies"])
+        out["flash_decode"][d] = timed(r["decode"],
+                                       r["decode"]["max_abs_err_o"])
+        out["flash_decode_ref"][d] = dict(
+            int8_max_abs_err=r["decode_int8"]["max_abs_err_o"],
+            fp8_max_abs_err=r["decode_fp8"]["max_abs_err_o"])
+        out["flash_fwd_varlen"][d] = dict(
+            max_abs_err=r["varlen"]["max_abs_err_o"])
+        if "bwd" in r:
+            b = r["bwd"]
+            out["flash_bwd_dq"][d] = dict(
+                timed(b, errs(b, "dq"), "dq_kernel_ms", "dq_bound_ms"),
+                bound_by=b["dq_bound_by"], whole_ms=b["kernel_ms"])
+            out["flash_bwd_dkv"][d] = dict(
+                timed(b, errs(b, "dk", "dv"), "dkv_kernel_ms",
+                      "dkv_bound_ms"), bound_by=b["dkv_bound_by"])
+            out["flash_bwd_varlen"][d] = dict(
+                max_abs_err=errs(r["varlen_bwd"], "dq", "dk", "dv"))
+    return out
 
 
 def bert_batch_lengths():
@@ -2976,14 +3141,49 @@ LLAMA_PROFILE_STEPS = 2
 LLAMA_CHECK_SEQ = 256
 
 
+def greedy_gaps(model, results, prompts, uids, picks):
+    """Greedy tokens of requests `picks` teacher-forced through an fp32 copy
+    of `model` on the CPU (the plain path): (largest gap between the
+    maximum reference logit and the picked token's, mean deviation of the
+    reference logits)."""
+    import numpy as np
+    import torch
+
+    ref = cpu_reference(model)
+    gaps, stds = [], []
+    for i in picks:
+        toks = results[uids[i]]
+        seq = torch.as_tensor(np.concatenate([prompts[i], toks[:-1]]))[None]
+        with torch.no_grad():
+            logits = ref(seq, num_last_tokens=len(toks)).logits[0].float()
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite reference logits")
+        picked = logits[torch.arange(len(toks)), torch.as_tensor(toks)]
+        gaps.append(float((logits.max(dim=-1).values - picked).max()))
+        stds.append(float(logits.std(dim=-1).mean()))
+    return max(gaps), sum(stds) / len(stds)
+
+
 def cpu_reference(model, dtype=None):
     """A copy of `model` (its config and weights) on the CPU, in `dtype`
-    (None: float32): the plain path."""
+    (None: float32): the plain path.  The copy is built with the modules'
+    own random initialisation skipped (`torch.nn.init`'s fills made no-ops
+    for the construction): every weight is overwritten, and drawing 6 B of
+    them on the host took most of a minute."""
     import torch
     from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
 
-    ref = GPTLMHeadModel(model.config, device="cpu",
-                         dtype=dtype or torch.float32)
+    fills = ("kaiming_uniform_", "uniform_", "normal_", "trunc_normal_",
+             "ones_", "zeros_")
+    saved = {n: getattr(torch.nn.init, n) for n in fills}
+    try:
+        for n in fills:
+            setattr(torch.nn.init, n, lambda t, *a, **k: t)
+        ref = GPTLMHeadModel(model.config, device="cpu",
+                             dtype=dtype or torch.float32)
+    finally:
+        for n, f in saved.items():
+            setattr(torch.nn.init, n, f)
     with torch.no_grad():
         for (name, p), q in zip(ref.named_parameters(), model.parameters()):
             p.copy_(q)
@@ -2994,7 +3194,6 @@ def llama_serve_phase(gen_seed=0):
     """`ServingEngine` on the Llama at Llama-3-8B widths: the serve phase's
     16 requests, launch counts, greedy tokens against fp32 on the CPU, and
     the batch once more under `torch.profiler`."""
-    import numpy as np
     import torch
     from flash_attn_tpu_torch.kernels import flash_decode as fd
     from flash_attn_tpu_torch.kernels import flash_fwd as ff
@@ -3049,27 +3248,100 @@ def llama_serve_phase(gen_seed=0):
     # Greedy tokens teacher-forced through the same weights in fp32 on the
     # CPU (the plain path).
     t0 = time.perf_counter()
-    ref = cpu_reference(model)
-    del model, eng, prof_eng
+    del eng, prof_eng
+    gap, std = greedy_gaps(model, results, prompts, uids, (0, 1))
+    del model
     torch.cuda.empty_cache()
-    gaps, stds = [], []
-    for i in (0, 1):
-        toks = results[uids[i]]
-        seq = torch.as_tensor(np.concatenate([prompts[i], toks[:-1]]))[None]
-        with torch.no_grad():
-            logits = ref(seq, num_last_tokens=len(toks)).logits[0].float()
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite reference logits")
-        picked = logits[torch.arange(len(toks)), torch.as_tensor(toks)]
-        gaps.append(float((logits.max(dim=-1).values - picked).max()))
-        stds.append(float(logits.std(dim=-1).mean()))
-    del ref
-    margin = LLAMA_MARGIN_SHARE * sum(stds) / 2
-    res.update(greedy_max_logit_gap=max(gaps), ref_logit_std=sum(stds) / 2,
+    margin = LLAMA_MARGIN_SHARE * std
+    res.update(greedy_max_logit_gap=gap, ref_logit_std=std,
                greedy_margin=margin, reference_s=time.perf_counter() - t0)
     emit(res)
-    if max(gaps) > margin:
-        raise AssertionError(f"greedy token logit gap {max(gaps):.4f} > "
+    if gap > margin:
+        raise AssertionError(f"greedy token logit gap {gap:.4f} > "
+                             f"margin {margin:.4f}")
+    return res
+
+
+# GPT-J-6B (HF EleutherAI/gpt-j-6b config.json, `serve_profile.GPTJ_6B`):
+# head dim 256, served at all 28 layers.  Its greedy tokens are checked on
+# the two shortest greedy requests: the fp32 CPU copy of 6 B parameters
+# takes most of the phase's time, its forwards the least.
+GPTJ_SERVE_LAYERS = 28
+GPTJ_CHECKED = 2
+
+
+def gptj_serve_phase(gen_seed=0):
+    """`ServingEngine` on GPT-J-6B: the serve phase's 16 requests through
+    the forward and decode kernels at head dim 256 (launch counts), greedy
+    tokens against fp32 on the CPU (LLAMA_MARGIN_SHARE of the reference
+    logits' deviation), and the batch once more under `torch.profiler`."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.serve_profile import (MAX_NEW_TOKENS, SAMPLED,
+                                                    gptj_6b, serve_batch,
+                                                    timed_run, warm_up)
+
+    t0 = time.perf_counter()
+    model = gptj_6b(gen_seed, GPTJ_SERVE_LAYERS)
+    cfg = model.config
+    head_dim = cfg.n_embd // cfg.n_head
+    init_s = time.perf_counter() - t0
+    warm_up(model, gen_seed)
+    warm_s = time.perf_counter() - t0 - init_s
+    eng, prompts, uids = serve_batch(model, gen_seed)
+    torch.cuda.reset_peak_memory_stats()
+    ff.launches = fd.launches = 0
+    results, wall = timed_run(eng)
+    fwd_launches, dec_launches = ff.launches, fd.launches
+    peak = torch.cuda.max_memory_allocated()
+    st = eng.stats
+    prof_eng, _, _ = serve_batch(model, gen_seed)
+    t0 = time.perf_counter()
+    with device_profiler() as prof:
+        timed_run(prof_eng)
+    profile = profile_summary(prof, 1, wall, "run", "attention", "flash_")
+    profile["seconds"] = time.perf_counter() - t0
+    res = dict(phase="gptj_serve",
+               model="GPT-J-6B, HF EleutherAI/gpt-j-6b config.json (random "
+               "weights, seed 0)", reduced="none: all 28 layers",
+               head_dim=head_dim, kernel_head_dim=ff.kernel_head_dim(head_dim),
+               params=sum(p.numel() for p in model.parameters()),
+               dtype="bfloat16", init_s=init_s, warm_s=warm_s,
+               requests=len(prompts), finished=st.finished,
+               prefill_waves=st.prefill_waves,
+               prefill_tokens=st.prefill_tokens,
+               generated_tokens=st.generated_tokens,
+               decode_steps=st.decode_steps, wall_s=wall,
+               generated_tok_per_s=st.generated_tokens / wall,
+               max_memory_allocated=peak, flash_fwd_launches=fwd_launches,
+               flash_decode_launches=dec_launches, profile=profile)
+    if st.finished != len(prompts):
+        raise AssertionError(f"finished {st.finished} of {len(prompts)}")
+    for u in uids:
+        if len(results[u]) != MAX_NEW_TOKENS:
+            raise AssertionError(f"request {u}: {len(results[u])} tokens")
+    if not (fwd_launches == st.prefill_waves * cfg.n_layer > 0
+            and dec_launches == st.decode_steps * cfg.n_layer > 0):
+        raise AssertionError(
+            f"gptj_serve launches: flash_fwd {fwd_launches} for "
+            f"{st.prefill_waves} waves, flash_decode {dec_launches} for "
+            f"{st.decode_steps} steps, x {cfg.n_layer} layers")
+
+    t0 = time.perf_counter()
+    greedy = [i for i in range(len(prompts)) if i not in SAMPLED]
+    picks = sorted(greedy, key=lambda i: len(prompts[i]))[:GPTJ_CHECKED]
+    del eng, prof_eng
+    gap, std = greedy_gaps(model, results, prompts, uids, picks)
+    del model
+    torch.cuda.empty_cache()
+    margin = LLAMA_MARGIN_SHARE * std
+    res.update(checked_requests=picks, greedy_max_logit_gap=gap,
+               ref_logit_std=std, greedy_margin=margin,
+               reference_s=time.perf_counter() - t0)
+    emit(res)
+    if gap > margin:
+        raise AssertionError(f"greedy token logit gap {gap:.4f} > "
                              f"margin {margin:.4f}")
     return res
 
@@ -3348,6 +3620,155 @@ def llama_check_phases(shard):
         raise AssertionError(f"remat peaks not ordered: {peaks}")
     check_grads("remat_check float16", fp16)
     return check, res
+
+
+# The JAX package's GPT-3 2.7B recipe
+# (flash_attn_tpu/training/configs/experiment/pile-gpt3-2p7b-flash-8k.yaml)
+# at full width and depth on one card: head dim 2560 / 32 = 80, which the
+# kernels run in their 128-column tile.  2.65 B fp32 parameters with their
+# gradients and AdamW's two moments take ~42 GB before any activation; a
+# layer's activations at 4 x 8192 tokens take several GB without remat,
+# so each block is rematerialised (policy "none": it keeps only its input,
+# 4 x 8192 x 2560 fp32, ~0.34 GB a layer).
+GPT3_TRAIN_STEPS = 3
+GPT3_PROFILE_STEPS = 1
+GPT3_CHECK_SEQ = 256
+INIT_STD = 0.02  # `models.common.init_weights`, JAX's normal(0.02)
+
+
+def first_loss_expected(n_embd, vocab=50257):
+    """The expected first loss on uniform tokens of a model drawn from
+    N(0, INIT_STD): the final norm's unit-variance output against an
+    N(0, INIT_STD^2) head gives logits of variance n_embd INIT_STD^2, and
+    E[logsumexp - logit] = ln V + that variance / 2: ln V + 0.51 at GPT-3
+    2.7B's 2560 (ln V + 0.15 at GPT-2 small's 768)."""
+    return math.log(vocab) + n_embd * INIT_STD ** 2 / 2
+
+
+def gpt3_train_config(**over):
+    """pile-gpt3-2p7b-flash-8k.yaml: n_embd 2560, 32 layers, 32 heads, vocab
+    50257, full rotary, seq_len 8192, batch 4; bf16 over fp32 weights;
+    AdamW 1.6e-4, wd 0.1; cosine after 375 warmup steps over 60000.  On one
+    card: mesh 2x4 -> 1x1, no optimizer-state sharding (not ported),
+    synthetic tokens (The Pile is not in the repository)."""
+    cfg = train_config()
+    m = cfg.model
+    m.name, m.n_embd, m.n_layer, m.n_head = "gpt3-2.7b", 2560, 32, 32
+    m.vocab_size, m.max_position_embeddings = 50257, 8192
+    m.rotary_emb_fraction, m.dtype = 1.0, "bfloat16"
+    cfg.optimizer.lr, cfg.optimizer.weight_decay = 1.6e-4, 0.1
+    cfg.scheduler.name = "cosine"
+    cfg.scheduler.warmup_steps, cfg.scheduler.decay_steps = 375, 60000
+    cfg.data.seq_len, cfg.data.batch_size = 8192, 4
+    for key, val in over.items():
+        section, field = key.split("__")
+        setattr(getattr(cfg, section), field, val)
+    return cfg
+
+
+def gpt3_train_phase(shard):
+    """Trainer.train() on the GPT-3 2.7B recipe at all 32 layers with block
+    remat ("none"), reading the seeded .bin `shard`: GPT3_TRAIN_STEPS steps
+    after TRAIN_WARMUP_STEPS warm-up steps, launches counted on those steps
+    (the forward twice a layer: remat), then GPT3_PROFILE_STEPS steps under
+    `torch.profiler`."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    t = Trainer(gpt3_train_config(model__remat_blocks=True,
+                                  model__remat_policy="none",
+                                  data__dataset=shard))
+    init_s = time.perf_counter() - t0
+    c = t.gpt_config
+    head_dim = c.n_embd // c.n_head
+    params = sum(p.numel() for p in t.model.parameters())
+    warm = [float(t.train_step(next(t.loader))[0])
+            for _ in range(TRAIN_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    t.config.trainer.max_steps = t.step + GPT3_TRAIN_STEPS
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    ff.launches = fb.launches_dq = fb.launches_dkv = 0
+    t0 = time.perf_counter()
+    t.train(log_fn=logs.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(flash_fwd=ff.launches, flash_bwd_dq=fb.launches_dq,
+                  flash_bwd_dkv=fb.launches_dkv)
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + [m["loss"] for m in logs if "loss" in m]
+    seq, batch = t.config.data.seq_len, t.config.data.batch_size
+    tokens = t.speed.tokens_per_step * GPT3_TRAIN_STEPS
+    step_s = wall / GPT3_TRAIN_STEPS
+    flops = palm_flops_per_token(t.model, seq) * tokens
+    attn_flops = 12 * c.n_layer * c.n_head * head_dim * seq * tokens
+    profile = profile_train_steps(t, GPT3_PROFILE_STEPS, step_s)
+    del t
+    torch.cuda.empty_cache()
+    res = dict(phase="gpt3_train",
+               model="gpt3-2.7b, pile-gpt3-2p7b-flash-8k.yaml (random "
+               "weights, seed 0)",
+               reduced="one card: mesh 2x4 -> 1x1, optimizer-state sharding "
+               "off; block remat on (policy none); a local seeded .bin "
+               f"shard of {LLAMA_SHARD_TOKENS} uniform tokens for The Pile",
+               layers=c.n_layer, head_dim=head_dim,
+               kernel_head_dim=ff.kernel_head_dim(head_dim), params=params,
+               param_dtype="float32", compute_dtype="bfloat16",
+               remat_policy="none", seq_len=seq, batch_size=batch,
+               steps=GPT3_TRAIN_STEPS, warmup_steps=TRAIN_WARMUP_STEPS,
+               init_s=init_s, wall_s=wall, step_ms=step_s * 1e3,
+               tokens_per_s=tokens / wall, model_tflops=flops / wall / 1e12,
+               share_of_989_tflops=flops / wall / PEAK_FLOPS,
+               attention_share_of_model_flops=attn_flops / flops,
+               flops_formula="6 N + 12 L h d s a token (PaLM); the remat "
+               "recompute (a second forward a layer) is not counted",
+               max_memory_allocated=peak, losses=losses,
+               first_loss_expected=first_loss_expected(c.n_embd),
+               first_loss_minus_ln_vocab=losses[0] - LN_VOCAB,
+               launches=counts, launches_per_step={
+                   k: v / GPT3_TRAIN_STEPS for k, v in counts.items()},
+               profile=profile)
+    emit(res)
+    want = c.n_layer * GPT3_TRAIN_STEPS
+    if counts != dict(flash_fwd=2 * want, flash_bwd_dq=want,
+                      flash_bwd_dkv=want):
+        raise AssertionError(f"gpt3_train launches {counts}, expected "
+                             f"{2 * want} forwards (remat) and {want} of "
+                             "each backward kernel")
+    if len(losses) != TRAIN_WARMUP_STEPS + GPT3_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"gpt3_train losses {losses}")
+    if abs(losses[0] - res["first_loss_expected"]) > 0.5:
+        raise AssertionError(f"gpt3_train first loss {losses[0]} not within "
+                             f"0.5 of {res['first_loss_expected']}")
+    if peak >= 80e9:
+        raise AssertionError(f"gpt3_train peak {peak} B")
+    return res
+
+
+def gpt3_check_phase():
+    """The GPT-3 recipe at full width, 2 layers: one batch of GPT3_CHECK_SEQ
+    tokens through a Trainer on the card (bf16 autocast, the kernels at
+    head dim 80) and its fp32 copy on the CPU (the plain path), gradients
+    compared (`check_grads`: loss within 0.02, cosine >= GRAD_COSINE)."""
+    import torch
+    from flash_attn_tpu_torch.training.trainer import Trainer
+
+    small = dict(model__n_layer=2, data__seq_len=GPT3_CHECK_SEQ,
+                 data__batch_size=1)
+    t = Trainer(gpt3_train_config(**small))
+    cpu = Trainer(gpt3_train_config(model__dtype="float32", **small),
+                  device="cpu")
+    res = dict(phase="gpt3_train_check", layers=2, seq_len=GPT3_CHECK_SEQ,
+               **card_vs_cpu_grads(t, cpu))
+    del t, cpu
+    torch.cuda.empty_cache()
+    emit(res)
+    check_grads("gpt3_train_check", res)
+    return res
 
 
 # ViT-B/16 on ImageNet-sized inputs: the JAX package's recipe
@@ -4273,11 +4694,12 @@ def main():
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=info))
     spills = {k: v for name in ("flex", "flash_bwd", "flash_fwd",
+                                "flash_decode_ref", "flash_decode_ref_wide",
                                 "diag_int8_decode", "diag_varlen_bisect")
               for k, v in ptxas_summary(name).items()
               if k.startswith(("flex_fwd_kernel", "flex_bwd_", "flash_bwd_",
-                               "flash_fwd_kernel", "decode_ladder_kernel",
-                               "bisect_kernel"))
+                               "flash_fwd_kernel", "flash_decode_ref_kernel",
+                               "decode_ladder_kernel", "bisect_kernel"))
               and (v.get("spill_stores") or v.get("spill_loads"))}
     if spills:
         raise AssertionError(f"Hopper kernels spill registers: {spills}")
@@ -4335,6 +4757,7 @@ def main():
 
     kvc = kernel_kvcache_phase(gen)
     vfwd, vbwd = kernel_varlen_phases()
+    hd = headdim_summary(kernel_headdim_phase(gen))
 
     serve = serve_phase()
     train = train_phase()
@@ -4348,6 +4771,7 @@ def main():
     ffwd, fbwd, fcompiled = kernel_flex_phases()
     flexpath = flex_phase()
     lserve = llama_serve_phase()
+    gptj = gptj_serve_phase()
     import tempfile
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -4356,6 +4780,8 @@ def main():
                                   LLAMA_SHARD_TOKENS, 50257)
         ltrain = llama_train_phase(shard)
         llama_check_phases(shard)
+        g3 = gpt3_train_phase(shard)
+        gpt3_check_phase()
         ckpt_dir = os.path.join(workdir, "vit_ckpt")
         vit = vit_train_phase(ckpt_dir)
         eval_cli_phase(ckpt_dir, vit["checkpoint_step"])
@@ -4376,7 +4802,8 @@ def main():
              + ltrain["launches"]["flash_fwd"]
              + vit["launches"]["flash_fwd"]
              + fam["launches"]["flash_fwd"]
-             + dgpt["launches"]["flash_fwd"],
+             + dgpt["launches"]["flash_fwd"]
+             + gptj["flash_fwd_launches"] + g3["launches"]["flash_fwd"],
              launches_by_path=dict(
                  serve=serve["flash_fwd_launches"],
                  train=train["launches"]["flash_fwd"],
@@ -4386,7 +4813,10 @@ def main():
                  llama_train_evaluations=ltrain["eval_launches"]["flash_fwd"],
                  vit_train=vit["launches"]["flash_fwd"],
                  vit_evaluation=vit["eval_launches"]["flash_fwd"],
-                 families=fam["launches"]["flash_fwd"]),
+                 families=fam["launches"]["flash_fwd"],
+                 gptj_serve_d256=gptj["flash_fwd_launches"],
+                 gpt3_train_d80=g3["launches"]["flash_fwd"]),
+             by_head_dim=hd["flash_fwd"],
              max_abs_err=fwd["a"]["max_abs_err_o"], ms=fwd["a"]["kernel_ms"],
              kernel_device_ms=fwd["a"]["kernel_device_ms"],
              plain_ms=fwd["a"]["plain_ms"], bound_ms=fwd["a"]["bound_ms"],
@@ -4409,11 +4839,14 @@ def main():
              replaces="flash_attn_tpu/kernels/flash_decode.py:117",
              launches=serve["flash_decode_launches"]
              + lserve["flash_decode_launches"]
-             + fam["launches"]["flash_decode"],
+             + fam["launches"]["flash_decode"]
+             + gptj["flash_decode_launches"],
              launches_by_path=dict(
                  serve=serve["flash_decode_launches"],
                  llama_serve=lserve["flash_decode_launches"],
-                 families=fam["launches"]["flash_decode"]),
+                 families=fam["launches"]["flash_decode"],
+                 gptj_serve_d256=gptj["flash_decode_launches"]),
+             by_head_dim=hd["flash_decode"],
              max_abs_err=dec["a"]["max_abs_err_o"], ms=dec["a"]["kernel_ms"],
              plain_ms=dec["a"]["plain_ms"], bound_ms=dec["a"]["bound_ms"],
              bound_by=dec["a"]["bound_by"],
@@ -4432,12 +4865,15 @@ def main():
              launches=train["launches"]["flash_bwd_dq"]
              + ltrain["launches"]["flash_bwd_dq"]
              + vit["launches"]["flash_bwd_dq"]
-             + dgpt["launches"]["flash_bwd_dq"],
+             + dgpt["launches"]["flash_bwd_dq"]
+             + g3["launches"]["flash_bwd_dq"],
              launches_by_path=dict(
                  train=train["launches"]["flash_bwd_dq"],
                  dropout_gpt=dgpt["launches"]["flash_bwd_dq"],
                  llama_train=ltrain["launches"]["flash_bwd_dq"],
-                 vit_train=vit["launches"]["flash_bwd_dq"]),
+                 vit_train=vit["launches"]["flash_bwd_dq"],
+                 gpt3_train_d80=g3["launches"]["flash_bwd_dq"]),
+             by_head_dim=hd["flash_bwd_dq"],
              max_abs_err=a["max_abs_err_dq"], ms=a["dq_kernel_ms"],
              dropout=dropout_entry(dcases, ("i", "ii", "iii"), "dq",
                                    dgpt["launches"]["flash_bwd_dq_dropout"],
@@ -4459,12 +4895,15 @@ def main():
              launches=train["launches"]["flash_bwd_dkv"]
              + ltrain["launches"]["flash_bwd_dkv"]
              + vit["launches"]["flash_bwd_dkv"]
-             + dgpt["launches"]["flash_bwd_dkv"],
+             + dgpt["launches"]["flash_bwd_dkv"]
+             + g3["launches"]["flash_bwd_dkv"],
              launches_by_path=dict(
                  train=train["launches"]["flash_bwd_dkv"],
                  dropout_gpt=dgpt["launches"]["flash_bwd_dkv"],
                  llama_train=ltrain["launches"]["flash_bwd_dkv"],
-                 vit_train=vit["launches"]["flash_bwd_dkv"]),
+                 vit_train=vit["launches"]["flash_bwd_dkv"],
+                 gpt3_train_d80=g3["launches"]["flash_bwd_dkv"]),
+             by_head_dim=hd["flash_bwd_dkv"],
              max_abs_err=max(a["max_abs_err_dk"], a["max_abs_err_dv"]),
              ms=a["dkv_kernel_ms"], plain_ms=a["plain_ms"],
              dropout=dropout_entry(dcases, ("i", "ii", "iii"), "dkv",
@@ -4487,6 +4926,7 @@ def main():
              replaces="flash_attn_tpu/kernels/flash_decode.py:407 and "
              ":1083 (_decode_paged_pipe_kernel)",
              launches=kv_launches, launches_by_run=kv_by_run,
+             by_head_dim=hd["flash_decode_ref"],
              case=kvc["a"]["case"],
              max_abs_err=kvc["a"]["max_abs_err_o"], ms=kvc["a"]["kernel_ms"],
              plain_ms=kvc["a"]["plain_ms"], bound_ms=kvc["a"]["bound_ms"],
@@ -4494,7 +4934,8 @@ def main():
              library_ms=kvc["a"]["library_ms"],
              num_splits=kvc["a"]["num_splits"], blocks=kvc["a"]["blocks"],
              sm_fill=kvc["a"]["sm_fill"],
-             ptxas=ptxas_summary("flash_decode_ref"),
+             ptxas={**ptxas_summary("flash_decode_ref"),
+                    **ptxas_summary("flash_decode_ref_wide")},
              by_case={k: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                               bound_ms=r["bound_ms"],
                               library_ms=r["library_ms"],
@@ -4514,6 +4955,7 @@ def main():
                  bert_grad=bert["grad_launches"]["varlen_fwd"],
                  dropout_bert_forward=dbert["launches"]["varlen_fwd"],
                  dropout_bert_grad=dbert["grad_launches"]["varlen_fwd"]),
+             by_head_dim=hd["flash_fwd_varlen"],
              dropout=dropout_entry(
                  dcases, ("iv",), "fwd",
                  dbert["launches"]["varlen_fwd_dropout"]
@@ -4546,6 +4988,7 @@ def main():
              launches_by_path=dict(
                  bert_grad=bert["grad_launches"]["varlen_dq"],
                  dropout_bert_grad=dbert["grad_launches"]["varlen_dq"]),
+             by_head_dim=hd["flash_bwd_varlen"],
              dropout=dropout_entry(
                  dcases, ("iv",), "bwd",
                  dbert["grad_launches"]["varlen_dq_dropout"],

@@ -1,8 +1,9 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu;
 // flex.cu and flash_decode_ref.cu use some): the mma.sync.m16n8k16
 // wrappers (the decode's products; the others take Mma<T>::pack), quad
-// reductions, the dense and packed varlen layouts (SeqLayout), and the
-// bottom-right causal / window mask arithmetic (key_band, interior).
+// reductions, the head-dim rule (kernel_head_dim), the dense and packed
+// varlen layouts (SeqLayout), and the bottom-right causal / window mask
+// arithmetic (key_band, interior).
 //
 // The forward and the backward (flash_bwd.cu's modded) turn a raw Q K^T
 // score into the softmax's exponent in the same order (scale, softcap on
@@ -59,6 +60,16 @@ struct Mma<__half> {
   }
 };
 
+// The head dim D the kernels are instantiated at for a call's head dim d:
+// d rounded up to a multiple of 64, the width of a tile's column block
+// (kernels/flash_fwd.py::kernel_head_dim).  0, no kernel, unless 0 < d <=
+// 256 and d is a multiple of 8: a row of d 16-bit values must be a whole
+// number of 16-byte units for the tensor maps' strides and the cp.async
+// rows.  The columns d..D-1 are zero in shared memory and never stored.
+inline int kernel_head_dim(int d) {
+  return d > 0 && d <= 256 && d % 8 == 0 ? (d + 63) / 64 * 64 : 0;
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -92,8 +103,8 @@ struct SeqLayout {
 };
 
 // sq, sk: the tensors' lengths (dense) or the calls' max lengths (varlen,
-// where they only size the grid).  The layout is a template argument, so
-// the dense kernels see their strides (d) as compile-time constants.
+// where they only size the grid); d: the call's head dim, the row stride
+// of the tensors (not the kernel's D, whose columns past d are padding).
 template <bool kVarlen>
 __device__ __forceinline__ SeqLayout seq_layout(
     const int* lens_q, const int* lens_k, int bb, int h, int hk, int sq,

@@ -73,6 +73,15 @@
 //   48-120 bytes a thread at 128-key stages, and takes 64-key stages; the
 //   d = 128 dK/dV kernel with dropout spilled 16-28 at 64-row stages, and
 //   takes 32-row stages (DqTiles, DkvTiles).
+// * Head dims: the kernels are instantiated at D = 64 and 128, and a call's
+//   d (a multiple of 8, up to 128) runs at D = d rounded up to a multiple
+//   of 64 (kernels/flash_fwd.py::kernel_head_dim), its true d riding in
+//   BwdMaps: the tensor maps span d columns, so the TMA fills Q's, dO's,
+//   O's, K's and V's columns d..D-1 in shared memory with zeros (delta and
+//   every product stay exact; dQ, dK and dV get zero columns there), and the
+//   stores skip them.  D 192 and 256 need a tile design of their own: at D
+//   256 the dQ kernel's resident Q, dO and O take 192 KB before any K/V
+//   stage, and dK plus dV 256 registers a consumer thread at 64 keys.
 // * What is hard: registers.  dK/dV's consumers hold dK and dV (64 + 64
 //   fp32 a thread at d = 128), S^T and dP^T (32 + 32) and their 16-bit
 //   packs; setmaxnreg gives them 240 and the producer 24, which is why the
@@ -297,10 +306,13 @@ struct DkvTiles {
 
 // The TMA descriptors (built on the host by launch): q, do and o in boxes
 // of the kernel's q rows, k and v of its keys; the dK/dV kernel reads no o.
-// Then the dropout's parameters, which only the kDropout kernels read.
+// Then the dropout's parameters, which only the kDropout kernels read, and
+// the call's head dim d (<= D: the row stride of every (., d) tensor, and
+// the columns the stores write).
 struct BwdMaps {
   CUtensorMap q, dout, o, k, v;
   Dropout drop;
+  int d;
 };
 
 // dS of one key tile for one dQ consumer thread: s (S, then dS) and dp in
@@ -382,7 +394,7 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
 
   const int hq = blockIdx.y, bb = blockIdx.z;
   const SeqLayout L = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h, p.hk,
-                                          p.sq, p.sk, p.total_q, D);
+                                          p.sq, p.sk, p.total_q, maps.d);
   // The block's q tiles, heaviest first: under a causal or right-windowed
   // mask a q tile sees more keys the later its rows.  With two items, block
   // x owns tiles n - 1 - x and x of the sequence's n, which evens the
@@ -599,8 +611,10 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
       T* drow = dq + (size_t)rows[i] * L.q_rs + tig * 2;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(drow + n * 8) = Mma<T>::pack(
-            acc[4 * n + 2 * i] * p.scale, acc[4 * n + 2 * i + 1] * p.scale);
+        if (n * 8 < maps.d)  // columns d..D-1 are padding
+          *reinterpret_cast<uint32_t*>(drow + n * 8) =
+              Mma<T>::pack(acc[4 * n + 2 * i] * p.scale,
+                           acc[4 * n + 2 * i + 1] * p.scale);
     }
   }
   if (cw == 0) my_turn<true>(cw);  // the turn warpgroup 1 gave first
@@ -697,7 +711,7 @@ __global__ void __launch_bounds__(
 
   const int hkv = blockIdx.y, bb = blockIdx.z;
   const SeqLayout L = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h, p.hk,
-                                          p.sq, p.sk, p.total_q, D);
+                                          p.sq, p.sk, p.total_q, maps.d);
   const int col0 = blockIdx.x * kKeys;
   if (col0 >= L.k_rows) return;  // past this sequence's keys
   const int sk_b = L.sk_b;
@@ -856,7 +870,8 @@ __global__ void __launch_bounds__(
   // the layout read again: kept from the prologue, it held registers
   // through the loop
   const SeqLayout Lo = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h,
-                                           p.hk, p.sq, p.sk, p.total_q, D);
+                                           p.hk, p.sq, p.sk, p.total_q,
+                                           maps.d);
   T* dkp = static_cast<T*>(p.dk) + Lo.k_head(hkv);
   T* dvp = static_cast<T*>(p.dv) + Lo.k_head(hkv);
   const float dv_scale = kDropout ? maps.drop.rp : 1.f;
@@ -867,6 +882,7 @@ __global__ void __launch_bounds__(
     const size_t base = (size_t)key * Lo.k_rs + tig * 2;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
+      if (n * 8 >= maps.d) continue;  // columns d..D-1 are padding
       *reinterpret_cast<uint32_t*>(dkp + base + n * 8) = Mma<T>::pack(
           dk[4 * n + 2 * i] * p.scale, dk[4 * n + 2 * i + 1] * p.scale);
       *reinterpret_cast<uint32_t*>(dvp + base + n * 8) =
@@ -878,9 +894,10 @@ __global__ void __launch_bounds__(
 
 // Builds the two kernels' tensor maps and launches the dQ kernel, then the
 // dK/dV kernel.  Dense tensors are (b, heads, s, d); a varlen stream
-// (total, heads, d) is mapped as one batch of `total` rows.
+// (total, heads, d) is mapped as one batch of `total` rows; the maps span
+// d columns, read in D / 64 boxes.
 template <typename T, int D, bool kVarlen, bool kMods, bool kDropout>
-int launch(const BwdParams& p, const Dropout& drop, int total_k,
+int launch(const BwdParams& p, const Dropout& drop, int total_k, int d,
            cudaStream_t stream) {
   using Dq = DqTiles<D, kMods && kDropout>;
   using Dkv = DkvTiles<D, kMods || kDropout>;
@@ -888,20 +905,21 @@ int launch(const BwdParams& p, const Dropout& drop, int total_k,
   const int sq = kVarlen ? p.total_q : p.sq;
   const int sk = kVarlen ? total_k : p.sk;
   // element strides of a head, a row and a batch
-  const long long q_sh = kVarlen ? D : (long long)sq * D;
-  const long long q_ss = kVarlen ? (long long)p.h * D : D;
-  const long long q_sb = (long long)p.h * sq * D;
-  const long long k_sh = kVarlen ? D : (long long)sk * D;
-  const long long k_ss = kVarlen ? (long long)p.hk * D : D;
-  const long long k_sb = (long long)p.hk * sk * D;
+  const long long q_sh = kVarlen ? d : (long long)sq * d;
+  const long long q_ss = kVarlen ? (long long)p.h * d : d;
+  const long long q_sb = (long long)p.h * sq * d;
+  const long long k_sh = kVarlen ? d : (long long)sk * d;
+  const long long k_ss = kVarlen ? (long long)p.hk * d : d;
+  const long long k_sb = (long long)p.hk * sk * d;
   auto q_map = [&](CUtensorMap* m, const void* base, int rows) {
-    return encode_map<T>(m, base, D, p.h, sq, nb, q_sh, q_ss, q_sb, rows);
+    return encode_map<T>(m, base, d, p.h, sq, nb, q_sh, q_ss, q_sb, rows);
   };
   auto k_map = [&](CUtensorMap* m, const void* base, int rows) {
-    return encode_map<T>(m, base, D, p.hk, sk, nb, k_sh, k_ss, k_sb, rows);
+    return encode_map<T>(m, base, d, p.hk, sk, nb, k_sh, k_ss, k_sb, rows);
   };
   BwdMaps dq_maps{}, dkv_maps{};
   dq_maps.drop = dkv_maps.drop = drop;
+  dq_maps.d = dkv_maps.d = d;
   int err = q_map(&dq_maps.q, p.q, Dq::kRows);
   if (!err) err = q_map(&dq_maps.dout, p.dout, Dq::kRows);
   if (!err) err = q_map(&dq_maps.o, p.o, Dq::kRows);
@@ -942,28 +960,37 @@ void set_host_constants(BwdParams* p) {
 // Calls with neither softcap nor ALiBi run the kMods = false kernels;
 // calls with dropout the kDropout ones.
 template <typename T, int D, bool kVarlen>
-int launch_mods(const BwdParams& p, const Dropout& drop, int total_k,
+int launch_mods(const BwdParams& p, const Dropout& drop, int total_k, int d,
                 cudaStream_t stream) {
   const bool mods = p.softcap > 0.f || p.alibi != nullptr;
   if (drop.thresh != 0)
-    return mods ? launch<T, D, kVarlen, true, true>(p, drop, total_k, stream)
-                : launch<T, D, kVarlen, false, true>(p, drop, total_k, stream);
-  if (mods) return launch<T, D, kVarlen, true, false>(p, drop, total_k, stream);
-  return launch<T, D, kVarlen, false, false>(p, drop, total_k, stream);
+    return mods
+               ? launch<T, D, kVarlen, true, true>(p, drop, total_k, d, stream)
+               : launch<T, D, kVarlen, false, true>(p, drop, total_k, d,
+                                                    stream);
+  if (mods)
+    return launch<T, D, kVarlen, true, false>(p, drop, total_k, d, stream);
+  return launch<T, D, kVarlen, false, false>(p, drop, total_k, d, stream);
+}
+
+// D 64 and 128: d up to 128 (the note's Head dims)
+template <typename T, bool kVarlen>
+int launch_d(const BwdParams& p, const Dropout& drop, int total_k, int d,
+             cudaStream_t s) {
+  switch (kernel_head_dim(d)) {
+    case 64: return launch_mods<T, 64, kVarlen>(p, drop, total_k, d, s);
+    case 128: return launch_mods<T, 128, kVarlen>(p, drop, total_k, d, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <bool kVarlen>
 int dispatch(const BwdParams& p, const Dropout& drop, int total_k, int d,
              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch_mods<__nv_bfloat16, 64, kVarlen>(p, drop, total_k, s);
-  if (dtype == 0 && d == 128)
-    return launch_mods<__nv_bfloat16, 128, kVarlen>(p, drop, total_k, s);
-  if (dtype == 1 && d == 64)
-    return launch_mods<__half, 64, kVarlen>(p, drop, total_k, s);
-  if (dtype == 1 && d == 128)
-    return launch_mods<__half, 128, kVarlen>(p, drop, total_k, s);
+  if (dtype == 0)
+    return launch_d<__nv_bfloat16, kVarlen>(p, drop, total_k, d, s);
+  if (dtype == 1) return launch_d<__half, kVarlen>(p, drop, total_k, d, s);
   return cudaErrorInvalidValue;
 }
 
@@ -976,8 +1003,9 @@ extern "C" const char* fa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = bf16, 1 = fp16.  Launches the dQ kernel, then the dK/dV
-// kernel, on `stream`; returns cudaGetLastError() after the launches (or a
+// dtype: 0 = bf16, 1 = fp16; d a multiple of 8 up to 128 (else
+// cudaErrorInvalidValue).  Launches the dQ kernel, then the dK/dV kernel,
+// on `stream`; returns cudaGetLastError() after the launches (or a
 // tensor-map error, see fa_error_string).  do, q, o, dq (b, h, sq, d), k, v,
 // dk, dv (b, hk, sk, d), all contiguous and 16-byte aligned; lse and dlse
 // (or null) (b, h, sq) fp32; stats 2 * b * h * stats_len fp32 of scratch

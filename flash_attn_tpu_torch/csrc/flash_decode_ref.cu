@@ -68,6 +68,22 @@
 //   maximum of the tiles seen so far in the split (:552-553, :656-662); the
 //   warps sharing a tile agree on its maximum through shared memory first.
 // * A row with no key in a split writes o = 0 and lse = +inf.
+// * Head dims: the kernel is instantiated at D = 64, 128, 192 and 256, and a
+//   call's d runs at D = d rounded up to a multiple of 64
+//   (kernels/flash_fwd.py::kernel_head_dim).  q, the cache rows and o_part
+//   hold d values a row (Params.d); the ring's rows are D wide, their
+//   16-byte chunks past d zero-filled by the cp.async (src_bytes = 0), so
+//   they add nothing to Q K^T and give O zero columns, which the stores
+//   skip.  A cache row must be whole 16-byte chunks: d a multiple of 8 for
+//   16-bit caches, of 16 for 8-bit ones.  At D > 128 Q's fragments live in
+//   shared memory, read at each k step: in registers they would take 48-64
+//   a thread beside O's 96-128, and the 64-row tile would spill.  D 192
+//   and 256 build into a library of their own (FA_DECODE_WIDE), beside the
+//   one of D 64 and 128, so that the two build in parallel.  For the
+//   same reason int8's P V accumulates there into O itself (in units of the
+//   V descale, applied at the end) instead of forming each tile's integer
+//   sums apart: the products stay exact, and each k16 step's sum rounds
+//   once into O's fp32 (against once a tile at D <= 128).
 //
 // Masks (flash_decode.py:578-590): keys before cache_leftpad and at or past
 // cache_seqlens; with rel = key - leftpad and offset = len - leftpad - sq,
@@ -98,10 +114,10 @@ constexpr int kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  const void* q;  // (b, hk, rows, D) packed; int8 for int8 caches
+  const void* q;  // (b, hk, rows, d) packed; int8 for int8 caches
   const unsigned char* k;
   const unsigned char* v;  // unused for fused pages
-  float* o_part;           // (b, hk, splits, rows, D); split 0 holds the merge
+  float* o_part;           // (b, hk, splits, rows, d); split 0 holds the merge
   float* lse_part;         // (b, hk, splits, rows)
   int* sems;               // (b, hk, row tiles) zeroed counters; splits > 1
   const int* seqlens;      // (b,)
@@ -113,6 +129,7 @@ struct Params {
   const float* k_descale;      // (b, hk) or null
   const float* v_descale;      // (b, hk) or null
   int b, h, hk, g, sq, rows;
+  int d;  // the head dim of q, o_part and the cache rows (<= D)
   int paged, fused, page, nk_max, smax;
   int heads_first;  // contiguous cache laid out (bc, hk, smax, d)
   int splits, split_keys;
@@ -248,7 +265,18 @@ struct Layout {
   static constexpr int kChunks = D * kBytes / 16;       // 16 B chunks per key row
   static constexpr int kTileBytes = kTileN * kRowBytes;
   static constexpr int kSmem = kStages * 2 * kTileBytes;
+  // Q's fragments in shared memory at D > 128 (see the note): one uint4 a
+  // lane, k step and 16-row group, after the ring
+  static constexpr bool kQShared = D > 128;
 };
+
+// The dynamic shared memory of a block: the ring, then Q's fragments.
+template <int D, int kBytes, bool kInt8, int kRowWarps>
+constexpr int decode_smem() {
+  using L = Layout<D, kBytes>;
+  return L::kSmem +
+         (L::kQShared ? kRowWarps * (kInt8 ? D / 32 : D / 16) * 32 * 16 : 0);
+}
 
 // T: the 16-bit compute type (bf16 / fp16 q; fp16 for int8 caches, whose q
 // arrives pre-quantised as int8).  TC: the cache element type.  kRowWarps:
@@ -274,6 +302,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
   constexpr bool kOwnRows = kKeyWarps > 1;
   constexpr int kSlotRows = kOwnRows ? kWK : kTileN;  // rows of a K (or V) slot
   constexpr int kSlotBytes = kSlotRows * L::kRowBytes;
+  // The copy loop kept rolled where, unrolled, its chunks' addresses held
+  // registers and ptxas spilled: every cache at D > 128, and the 16-bit
+  // 64-row tile at D 64 (since the head dim became a runtime value).
+  // Rolled everywhere, the 16-bit decode took 2-6 % longer at D 64 and
+  // 128 (diag/decode_ab.py, in turns).
+  constexpr bool kRollCopies = L::kQShared || (kWide && kRowWarps == 4 && D == 64);
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
@@ -298,8 +332,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
   const int lp = p.leftpad ? p.leftpad[bb] : 0;
   const int offset = len - lp - p.sq;
   const int cb = p.cache_batch_idx ? p.cache_batch_idx[bb] : bb;
-  constexpr size_t kRow = (size_t)D * Cache<TC>::kBytes;  // one key of one kv head
-  const size_t key_stride = p.heads_first ? kRow : p.hk * kRow;  // bytes between keys
+  const size_t row_bytes = (size_t)p.d * Cache<TC>::kBytes;  // one key of one kv head
+  const size_t key_stride = p.heads_first ? row_bytes : p.hk * row_bytes;  // bytes between keys
 
   // this thread's two rows (C fragment rows gid and gid + 8 of its warp):
   // query position and ALiBi slope; rows past the tile read row rows - 1
@@ -317,35 +351,55 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
   // fragments of 32-column steps (4 bytes at 4*tig, and 16 on).  fp8: the
   // columns of a 16-column step in K's fragment order (k slots 2*tig,
   // 2*tig + 1 | 8 + 2*tig, 9 + 2*tig are d 4*tig .. 4*tig + 3): the dot product
-  // is the same, and K's bytes widen where they land.
+  // is the same, and K's bytes widen where they land.  Columns past d are
+  // zero.  At D > 128 the fragments are stored to shared memory (this
+  // lane's uint4 of step kk at q_sm[kk * 32]; a thread reads back only what
+  // it stored) and q_frag reads one at each use.
   constexpr int kQS = kInt8 ? D / 32 : kKS;
+  constexpr bool kQShared = L::kQShared;
   uint32_t qa[kQS][4];
+  uint4* q_sm = reinterpret_cast<uint4*>(smem + L::kSmem) + (size_t)rg * kQS * 32 + lane;
   {
     const size_t q_row0 = (size_t)(bb * p.hk + kh) * p.rows + r0 + rg * 16;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = rg * 16 + gid + 8 * i;
       const bool ok = r < nr;
-      const size_t base = (q_row0 + gid + 8 * i) * D;
+      const size_t base = (q_row0 + gid + 8 * i) * p.d;
 #pragma unroll
       for (int kk = 0; kk < kQS; ++kk) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
+          const int col = kInt8 ? kk * 32 + c * 16 + tig * 4
+                                : kk * 16 + (kWide ? tig * 2 + c * 8 : tig * 4 + c * 2);
           uint32_t x = 0;
-          if (ok) {
-            if constexpr (kInt8) {
-              x = *reinterpret_cast<const uint32_t*>(static_cast<const int8_t*>(p.q) + base +
-                                                     kk * 32 + c * 16 + tig * 4);
-            } else {
-              const size_t at = base + kk * 16 + (kWide ? tig * 2 + c * 8 : tig * 4 + c * 2);
-              x = *reinterpret_cast<const uint32_t*>(static_cast<const T*>(p.q) + at);
-            }
+          if (ok && col < p.d) {
+            if constexpr (kInt8)
+              x = *reinterpret_cast<const uint32_t*>(static_cast<const int8_t*>(p.q) + base + col);
+            else
+              x = *reinterpret_cast<const uint32_t*>(static_cast<const T*>(p.q) + base + col);
           }
           qa[kk][i + 2 * c] = x;
         }
       }
     }
+    if constexpr (kQShared) {
+#pragma unroll
+      for (int kk = 0; kk < kQS; ++kk)
+        q_sm[kk * 32] = make_uint4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+    }
   }
+  // Q's A fragment of step kk: qa[kk], or at D > 128 a shared-memory read
+  // into buf
+  auto q_frag = [&](int kk, uint32_t* buf) -> const uint32_t* {
+    if constexpr (kQShared) {
+      const uint4 v = q_sm[kk * 32];
+      buf[0] = v.x, buf[1] = v.y, buf[2] = v.z, buf[3] = v.w;
+      return buf;
+    } else {
+      return qa[kk];
+    }
+  };
 
   // positions the tile's rows hold, for the key range they can see
   int pos_lo = 0, pos_hi = p.sq - 1;
@@ -372,12 +426,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
     if (p.paged) {
       const size_t pid = (size_t)p.block_table[bb * p.nk_max + col / p.page];
       const int off = col % p.page;
-      if (p.fused) return p.k + ((pid * 2 + which) * p.page + off) * key_stride + kh * kRow;
-      return (which ? p.v : p.k) + (pid * p.page + off) * key_stride + kh * kRow;
+      if (p.fused) return p.k + ((pid * 2 + which) * p.page + off) * key_stride + kh * row_bytes;
+      return (which ? p.v : p.k) + (pid * p.page + off) * key_stride + kh * row_bytes;
     }
     const unsigned char* base = which ? p.v : p.k;
-    if (p.heads_first) return base + (((size_t)cb * p.hk + kh) * p.smax + col) * kRow;
-    return base + ((size_t)cb * p.smax + col) * key_stride + kh * kRow;
+    if (p.heads_first) return base + (((size_t)cb * p.hk + kh) * p.smax + col) * row_bytes;
+    return base + ((size_t)cb * p.smax + col) * key_stride + kh * row_bytes;
   };
 
   // Copy the slot's rows of the tile at col0 (a warp's kWK keys, or all of
@@ -390,11 +444,17 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
     const unsigned char* vb = valid > 0 ? row_ptr(col0 + row0, 1) : p.k;
     unsigned char* dk = my_ring + (size_t)(slot * 2) * kSlotBytes;
     unsigned char* dv = dk + kSlotBytes;
-    for (int idx = first; idx < kSlotRows * L::kChunks; idx += kStep) {
+    auto copy = [&](int idx) {
       const int r = idx / L::kChunks, c = (idx % L::kChunks) * 16;
-      const bool ok = r < valid;
+      const bool ok = r < valid && (size_t)c < row_bytes;  // chunks past d: zeros
       cp_async16(dk + r * L::kRowBytes + c, ok ? kb + r * key_stride + c : p.k, ok ? 16 : 0);
       cp_async16(dv + r * L::kRowBytes + c, ok ? vb + r * key_stride + c : p.k, ok ? 16 : 0);
+    };
+    if constexpr (kRollCopies) {
+#pragma unroll 1
+      for (int idx = first; idx < kSlotRows * L::kChunks; idx += kStep) copy(idx);
+    } else {
+      for (int idx = first; idx < kSlotRows * L::kChunks; idx += kStep) copy(idx);
     }
   };
 
@@ -431,21 +491,32 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
     const unsigned char* sK = my_ring + (size_t)((it % kStages) * 2) * kSlotBytes;
     const unsigned char* sV = sK + kSlotBytes;
 
-    // S = Q K^T; consecutive mma go to different n-tiles
+    // S = Q K^T; consecutive mma go to different n-tiles.  At D > 128 each
+    // n-tile's products follow its fragments' load: all of them loaded
+    // first spilled beside O's 128 registers.
     float s[kNT][4];
 #pragma unroll
     for (int jt = 0; jt < kNT; ++jt) s[jt][0] = s[jt][1] = s[jt][2] = s[jt][3] = 0.f;
     if constexpr (kWide) {
 #pragma unroll
       for (int kk = 0; kk < kKS; kk += 2) {
-        uint32_t b[kNT][4];
+        uint32_t b[kNT][4], t0[4], t1[4];
+        const uint32_t* a0 = q_frag(kk, t0);
+        const uint32_t* a1 = q_frag(kk + 1, t1);
 #pragma unroll
-        for (int jt = 0; jt < kNT; ++jt)
+        for (int jt = 0; jt < kNT; ++jt) {
           ldsm_x4(b[jt], sK + (jt * 8 + (lane & 7)) * kRowBytes + (kk * 16 + (lane >> 3) * 8) * 2);
+          if constexpr (kQShared) {
+            Mma<T>::mma(s[jt], a0, b[jt]);
+            Mma<T>::mma(s[jt], a1, b[jt] + 2);
+          }
+        }
+        if constexpr (!kQShared) {
 #pragma unroll
-        for (int jt = 0; jt < kNT; ++jt) Mma<T>::mma(s[jt], qa[kk], b[jt]);
+          for (int jt = 0; jt < kNT; ++jt) Mma<T>::mma(s[jt], a0, b[jt]);
 #pragma unroll
-        for (int jt = 0; jt < kNT; ++jt) Mma<T>::mma(s[jt], qa[kk + 1], b[jt] + 2);
+          for (int jt = 0; jt < kNT; ++jt) Mma<T>::mma(s[jt], a1, b[jt] + 2);
+        }
       }
     } else if constexpr (kInt8) {
       // an 8-bit ldmatrix gives a thread 4 bytes of its key's row (d
@@ -456,14 +527,23 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
       for (int jt = 0; jt < kNT; ++jt) si[jt][0] = si[jt][1] = si[jt][2] = si[jt][3] = 0;
 #pragma unroll
       for (int c0 = 0; c0 < kKS; c0 += 4) {
-        uint32_t r[kNT][4];
+        uint32_t r[kNT][4], t0[4], t1[4];
+        const uint32_t* a0 = q_frag(c0 / 2, t0);
+        const uint32_t* a1 = q_frag(c0 / 2 + 1, t1);
 #pragma unroll
-        for (int jt = 0; jt < kNT; ++jt)
+        for (int jt = 0; jt < kNT; ++jt) {
           ldsm_x4(r[jt], sK + (jt * 8 + (lane & 7)) * kRowBytes + (c0 + (lane >> 3)) * 16);
+          if constexpr (kQShared) {
+            mma_s8(si[jt], a0, r[jt]);
+            mma_s8(si[jt], a1, r[jt] + 2);
+          }
+        }
+        if constexpr (!kQShared) {
 #pragma unroll
-        for (int jt = 0; jt < kNT; ++jt) mma_s8(si[jt], qa[c0 / 2], r[jt]);
+          for (int jt = 0; jt < kNT; ++jt) mma_s8(si[jt], a0, r[jt]);
 #pragma unroll
-        for (int jt = 0; jt < kNT; ++jt) mma_s8(si[jt], qa[c0 / 2 + 1], r[jt] + 2);
+          for (int jt = 0; jt < kNT; ++jt) mma_s8(si[jt], a1, r[jt] + 2);
+        }
       }
 #pragma unroll
       for (int jt = 0; jt < kNT; ++jt)
@@ -479,13 +559,16 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
         for (int jt = 0; jt < kNT; ++jt)
           ldsm_x4(r[jt], sK + (jt * 8 + (lane & 7)) * kRowBytes + (c0 + (lane >> 3)) * 16);
 #pragma unroll
-        for (int m = 0; m < 4; ++m)
+        for (int m = 0; m < 4; ++m) {
+          uint32_t buf[4];
+          const uint32_t* a = q_frag(c0 + m, buf);
 #pragma unroll
           for (int jt = 0; jt < kNT; ++jt) {
             uint32_t b[2];
             Cache<TC>::template widen4<T>(r[jt][m], b);
-            Mma<T>::mma(s[jt], qa[c0 + m], b);
+            Mma<T>::mma(s[jt], a, b);
           }
+        }
       }
     }
 
@@ -586,7 +669,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
         Mma<T>::mma(acc[1], pa[ks], b + 2);
       }
     };
-    if constexpr (kInt8) {
+    if constexpr (kInt8 && !kQShared) {
       // the tile's integer sums first, exact in fp32, as today's int32 P V
 #pragma unroll
       for (int dp = 0; dp < kDT; dp += 2) {
@@ -612,7 +695,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
     col0 += n;
   }
   cp_async_wait<0>();
-  if constexpr (!kInt8) {
+  if constexpr (!kInt8 || kQShared) {
 #pragma unroll
     for (int dt = 0; dt < kDT; ++dt)
 #pragma unroll
@@ -620,19 +703,23 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
   }
 
   const size_t part = ((size_t)(bb * p.hk + kh) * p.splits + split) * p.rows + r0;
-  // this thread's values of its row i (gid + 8 i), times f, into a row of D
+  // this thread's values of its row i (gid + 8 i), times f, into a row: its
+  // columns below d (an n-tile, or a 16-column chunk, is wholly below d or
+  // not)
   auto put_row = [&](float* row, int i, float f) {
     if constexpr (kWide) {
 #pragma unroll
       for (int dt = 0; dt < kDT; ++dt)
-        *reinterpret_cast<float2*>(row + dt * 8 + tig * 2) =
-            make_float2(o[dt][2 * i] * f, o[dt][2 * i + 1] * f);
+        if (dt * 8 < p.d)
+          *reinterpret_cast<float2*>(row + dt * 8 + tig * 2) =
+              make_float2(o[dt][2 * i] * f, o[dt][2 * i + 1] * f);
     } else {
 #pragma unroll
       for (int c = 0; c < D / 16; ++c)
-        *reinterpret_cast<float4*>(row + c * 16 + tig * 4) =
-            make_float4(o[2 * c][2 * i] * f, o[2 * c + 1][2 * i] * f,
-                        o[2 * c][2 * i + 1] * f, o[2 * c + 1][2 * i + 1] * f);
+        if (c * 16 < p.d)
+          *reinterpret_cast<float4*>(row + c * 16 + tig * 4) =
+              make_float4(o[2 * c][2 * i] * f, o[2 * c + 1][2 * i] * f,
+                          o[2 * c][2 * i + 1] * f, o[2 * c + 1][2 * i + 1] * f);
     }
   };
   float l_row[2];
@@ -644,7 +731,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
       const int r = rg * 16 + gid + 8 * i;
       if (r >= nr) continue;
       const float l = l_row[i];
-      put_row(p.o_part + (part + r) * D, i, l > 0.f ? 1.f / l : 0.f);
+      put_row(p.o_part + (part + r) * p.d, i, l > 0.f ? 1.f / l : 0.f);
       if (tig == 0) p.lse_part[part + r] = l > 0.f ? m_run[i] + logf(l) : INFINITY;
     }
   } else {
@@ -674,8 +761,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
       for (int w = 0; w < kKeyWarps; ++w) mx = fmaxf(mx, sM[w * 16 + r]);
       return mx;
     };
-    for (int idx = tid; idx < nr * D; idx += kThreads) {
-      const int r = idx / D, dd = idx % D;
+    for (int idx = tid; idx < nr * p.d; idx += kThreads) {
+      const int r = idx / p.d, dd = idx % p.d;
       const float mx = row_max(r);
       float l = 0.f, acc = 0.f;
 #pragma unroll
@@ -684,7 +771,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
         l += f * sL[w * 16 + r];
         acc += f * sO[(w * 16 + r) * D + dd];
       }
-      p.o_part[(part + r) * D + dd] = l > 0.f ? acc / l : 0.f;
+      p.o_part[(part + r) * p.d + dd] = l > 0.f ? acc / l : 0.f;
     }
     for (int r = tid; r < nr; r += kThreads) {
       const float mx = row_max(r);
@@ -711,8 +798,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
   if (!sLast) return;
   __threadfence();
   const size_t g0 = (size_t)(bb * p.hk + kh) * p.splits * p.rows + r0;  // split 0, row r0
-  for (int idx = tid; idx < nr * D; idx += kThreads) {
-    const int r = idx / D, dd = idx % D;
+  for (int idx = tid; idx < nr * p.d; idx += kThreads) {
+    const int r = idx / p.d, dd = idx % p.d;
     float mx = -INFINITY;
     for (int s = 0; s < p.splits; ++s) {
       const float l = __ldcg(p.lse_part + g0 + (size_t)s * p.rows + r);
@@ -726,10 +813,10 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
         if (l == INFINITY) continue;
         const float w = expf(l - mx);
         sw += w;
-        acc += w * __ldcg(p.o_part + at * D + dd);
+        acc += w * __ldcg(p.o_part + at * p.d + dd);
       }
     }
-    p.o_part[(g0 + r) * D + dd] = sw > 0.f ? acc / sw : 0.f;
+    p.o_part[(g0 + r) * p.d + dd] = sw > 0.f ? acc / sw : 0.f;
   }
   __syncthreads();  // every split's lse is read before split 0's is replaced
   for (int r = tid; r < nr; r += kThreads) {
@@ -750,10 +837,11 @@ __global__ void __launch_bounds__(kThreads) flash_decode_ref_kernel(const Params
 
 template <typename T, typename TC, int D, int kRowWarps>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  using L = Layout<D, Cache<TC>::kBytes>;
+  constexpr int kSmem =
+      decode_smem<D, Cache<TC>::kBytes, std::is_same<TC, int8_t>::value, kRowWarps>();
   auto kernel = flash_decode_ref_kernel<T, TC, D, kRowWarps>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   // all of the SM's unified memory as shared memory: two blocks of ring fit
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -762,7 +850,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int rows_per_block = 16 * kRowWarps;
   const int tiles = (p.rows + rows_per_block - 1) / rows_per_block;
   dim3 grid(tiles, p.splits, p.b * p.hk);
-  kernel<<<grid, kThreads, L::kSmem, stream>>>(p);
+  kernel<<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -796,7 +884,9 @@ extern "C" const char* fa_error_string(int err) {
 
 // q_dtype: 0 = bf16, 1 = fp16.  cache_dtype: 0 = bf16, 1 = fp16 (the q
 // type), 2 = int8 (q pre-quantised to int8, q_scale given), 3 = fp8 e4m3,
-// 4 = fp8 e5m2.  heads_first: a contiguous cache is (bc, hk, smax, d), not
+// 4 = fp8 e5m2.  d: up to 128 (built with FA_DECODE_WIDE: 129 to 256), a
+// multiple of 8 (16 for 8-bit caches), else cudaErrorInvalidValue; q is (b, hk, g * sq, d), o_part (b, hk, splits,
+// g * sq, d).  heads_first: a contiguous cache is (bc, hk, smax, d), not
 // (bc, smax, hk, d).  With num_splits > 1, `sems` holds one zeroed int32 per
 // (batch, kv head, row tile) (row tiles: 1 for up to 16 packed rows, else
 // ceil(rows / 64)); the kernel leaves them zeroed, and o_part / lse_part's
@@ -816,10 +906,20 @@ extern "C" int flash_decode_ref(
   Params p{q, static_cast<const unsigned char*>(k_cache),
            static_cast<const unsigned char*>(v_cache), o_part, lse_part, sems, cache_seqlens,
            cache_leftpad, cache_batch_idx, block_table, alibi, q_scale, k_descale, v_descale,
-           b, h, hk, g, sq, rows, paged, fused, page, nk_max, smax, heads_first, num_splits,
-           split_keys, scale, has_upper, wr, has_lower, wl, chunk, softcap};
+           b, h, hk, g, sq, rows, d, paged, fused, page, nk_max, smax, heads_first,
+           num_splits, split_keys, scale, has_upper, wr, has_lower, wl, chunk, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return dispatch<64>(p, q_dtype, cache_dtype, s);
-  if (d == 128) return dispatch<128>(p, q_dtype, cache_dtype, s);
+  if (cache_dtype >= 2 && d % 16 != 0) return cudaErrorInvalidValue;  // 8-bit rows
+  // two libraries from this source, each with half the head dims, so that
+  // they build in parallel (kernels/_build.py's DERIVED)
+  switch (fa::kernel_head_dim(d)) {
+#ifdef FA_DECODE_WIDE
+    case 192: return dispatch<192>(p, q_dtype, cache_dtype, s);
+    case 256: return dispatch<256>(p, q_dtype, cache_dtype, s);
+#else
+    case 64: return dispatch<64>(p, q_dtype, cache_dtype, s);
+    case 128: return dispatch<128>(p, q_dtype, cache_dtype, s);
+#endif
+  }
   return cudaErrorInvalidValue;
 }

@@ -24,10 +24,20 @@
 //   blocks share an SM: one's loads, start and stores overlap the other's
 //   products, where at d = 64 they weigh more against the products
 //   (FwdTiles; kernels/flash_fwd.py::fwd_rows has the numbers that chose
-//   it).  Key tiles are 128 wide.
+//   it).  Key tiles are 128 wide, 64 at D 192 and 256 (128 rows), where a
+//   128-key stage of K and V beside Q would leave room for one stage only.
+// * Head dims: the kernel is instantiated at D = 64, 128, 192 and 256 (the
+//   tiles are 64-column blocks in the 128-byte swizzle), and a call's d
+//   (a multiple of 8, up to 256) runs at D = d rounded up to a multiple of
+//   64 (kernels/flash_fwd.py::kernel_head_dim).  The true d rides in
+//   FwdMaps: the tensor maps span d columns, so the TMA fills Q's, K's and
+//   V's columns d..D-1 in shared memory with zeros (they add nothing to Q
+//   K^T and give O zero columns there), and the stores skip them.  At D
+//   256 the O accumulator is 128 registers a consumer thread.
 // * Loads: warpgroup 0 is the producer.  One thread loads Q once by TMA,
 //   then keeps a ring of K/V stages full (as many as the shared memory
-//   holds: 3 at d = 64, two blocks an SM; 3 at d = 128), through full /
+//   holds: 3 at D 64, two blocks an SM; 3 at D 128 and 192; 2 at D 256,
+//   where Q takes 64 KB and a stage 64 KB), through full /
 //   empty mbarriers.  4-D tensor maps over (d, heads, s, b) (dense) or
 //   (d, heads, total, 1) (varlen) are built on the host from the strides
 //   (hopper.cuh's encode_map); rows past s read as zeros.  setmaxnreg moves the
@@ -118,10 +128,12 @@ struct FwdParams {
 // The TMA descriptors (built on the host by launch), passed beside
 // FwdParams so that it keeps its layout: q in boxes of the kernel's rows,
 // k and v of its keys; then the dropout's parameters, which only the
-// kDropout kernels read.
+// kDropout kernels read, and the call's head dim d (<= D: the row stride of
+// q, k, v and o, and the columns the stores write).
 struct FwdMaps {
   CUtensorMap q, k, v;
   Dropout drop;
+  int d;
 };
 
 // The tiles and shared memory of head dim D: a block owns kRows q rows (one
@@ -135,8 +147,10 @@ struct FwdTiles {
   static constexpr int kRows = D == 64 ? 64 : 128;
   static constexpr int kConsumers = kRows / 64;
   // 128; 64 where a 64-row block would otherwise not fit twice an SM (d =
-  // 128 at 64 rows: diag/flash_ab.py's rows64 variant)
-  static constexpr int kKeys = kRows == 64 && D == 128 ? 64 : 128;
+  // 128 at 64 rows: diag/flash_ab.py's rows64 variant), and at D >= 192,
+  // where two 128-key stages do not fit beside Q
+  static constexpr int kKeys = (kRows == 64 && D == 128) || D >= 192 ? 64
+                                                                     : 128;
   static constexpr int kThreads = (kConsumers + 1) * 128;
   static constexpr int kQBytes = kRows * D * 2;
   static constexpr int kTileBytes = kKeys * D * 2;  // K or V
@@ -156,6 +170,8 @@ struct FwdTiles {
   // barriers: Q, then full[kStages], then empty[kStages]; 1024 bytes of
   // slack to align the dynamic buffer
   static constexpr int kSmem = 1024 + kBarOffset + (1 + 2 * kStages) * 8;
+  // kFit clamps to 2 stages even where 2 do not fit
+  static_assert(kSmem <= 227 * 1024, "FwdTiles: shared memory");
 };
 
 // The scores of one key tile for one consumer thread, in place: s (the
@@ -228,7 +244,7 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads,
   const int tile = p.has_upper ? n_q - 1 - tile_idx : tile_idx;
   const int row0 = tile * kRows;
   const SeqLayout L = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h, p.hk,
-                                          p.sq, p.sk, p.total_q, D);
+                                          p.sq, p.sk, p.total_q, maps.d);
   if (row0 >= L.q_rows) return;  // past this sequence's rows
   const int sk_b = L.sk_b;
   const int offset = sk_b - L.sq_b;
@@ -411,7 +427,8 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads,
   // the layout read again: kept from the prologue, it held registers
   // through the loop
   const SeqLayout Lo = seq_layout<kVarlen>(p.lens_q, p.lens_k, bb, p.h,
-                                           p.hk, p.sq, p.sk, p.total_q, D);
+                                           p.hk, p.sq, p.sk, p.total_q,
+                                           maps.d);
   T* o = static_cast<T*>(p.o) + Lo.q_head(hq);
   float* lse = p.lse + Lo.l_head(hq);
 #pragma unroll
@@ -423,18 +440,20 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads,
     T* orow = o + (size_t)row * Lo.q_rs + tig * 2;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          Mma<T>::pack(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+      if (n * 8 < maps.d)  // columns d..D-1 are padding
+        *reinterpret_cast<uint32_t*>(orow + n * 8) = Mma<T>::pack(
+            acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
     if (tig == 0) lse[row] = l > 0.f ? (m_run[i] + log2f(l)) * kLn2 : INFINITY;
   }
 }
 
 // Builds the tensor maps and launches the kernel.  Dense tensors are (b,
 // heads, s, d); a varlen stream (total, heads, d) is mapped as one batch of
-// `total` rows.  With no key at all (sk = 0) the K/V maps are built over q,
-// which the kernel then never reads through them.
+// `total` rows; the maps span d columns, read in D / 64 boxes.  With no key
+// at all (sk = 0) the K/V maps are built over q, which the kernel then
+// never reads through them.
 template <typename T, int D, bool kVarlen, bool kMods, bool kDropout>
-int launch(const FwdParams& p, const Dropout& drop, int total_k,
+int launch(const FwdParams& p, const Dropout& drop, int total_k, int d,
            cudaStream_t stream) {
   using Cfg = FwdTiles<D>;
   constexpr int kRows = Cfg::kRows;
@@ -442,22 +461,23 @@ int launch(const FwdParams& p, const Dropout& drop, int total_k,
   const int sq = kVarlen ? p.total_q : p.sq;
   const int sk = kVarlen ? total_k : p.sk;
   // element strides of a head, a row and a batch
-  const long long q_sh = kVarlen ? D : (long long)sq * D;
-  const long long q_ss = kVarlen ? (long long)p.h * D : D;
-  const long long q_sb = (long long)p.h * sq * D;
+  const long long q_sh = kVarlen ? d : (long long)sq * d;
+  const long long q_ss = kVarlen ? (long long)p.h * d : d;
+  const long long q_sb = (long long)p.h * sq * d;
   FwdMaps maps{};
   maps.drop = drop;
-  int err = encode_map<T>(&maps.q, p.q, D, p.h, sq, nb, q_sh, q_ss, q_sb,
+  maps.d = d;
+  int err = encode_map<T>(&maps.q, p.q, d, p.h, sq, nb, q_sh, q_ss, q_sb,
                           kRows);
   if (sk > 0) {
-    const long long k_sh = kVarlen ? D : (long long)sk * D;
-    const long long k_ss = kVarlen ? (long long)p.hk * D : D;
-    const long long k_sb = (long long)p.hk * sk * D;
+    const long long k_sh = kVarlen ? d : (long long)sk * d;
+    const long long k_ss = kVarlen ? (long long)p.hk * d : d;
+    const long long k_sb = (long long)p.hk * sk * d;
     if (!err)
-      err = encode_map<T>(&maps.k, p.k, D, p.hk, sk, nb, k_sh, k_ss, k_sb,
+      err = encode_map<T>(&maps.k, p.k, d, p.hk, sk, nb, k_sh, k_ss, k_sb,
                           Cfg::kKeys);
     if (!err)
-      err = encode_map<T>(&maps.v, p.v, D, p.hk, sk, nb, k_sh, k_ss, k_sb,
+      err = encode_map<T>(&maps.v, p.v, d, p.hk, sk, nb, k_sh, k_ss, k_sb,
                           Cfg::kKeys);
   } else {
     maps.k = maps.v = maps.q;
@@ -477,28 +497,38 @@ int launch(const FwdParams& p, const Dropout& drop, int total_k,
 // Calls with neither softcap nor ALiBi, and a positive scale, run the
 // kMods = false kernels; calls with dropout the kDropout ones.
 template <typename T, int D, bool kVarlen>
-int launch_mods(const FwdParams& p, const Dropout& drop, int total_k,
+int launch_mods(const FwdParams& p, const Dropout& drop, int total_k, int d,
                 cudaStream_t stream) {
   const bool mods = p.softcap > 0.f || p.alibi != nullptr || !(p.scale > 0.f);
   if (drop.thresh != 0)
-    return mods ? launch<T, D, kVarlen, true, true>(p, drop, total_k, stream)
-                : launch<T, D, kVarlen, false, true>(p, drop, total_k, stream);
-  if (mods) return launch<T, D, kVarlen, true, false>(p, drop, total_k, stream);
-  return launch<T, D, kVarlen, false, false>(p, drop, total_k, stream);
+    return mods
+               ? launch<T, D, kVarlen, true, true>(p, drop, total_k, d, stream)
+               : launch<T, D, kVarlen, false, true>(p, drop, total_k, d,
+                                                    stream);
+  if (mods)
+    return launch<T, D, kVarlen, true, false>(p, drop, total_k, d, stream);
+  return launch<T, D, kVarlen, false, false>(p, drop, total_k, d, stream);
+}
+
+template <typename T, bool kVarlen>
+int launch_d(const FwdParams& p, const Dropout& drop, int total_k, int d,
+             cudaStream_t s) {
+  switch (kernel_head_dim(d)) {
+    case 64: return launch_mods<T, 64, kVarlen>(p, drop, total_k, d, s);
+    case 128: return launch_mods<T, 128, kVarlen>(p, drop, total_k, d, s);
+    case 192: return launch_mods<T, 192, kVarlen>(p, drop, total_k, d, s);
+    case 256: return launch_mods<T, 256, kVarlen>(p, drop, total_k, d, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <bool kVarlen>
 int dispatch(const FwdParams& p, const Dropout& drop, int total_k, int d,
              int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch_mods<__nv_bfloat16, 64, kVarlen>(p, drop, total_k, s);
-  if (dtype == 0 && d == 128)
-    return launch_mods<__nv_bfloat16, 128, kVarlen>(p, drop, total_k, s);
-  if (dtype == 1 && d == 64)
-    return launch_mods<__half, 64, kVarlen>(p, drop, total_k, s);
-  if (dtype == 1 && d == 128)
-    return launch_mods<__half, 128, kVarlen>(p, drop, total_k, s);
+  if (dtype == 0)
+    return launch_d<__nv_bfloat16, kVarlen>(p, drop, total_k, d, s);
+  if (dtype == 1) return launch_d<__half, kVarlen>(p, drop, total_k, d, s);
   return cudaErrorInvalidValue;
 }
 
@@ -511,7 +541,8 @@ extern "C" const char* fa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = bf16, 1 = fp16.  q, o (b, h, sq, d), k, v (b, hk, sk, d), all
+// dtype: 0 = bf16, 1 = fp16.  d: a multiple of 8 up to 256 (else
+// cudaErrorInvalidValue).  q, o (b, h, sq, d), k, v (b, hk, sk, d), all
 // contiguous and 16-byte aligned; lse (b, h, sq) fp32; seqused_q/k (b,)
 // int32; alibi (b, h) fp32 or null; drop_seed, drop_thresh, drop_rp the
 // dropout's (fa_common.cuh's Dropout; a threshold of 0 is no dropout).

@@ -326,15 +326,22 @@ __device__ __forceinline__ void wgmma_ss<32, __half>(
 
 // O (the m64nD accumulator) += P V over one tile of kKeys keys: P in
 // registers (pa[k16 step]), V in shared memory MN-major, its column blocks
-// kKeys * 128 bytes apart.
+// kKeys * 128 bytes apart.  D above 128 (192, 256) is issued as a 128-column
+// product, then one of the remaining columns: accumulator registers 64 on,
+// V two column blocks on (the products are instantiated at N = 64 and 128).
 template <int D, int kKeys, typename T>
 __device__ __forceinline__ void pv_product(float* acc,
                                            const uint32_t (*pa)[4],
                                            const T* sv) {
-  const uint64_t v_desc = sw128_desc(sv, kKeys * 128, 1024);
+  if constexpr (D > 128) {
+    pv_product<128, kKeys>(acc, pa, sv);
+    pv_product<D - 128, kKeys>(acc + 64, pa, sv + 2 * kKeys * 64);
+  } else {
+    const uint64_t v_desc = sw128_desc(sv, kKeys * 128, 1024);
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk)
-    wgmma_rs<D, T>(acc, pa[kk], v_desc + ((kk * 2048) >> 4), 1);
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs<D, T>(acc, pa[kk], v_desc + ((kk * 2048) >> 4), 1);
+  }
 }
 
 // With two consumer warpgroups, each tile's products are issued in turns

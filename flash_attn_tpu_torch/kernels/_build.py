@@ -3,7 +3,8 @@ kernels compile at trace time).
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled on its own by
 `nvcc` for Hopper (`sm_90a`) into `_build/lib<name>.so`, which is loaded with
-`ctypes`.  The build happens at first use, is reused while the library is
+`ctypes`; a library of `DERIVED` is another one's source compiled with
+extra flags.  The build happens at first use, is reused while the library is
 newer than its source and the shared `csrc/*.cuh` headers, and raises on any
 failure: nothing falls back to a plain version.
 """
@@ -20,8 +21,14 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("flash_fwd", "flash_decode_ref", "flash_bwd", "flex",
-           "diag_dma_stream", "diag_int8_decode", "diag_varlen_bisect")
+KERNELS = ("flash_fwd", "flash_decode_ref", "flash_decode_ref_wide",
+           "flash_bwd", "flex", "diag_dma_stream", "diag_int8_decode",
+           "diag_varlen_bisect")
+# name -> (source, extra nvcc flags): the decode kernel's head dims 192 and
+# 256 in a translation unit of their own, which builds beside the one of 64
+# and 128 (the four in one file took ~150 s of `nvcc`, the longest build)
+DERIVED = {"flash_decode_ref_wide": ("flash_decode_ref",
+                                     ("-DFA_DECODE_WIDE",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,11 +57,15 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _source(name: str) -> tuple[str, tuple]:
+    return DERIVED.get(name, (name, ()))
+
+
 def sources(name: str) -> list[Path]:
-    """What kernel `name` is built from: `csrc/<name>.cu` and the shared
+    """What kernel `name` is built from: `csrc/<source>.cu` and the shared
     `csrc/*.cuh` headers (not every `csrc/<name>*`, which would take
     `csrc/<name>_other.cu` as a source too)."""
-    return [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return [CSRC_DIR / f"{_source(name)[0]}.cu", *CSRC_DIR.glob("*.cuh")]
 
 
 def _stale(name: str) -> bool:
@@ -78,7 +89,9 @@ def build(names=KERNELS) -> dict[str, dict]:
     t0 = time.perf_counter()
     for name in todo:
         tmp = BUILD_DIR / f"lib{name}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC_DIR / f"{src}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

@@ -31,15 +31,18 @@ import ctypes
 import torch
 
 from flash_attn_tpu_torch.kernels import _build
-from flash_attn_tpu_torch.kernels.flash_fwd import (HEAD_DIMS, _DTYPE_CODE,
-                                                    _aligned, _lengths,
-                                                    _unsupported,
+from flash_attn_tpu_torch.kernels.flash_fwd import (MAX_BWD_HEAD_DIM,
+                                                    _DTYPE_CODE, _aligned,
+                                                    _lengths, _unsupported,
                                                     dropout_args,
                                                     dropout_mask,
                                                     dropout_scale,
                                                     dropout_seed_value,
+                                                    kernel_head_dim,
                                                     mask_params,
-                                                    normalize_window)
+                                                    normalize_window,
+                                                    pad_head_dim,
+                                                    unpad_head_dim)
 
 KERNEL = "flash_bwd"
 
@@ -86,7 +89,8 @@ def varlen_stats_rows(b: int, total_q: int) -> int:
 def dq_items(d: int, q_tiles: int, heads: int, b: int,
              sm_count: int) -> int:
     """q tiles of 128 rows each block of the CUDA dQ kernel owns
-    (`csrc/flash_bwd.cu::DqTiles`): 2 at d = 64 where the grid of one-tile
+    (`csrc/flash_bwd.cu::DqTiles`; d is the kernel's head dim,
+    `kernel_head_dim`): 2 at d = 64 where the grid of one-tile
     blocks (q_tiles x heads x b) holds at least 4 an SM, so that half as
     many blocks still fill the card twice over; else 1.  A second tile
     hides its loads and start behind the first one's products; on a grid of
@@ -181,7 +185,8 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     recompute its keep mask.
 
     CPU tensors run the plain version; CUDA tensors launch
-    `csrc/flash_bwd.cu` (bf16 or fp16, d in {64, 128}) or raise."""
+    `csrc/flash_bwd.cu` (bf16 or fp16, d up to 128: `kernel_head_dim`; a
+    d that is not a multiple of 8 through zero-padded copies) or raise."""
     global launches_dq, launches_dkv, launches_dq_dropout
     global launches_dkv_dropout
     kwargs = dict(softmax_scale=softmax_scale, causal=causal,
@@ -199,8 +204,7 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     _unsupported(q, v.shape[-1], sinks, dropout_p, attention_chunk)
     if q.dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"flash_bwd kernel: dtype {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"flash_bwd kernel: head dim {d}")
+    kernel_head_dim(d, MAX_BWD_HEAD_DIM)
     if (k.shape != (b, hk, sk, d) or v.shape != k.shape or h % hk
             or do.shape != q.shape or o.shape != q.shape
             or lse.shape != (b, h, sq)):
@@ -229,7 +233,7 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
         if dlse.shape != lse.shape or dlse.device != q.device:
             raise ValueError(f"dlse: {tuple(dlse.shape)} on {dlse.device}")
         dlse = dlse.float().contiguous()
-    do, q, k, v, o = (_aligned(x) for x in (do, q, k, v, o))
+    do, q, k, v, o = (_aligned(x) for x in pad_head_dim(do, q, k, v, o))
     rows = stats_rows(sq)
     stats = torch.empty(2 * b * h * rows, dtype=torch.float32,
                         device=q.device)
@@ -245,9 +249,11 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), seqused_q.data_ptr(),
         seqused_k.data_ptr(),
         slopes.data_ptr() if slopes is not None else None,
-        b, h, hk, sq, sk, d, _DTYPE_CODE[q.dtype], float(softmax_scale),
-        int(has_upper), wr, int(has_lower), wl, float(softcap), rows,
-        _dq_items_for(q.device, d, -(-sq // STATS_TILE), h, b),
+        b, h, hk, sq, sk, q.shape[-1], _DTYPE_CODE[q.dtype],
+        float(softmax_scale), int(has_upper), wr, int(has_lower), wl,
+        float(softcap), rows,
+        _dq_items_for(q.device, kernel_head_dim(d), -(-sq // STATS_TILE), h,
+                      b),
         *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL)
@@ -255,7 +261,7 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     launches_dkv += 1
     launches_dq_dropout += dropout_p > 0.0
     launches_dkv_dropout += dropout_p > 0.0
-    return dq, dk, dv
+    return unpad_head_dim(d, dq, dk, dv)
 
 
 def _lib():

@@ -44,9 +44,12 @@ from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.block_sizes import cdiv, round_up
 from flash_attn_tpu_torch.kernels.combine import combine_attn_partials
 from flash_attn_tpu_torch.kernels.flash_fwd import (
-    HEAD_DIMS, _DTYPE_CODE, mask_params, masked_softmax_pv)
+    _DTYPE_CODE, kernel_head_dim, mask_params, masked_softmax_pv,
+    pad_head_dim)
 
 KERNEL = "flash_decode_ref"
+# the library of head dims above 128 (`_build.DERIVED`: the same source)
+KERNEL_WIDE = "flash_decode_ref_wide"
 
 # Number of times the CUDA kernel was launched, by either wrapper (plain CPU
 # runs do not count), and the key splits of the last launch.
@@ -193,7 +196,8 @@ def decode_attn_bhsd(q, k_cache, v_cache, cache_seqlens, *,
 
     CPU tensors run the plain version; CUDA tensors launch
     `csrc/flash_decode_ref.cu` in its heads-first layout (bf16 or fp16, d
-    in {64, 128}) or raise.  On CUDA, num_splits = 0 takes
+    up to 256; a d that is not a multiple of 8 through zero-padded copies
+    of q and the caches) or raise.  On CUDA, num_splits = 0 takes
     `decode_num_splits` on units of block_k (AUTO_BLOCK_K if not given)."""
     if q.device.type == "cpu":
         return decode_attn_bhsd_ref(
@@ -231,24 +235,26 @@ def decode_attn_bhsd(q, k_cache, v_cache, cache_seqlens, *,
     num_splits, split_keys = split_layout(smax, num_splits, block_k)
     # (b, h, sq, d) is already packed: heads kh*g .. kh*g+g-1 are rows
     # (head - kh*g) * sq + pos of kv head kh
+    qp, k_cache, v_cache = pad_head_dim(q.reshape(b, hk, rows, d), k_cache,
+                                        v_cache)
     o, lse = _launch(
-        q.reshape(b, hk, rows, d), k_cache, v_cache, lens, h=h,
+        qp, k_cache, v_cache, lens, h=h,
         sq=sq, q_code=q_code, cache_code=cache_code, cbi=cbi,
         alibi_slopes=alibi_slopes, heads_first=True, smax=smax,
         splits=num_splits, split_keys=split_keys, softmax_scale=softmax_scale,
         causal=causal, window_size=window_size, softcap=softcap)
-    return o.reshape(b, h, sq, d).to(q.dtype), lse.reshape(b, h, sq)
+    return (o[..., :d].reshape(b, h, sq, d).to(q.dtype),
+            lse.reshape(b, h, sq))
 
 
 def _kernel_codes(q_dtype, d, dv, cache_dtype):
     """(q code, cache code) of a `csrc/flash_decode_ref.cu` call; raises
     NotImplementedError on what the kernel does not take: q other than
-    bf16/fp16, d not in {64, 128}, dv != d (qv), or a cache that is neither
-    q's dtype, int8 nor fp8."""
+    bf16/fp16, d above 256 (`kernel_head_dim`), dv != d (qv), or a cache
+    that is neither q's dtype, int8 nor fp8."""
     if q_dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"{KERNEL} kernel: q dtype {q_dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"{KERNEL} kernel: head dim {d}")
+    kernel_head_dim(d)
     if dv != d:
         raise NotImplementedError(f"{KERNEL} kernel: dv {dv} != d {d} (qv)")
     cache_code = (_DTYPE_CODE[q_dtype] if cache_dtype == q_dtype
@@ -257,6 +263,12 @@ def _kernel_codes(q_dtype, d, dv, cache_dtype):
         raise NotImplementedError(
             f"{KERNEL} kernel: {cache_dtype} cache with {q_dtype} q")
     return _DTYPE_CODE[q_dtype], cache_code
+
+
+def cache_multiple(cache) -> int:
+    """The head dims the kernel reads a cache at: multiples of 8 for 16-bit
+    caches and of 16 for 8-bit ones (whole 16-byte cp.async chunks a row)."""
+    return 16 if cache.element_size() == 1 else 8
 
 
 def _ints(x, b, dev):
@@ -276,8 +288,9 @@ def _launch(qp, k_cache, v_cache, lens, *, h, sq, q_code, cache_code,
             table=None, page=0, nk_max=0, q_scale=None, kd=None, vd=None,
             attention_chunk=0):
     """One launch of `csrc/flash_decode_ref.cu` on the packed query qp (b,
-    hk, rows, d); returns the split-merged o (b, hk, rows, d) and lse (b,
-    hk, rows), float32 (the kernel merges the splits into split 0)."""
+    hk, rows, d), d a multiple of 8 (16 for 8-bit caches: `cache_multiple`);
+    returns the split-merged o (b, hk, rows, d) and lse (b, hk, rows),
+    float32 (the kernel merges the splits into split 0)."""
     global launches, last_num_splits
     b, hk, rows, d = qp.shape
     dev = qp.device
@@ -297,7 +310,8 @@ def _launch(qp, k_cache, v_cache, lens, *, h, sq, q_code, cache_code,
 
     sems = (_semaphores(dev, b * hk * row_tiles(rows)) if splits > 1
             else None)
-    lib = _lib()
+    name = KERNEL_WIDE if kernel_head_dim(d) > 128 else KERNEL
+    lib = _lib(name)
     err = lib.flash_decode_ref(
         qp.data_ptr(), k_cache.data_ptr(), ptr(v_cache), o_parts.data_ptr(),
         lse_parts.data_ptr(), ptr(sems), lens.data_ptr(), ptr(leftpad),
@@ -308,7 +322,7 @@ def _launch(qp, k_cache, v_cache, lens, *, h, sq, q_code, cache_code,
         split_keys, float(softmax_scale), int(has_upper), wr, int(has_lower),
         wl, int(attention_chunk), float(softcap),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, KERNEL)
+    _build.check(lib, err, name)
     launches += 1
     last_num_splits = splits
     return o_parts[:, :, 0], lse_parts[:, :, 0]
@@ -329,8 +343,8 @@ def _semaphores(dev, n):
     return t
 
 
-def _lib():
-    lib = _build.load(KERNEL)
+def _lib(name=KERNEL):
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_decode_ref.argtypes = ([P] * 14 + [I] * 15
@@ -565,7 +579,9 @@ def decode_attn_ref_layout(q, k_cache, v_cache, cache_seqlens, *,
 
     CPU tensors run the plain version; CUDA tensors launch
     `csrc/flash_decode_ref.cu` (q bf16/fp16, cache of q's dtype, int8 or
-    fp8, d = dv in {64, 128}) or raise.  On CUDA, num_splits = 0 takes
+    fp8, d = dv up to 256; a d whose cache rows are not whole 16-byte units
+    through zero-padded copies of q and the caches, `cache_multiple`) or
+    raise.  On CUDA, num_splits = 0 takes
     `decode_num_splits` on the units of `ref_layout_tiles` (bundle * block_k
     keys), so the plain version run at `last_num_splits` cuts at the same
     keys."""
@@ -597,12 +613,14 @@ def decode_attn_ref_layout(q, k_cache, v_cache, cache_seqlens, *,
         raise ValueError(f"k_cache {tuple(k_cache.shape)} and v_cache "
                          f"{tuple(v_cache.shape)} differ")
     dev = q.device
+    q, k_cache, v_cache = pad_head_dim(q, k_cache, v_cache,
+                                       multiple=cache_multiple(k_cache))
     lens = _ints(cache_seqlens, b, dev).reshape(b)
     table = _ints(block_table, b, dev) if paged else None
     cbi = None if paged else _ints(cache_batch_idx, b, dev)
     if not paged and cbi is None and b > k_cache.shape[0]:
         raise ValueError(f"batch {b} > cache batch {k_cache.shape[0]}")
-    qp = q.transpose(1, 2).reshape(b, hk, h // hk * sq, d)
+    qp = q.transpose(1, 2).reshape(b, hk, h // hk * sq, q.shape[-1])
     q_scale = kd = vd = None
     if cache_code == 2:
         qi, q_scale = quantise_q_int8(qp)
@@ -626,7 +644,7 @@ def decode_attn_ref_layout(q, k_cache, v_cache, cache_seqlens, *,
         alibi_slopes=alibi_slopes, splits=ns, split_keys=bps * bundle * bk,
         softmax_scale=softmax_scale, causal=causal, window_size=window_size,
         softcap=softcap, attention_chunk=attention_chunk)
-    return _finish(o, lse, b, sq, h, d, sinks, q.dtype)
+    return _finish(o[..., :d], lse, b, sq, h, d, sinks, q.dtype)
 
 
 def _apply_rotary(x, cos, sin, positions, interleaved):

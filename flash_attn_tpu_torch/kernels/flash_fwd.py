@@ -5,7 +5,10 @@ general path runs the Pallas `_fwd_kernel:200`, launched at `:1517`).
 `flash_attn_fwd_bhsd` launches the hand-written Hopper kernel
 `csrc/flash_fwd.cu` (`wgmma`, a TMA ring of K/V stages, 64- or 128-row
 tiles by head dim, arithmetic masks) for CUDA tensors and runs `flash_attn_fwd_bhsd_ref`, the
-plain PyTorch version with the same signature, for CPU tensors.  The same
+plain PyTorch version with the same signature, for CPU tensors.  The
+kernels take head dims up to 256 (`kernel_head_dim`: d runs in a tile of
+d rounded up to a multiple of 64, its extra columns zero), a d that is not
+a multiple of 8 through a zero-padded copy (`pad_head_dim`).  The same
 kernel also serves the JAX package's full-length causal/local forward
 (`_fwd_sched_kernel:870`): its per-q-tile loop bounds skip the KV tiles a
 mask removes, which is what the TPU's tile tables do.  Its packed varlen mode
@@ -37,13 +40,68 @@ import torch
 from flash_attn_tpu_torch.kernels import _build
 
 KERNEL = "flash_fwd"
-HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+# The largest head dim of the forward and decode kernels (the JAX package's
+# sweep stops there too), and of the backward's.
+MAX_HEAD_DIM = 256
+MAX_BWD_HEAD_DIM = 128
 
 # Number of times the CUDA kernel was launched (plain CPU runs do not count),
 # and how many of those launches ran its dropout instantiation.
 launches = 0
 launches_dropout = 0
+# Calls of any kernel wrapper that copied its inputs to pad d to a multiple
+# of 8 (`pad_head_dim`).
+pad_copies = 0
+
+
+def kernel_head_dim(d: int, max_d: int = MAX_HEAD_DIM) -> int:
+    """The head dim D the CUDA kernels run a call of head dim d at: d
+    rounded up to a multiple of 64, the width of a tile's column block in
+    the 128-byte swizzle (`csrc/fa_common.cuh::kernel_head_dim`).  The
+    kernels are instantiated at D = 64, 128, 192 and 256 (the backward at
+    64 and 128: `max_d`); the columns d..D-1 of their tiles are zeros and
+    are never stored.  Raises NotImplementedError for d above `max_d`."""
+    if not 0 < d <= max_d:
+        raise NotImplementedError(
+            f"head dim {d}: the CUDA kernels take 1..{max_d}")
+    return -(-d // 64) * 64
+
+
+def padded_head_dim(d: int, multiple: int = 8) -> int:
+    """d rounded up to `multiple`: the head dim a kernel launch sees.  A row
+    of the tensors must be whole 16-byte units (the TMA's strides, the
+    decode's cp.async rows): 8 16-bit values, or 16 bytes of an 8-bit
+    cache."""
+    return -(-d // multiple) * multiple
+
+
+def pad_head_dim(*xs, multiple: int = 8):
+    """The tensors with their last dim zero-padded to `padded_head_dim`:
+    the same tensors where it is already a multiple, else copies (counted
+    in `pad_copies`).  Zero columns change no score, and give o zero
+    columns, which the caller slices off; the softmax scale stays the
+    caller's, from the true d."""
+    global pad_copies
+    d = xs[0].shape[-1]
+    dp = padded_head_dim(d, multiple)
+    if dp == d:
+        return xs
+    pad_copies += 1
+
+    def pad(x):  # zeros, then a copy: fp8 has no constant pad
+        y = x.new_zeros(x.shape[:-1] + (dp,))
+        y[..., :d] = x
+        return y
+
+    return tuple(None if x is None else pad(x) for x in xs)
+
+
+def unpad_head_dim(d: int, *xs):
+    """The tensors cut back to head dim d (contiguous copies where they were
+    padded)."""
+    return tuple(x if x.shape[-1] == d else x[..., :d].contiguous()
+                 for x in xs)
 
 
 def fwd_rows(d: int) -> int:
@@ -61,7 +119,8 @@ def fwd_rows(d: int) -> int:
     0.14257, fvw 0.07934 / 0.09075, fvm 0.22496 / 0.24677.  d = 128: fb
     (full-length causal) 0.09621 / 0.08373, fvb (packed causal GQA) 0.98483
     / 0.87038; fc (GQA, ragged seqused_k) 0.04116 / 0.04484 is the one case
-    against the rule."""
+    against the rule.  d is the kernel's head dim (`kernel_head_dim`): 128
+    rows at 192 and 256 too."""
     return 64 if d == 64 else 128
 
 
@@ -269,7 +328,7 @@ def flash_attn_fwd_bhsd(q, k, v, seqused_q, seqused_k, *,
     1 / (1 - p) before P V; the lse is the undropped one.
 
     CPU tensors run the plain version; CUDA tensors launch
-    `csrc/flash_fwd.cu` (bf16 or fp16, d in {64, 128}) or raise."""
+    `csrc/flash_fwd.cu` (bf16 or fp16, d up to 256) or raise."""
     global launches, launches_dropout
     kwargs = dict(softmax_scale=softmax_scale, causal=causal,
                   window_size=window_size, softcap=softcap,
@@ -285,8 +344,7 @@ def flash_attn_fwd_bhsd(q, k, v, seqused_q, seqused_k, *,
     _unsupported(q, v.shape[-1], sinks, dropout_p, attention_chunk)
     if q.dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"flash_fwd kernel: dtype {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"flash_fwd kernel: head dim {d}")
+    kernel_head_dim(d)
     if k.shape != (b, hk, sk, d) or v.shape != k.shape or h % hk:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -304,7 +362,7 @@ def flash_attn_fwd_bhsd(q, k, v, seqused_q, seqused_k, *,
     wl, wr = normalize_window(window_size, causal, sk)
     has_upper, wr, has_lower, wl = mask_params(causal, wl, wr)
 
-    q, k, v = (_aligned(x) for x in (q, k, v))
+    q, k, v = (_aligned(x) for x in pad_head_dim(q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _lib()
@@ -312,14 +370,15 @@ def flash_attn_fwd_bhsd(q, k, v, seqused_q, seqused_k, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), seqused_q.data_ptr(), seqused_k.data_ptr(),
         slopes.data_ptr() if slopes is not None else None,
-        b, h, hk, sq, sk, d, _DTYPE_CODE[q.dtype], float(softmax_scale),
+        b, h, hk, sq, sk, q.shape[-1], _DTYPE_CODE[q.dtype],
+        float(softmax_scale),
         int(has_upper), wr, int(has_lower), wl, float(softcap),
         *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL)
     launches += 1
     launches_dropout += dropout_p > 0.0
-    return o, lse
+    return unpad_head_dim(d, o)[0], lse
 
 
 def dropout_args(dropout_p: float, dropout_seed):

@@ -63,10 +63,14 @@ import torch.nn.functional as F
 from flash_attn_tpu_torch.env import default_device
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.block_sizes import cdiv, round_up
-from flash_attn_tpu_torch.kernels.flash_fwd import HEAD_DIMS, _DTYPE_CODE
+from flash_attn_tpu_torch.kernels.flash_fwd import _DTYPE_CODE
 
 KERNEL = "flex"
 TILE = 64  # the CUDA kernels' smallest tile: block_q, block_k multiples
+# The head dims `csrc/flex.cu` is instantiated at: the dense kernels'
+# padding to the next multiple of 64 (`flash_fwd.kernel_head_dim`) is not
+# carried over to the flex kernels yet.
+HEAD_DIMS = (64, 128)
 _LOG2E = math.log2(math.e)
 _MASK_CHUNK = 1 << 24  # elements of one mask evaluation (bounds its memory)
 TABLES = ("kv_num", "kv_idx", "full_kv_num", "full_kv_idx", "q_num", "q_idx",

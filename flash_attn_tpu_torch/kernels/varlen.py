@@ -58,12 +58,17 @@ from flash_attn_tpu_torch.kernels.flash_bwd import (STATS_TILE,
                                                     _dq_items_for,
                                                     flash_attn_bwd_bhsd_ref,
                                                     varlen_stats_rows)
-from flash_attn_tpu_torch.kernels.flash_fwd import (HEAD_DIMS, _DTYPE_CODE,
-                                                    _aligned, check_dropout,
+from flash_attn_tpu_torch.kernels.flash_fwd import (MAX_BWD_HEAD_DIM,
+                                                    MAX_HEAD_DIM,
+                                                    _DTYPE_CODE, _aligned,
+                                                    check_dropout,
                                                     dropout_args,
                                                     flash_attn_fwd_bhsd_ref,
+                                                    kernel_head_dim,
                                                     mask_params,
-                                                    normalize_window)
+                                                    normalize_window,
+                                                    pad_head_dim,
+                                                    unpad_head_dim)
 
 KERNEL_FWD = "flash_fwd"
 KERNEL_BWD = "flash_bwd"
@@ -154,13 +159,13 @@ def varlen_attn_bwd_ref(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
     return dq, dk, dv
 
 
-def _check_cuda(q, k, v, cu_q, cu_k, extra=()):
-    """Raise on what the CUDA kernels do not take."""
+def _check_cuda(q, k, v, cu_q, cu_k, extra=(), max_d=MAX_HEAD_DIM):
+    """Raise on what the CUDA kernels do not take (head dims up to `max_d`:
+    `kernel_head_dim`)."""
     if q.dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"varlen kernel: dtype {q.dtype}")
     total_q, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"varlen kernel: head dim {d}")
+    kernel_head_dim(d, max_d)
     if k.dim() != 3 or k.shape[2] != d or v.shape != k.shape or h % k.shape[1]:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -201,7 +206,7 @@ def varlen_attn_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
     q head, the row's and the key's token index in the streams.
 
     CPU tensors run the plain version; CUDA tensors launch
-    `csrc/flash_fwd.cu`'s varlen mode (bf16 or fp16, d in {64, 128}) or
+    `csrc/flash_fwd.cu`'s varlen mode (bf16 or fp16, d up to 256) or
     raise."""
     global launches_fwd, launches_fwd_dropout
     kw = dict(softmax_scale=softmax_scale, causal=causal,
@@ -214,8 +219,9 @@ def varlen_attn_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
     if q.device.type != "cuda":
         raise RuntimeError(f"varlen_attn_fwd: no kernel for {q.device}")
     _check_cuda(q, k, v, cu_seqlens_q, cu_seqlens_k)
-    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
-    total_q, h, d = q.shape
+    d = q.shape[-1]
+    q, k, v = (_aligned(x.contiguous()) for x in pad_head_dim(q, k, v))
+    total_q, h, dp = q.shape
     b, slopes, (has_upper, wr, has_lower, wl) = _cuda_common(
         q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_k, causal, window_size,
         alibi_slopes)
@@ -229,14 +235,14 @@ def varlen_attn_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
         lse.data_ptr(), cu_seqlens_q.data_ptr(), cu_seqlens_k.data_ptr(),
         slopes.data_ptr() if slopes is not None else None,
         b, h, k.shape[1], int(max_seqlen_q), int(max_seqlen_k), total_q,
-        k.shape[0], d, _DTYPE_CODE[q.dtype], float(softmax_scale),
+        k.shape[0], dp, _DTYPE_CODE[q.dtype], float(softmax_scale),
         int(has_upper), wr, int(has_lower), wl, float(softcap),
         *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL_FWD)
     launches_fwd += 1
     launches_fwd_dropout += dropout_p > 0.0
-    return o, lse
+    return unpad_head_dim(d, o)[0], lse
 
 
 def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
@@ -251,8 +257,8 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
     dv = 0, and tokens outside every sequence get 0.
 
     CPU tensors run the plain version; CUDA tensors launch
-    `csrc/flash_bwd.cu`'s varlen mode, whose dQ kernel also forms the dO.O
-    preprocess delta = rowsum(dO * O), or raise."""
+    `csrc/flash_bwd.cu`'s varlen mode (d up to 128), whose dQ kernel also
+    forms the dO.O preprocess delta = rowsum(dO * O), or raise."""
     global launches_dq, launches_dkv, launches_dq_dropout
     global launches_dkv_dropout
     kw = dict(softmax_scale=softmax_scale, causal=causal,
@@ -266,7 +272,7 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
     if q.device.type != "cuda":
         raise RuntimeError(f"varlen_attn_bwd: no kernel for {q.device}")
     _check_cuda(q, k, v, cu_seqlens_q, cu_seqlens_k,
-                extra=(("do", do), ("o", o)))
+                extra=(("do", do), ("o", o)), max_d=MAX_BWD_HEAD_DIM)
     total_q, h, d = q.shape
     if do.shape != q.shape or o.shape != q.shape or \
             lse.shape != (h, total_q):
@@ -274,7 +280,8 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
                          f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse: {lse.dtype} on {lse.device}")
-    q, k, v, o, do = (_aligned(x.contiguous()) for x in (q, k, v, o, do))
+    q, k, v, o, do = (_aligned(x.contiguous())
+                      for x in pad_head_dim(q, k, v, o, do))
     lse = lse.contiguous()
     b, slopes, (has_upper, wr, has_lower, wl) = _cuda_common(
         q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_k, causal, window_size,
@@ -290,9 +297,10 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
         cu_seqlens_k.data_ptr(),
         slopes.data_ptr() if slopes is not None else None,
         b, h, k.shape[1], int(max_seqlen_q), int(max_seqlen_k), total_q,
-        k.shape[0], d, _DTYPE_CODE[q.dtype], float(softmax_scale),
+        k.shape[0], q.shape[-1], _DTYPE_CODE[q.dtype], float(softmax_scale),
         int(has_upper), wr, int(has_lower), wl, float(softcap), rows,
-        _dq_items_for(q.device, d, -(-int(max_seqlen_q) // STATS_TILE), h, b),
+        _dq_items_for(q.device, kernel_head_dim(d),
+                      -(-int(max_seqlen_q) // STATS_TILE), h, b),
         *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, KERNEL_BWD)
@@ -300,7 +308,7 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
     launches_dkv += 1
     launches_dq_dropout += dropout_p > 0.0
     launches_dkv_dropout += dropout_p > 0.0
-    return dq, dk, dv
+    return unpad_head_dim(d, dq, dk, dv)
 
 
 class FlashAttnVarlenFunc(torch.autograd.Function):

@@ -1,14 +1,14 @@
 """The served batch, and where its time goes on the card.
 
-    python -m flash_attn_tpu_torch.serve_profile [--model llama3_8b]
+    python -m flash_attn_tpu_torch.serve_profile [--model llama3_8b|gptj_6b]
 
 `serve_batch` defines the one serving traffic that both this profile and
 `chip_smoke.py`'s serve phases drive: `ServingEngine` with 8 slots, and 16
 requests of seeded prompt length 16-480, 64 new tokens each, two of them
 sampled with top-k 20 at temperature 0.8.  The models, random weights from
-a seed, bfloat16: `gpt2_small` (GPT-2 124M, the `serve` phase) and
+a seed, bfloat16: `gpt2_small` (GPT-2 124M, the `serve` phase),
 `llama3_8b` (Meta-Llama-3-8B's widths at a cut depth, the `llama_serve`
-phase).
+phase) and `gptj_6b` (GPT-J-6B, head dim 256, the `gptj_serve` phase).
 
 Run as a script, it serves that batch once to warm up, once timed without the
 profiler and once under `torch.profiler`, and prints one JSON line: the wall
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+from flash_attn_tpu_torch.models.gptj import gptj_config_to_gpt2_config
 from flash_attn_tpu_torch.models.llama import llama_config_to_gpt2_config
 from flash_attn_tpu_torch.serving import ServingEngine
 
@@ -68,7 +69,29 @@ def llama3_8b(seed: int = 0, n_layer: int = 8) -> GPTLMHeadModel:
     return model.init_weights(gen).eval()
 
 
-MODELS = {"gpt2_small": gpt2_small, "llama3_8b": llama3_8b}
+# EleutherAI/gpt-j-6b's published config (HF config.json), with its Hugging
+# Face attribute names: head dim 4096 / 16 = 256, 64 of them rotated.
+GPTJ_6B = types.SimpleNamespace(
+    vocab_size=50400, n_positions=2048, n_embd=4096, n_layer=28, n_head=16,
+    rotary_dim=64, n_inner=None, activation_function="gelu_new",
+    layer_norm_epsilon=1e-5, resid_pdrop=0.0, embd_pdrop=0.0,
+    attn_pdrop=0.0, initializer_range=0.02, bos_token_id=50256,
+    eos_token_id=50256, tie_word_embeddings=False)
+
+
+def gptj_6b(seed: int = 0, n_layer: int = 28) -> GPTLMHeadModel:
+    """GPT-J-6B through `gptj_config_to_gpt2_config`, at `n_layer` of its
+    28 layers, random N(0, 0.02) weights drawn on the card from `seed`,
+    bfloat16, on CUDA."""
+    cfg = gptj_config_to_gpt2_config(GPTJ_6B)
+    cfg.n_layer = n_layer
+    model = GPTLMHeadModel(cfg, dtype=torch.bfloat16)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return model.init_weights(gen).eval()
+
+
+MODELS = {"gpt2_small": gpt2_small, "llama3_8b": llama3_8b,
+          "gptj_6b": gptj_6b}
 
 
 def engine(model, seed: int = 0) -> ServingEngine:

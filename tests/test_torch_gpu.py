@@ -32,6 +32,17 @@ def cuda():
     (128, 8, 2, True, (-1, -1), 0.0, False),
     (64, 4, 2, False, (32, 8), 30.0, True),
     (128, 4, 4, False, (-1, -1), 0.0, False),
+    # head dims run in the tile of d rounded up to 64; 100 through the
+    # wrapper's copy padded to 104
+    (32, 4, 2, True, (-1, -1), 0.0, False),
+    (80, 8, 2, True, (-1, -1), 0.0, False),
+    (96, 4, 4, False, (32, 8), 30.0, True),
+    (100, 4, 2, True, (-1, -1), 0.0, False),
+    (160, 4, 4, False, (-1, -1), 0.0, False),
+    (192, 8, 2, True, (-1, -1), 0.0, False),
+    (224, 4, 2, False, (32, 8), 30.0, True),
+    (256, 8, 2, True, (-1, -1), 0.0, False),
+    (256, 4, 4, False, (32, 8), 30.0, True),
 ])
 def test_fwd_kernel_matches_plain(cuda, dtype, d, h, hk, causal, window,
                                   softcap, alibi):
@@ -71,6 +82,14 @@ def test_fwd_kernel_matches_plain(cuda, dtype, d, h, hk, causal, window,
     (128, 8, 1, 16, 2, (-1, -1), 0.0, False),
     (64, 16, 2, 20, 1, (-1, -1), 0.0, False),  # 160 packed rows: 3 tiles
     (64, 8, 2, 4, 3, (100, 0), 30.0, True),
+    (32, 8, 2, 4, 3, (100, 0), 30.0, True),
+    (80, 12, 12, 1, 1, (-1, -1), 0.0, False),
+    (96, 8, 4, 4, 1, (-1, -1), 0.0, False),
+    (100, 8, 2, 1, 2, (-1, -1), 0.0, False),
+    (160, 16, 2, 20, 1, (-1, -1), 0.0, False),
+    (192, 8, 1, 16, 2, (-1, -1), 0.0, False),
+    (256, 16, 16, 1, 1, (-1, -1), 0.0, False),
+    (256, 16, 2, 20, 3, (100, 0), 30.0, True),
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, d, h, hk, sq, num_splits,
                                      window, softcap, alibi, splits):
@@ -170,7 +189,7 @@ def test_llama_cached_path_on_cuda_matches_cpu_plain_path(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 100, 128])
 @pytest.mark.parametrize("case", ["causal", "gqa", "window_softcap_alibi",
                                   "ragged"])
 def test_bwd_kernel_matches_plain(cuda, dtype, d, case):
@@ -215,6 +234,42 @@ def test_bwd_kernel_matches_plain(cuda, dtype, d, case):
     again = flash_bwd.flash_attn_bwd_bhsd(do, q, k, v, o, lse, squ, sku, **kw)
     for x, y in zip((dq, dk, dv), again):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("which,d", [("fwd", 288), ("fwd_varlen", 288),
+                                     ("decode", 288), ("bwd", 192),
+                                     ("bwd_varlen", 192)])
+def test_head_dim_beyond_the_kernels_raises_on_cuda(cuda, which, d):
+    """The forward and decode kernels take head dims up to 256, the
+    backward up to 128: beyond that a CUDA call raises NotImplementedError,
+    launches nothing and runs no plain version."""
+    from flash_attn_tpu_torch.kernels import varlen
+
+    x = torch.randn(1, 2, 64, d, device=cuda, dtype=torch.bfloat16)
+    lens = torch.tensor([64], dtype=torch.int32, device=cuda)
+    cu = torch.tensor([0, 64], dtype=torch.int32, device=cuda)
+    packed = x[0].transpose(0, 1).contiguous()
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    calls = {
+        "fwd": lambda: flash_fwd.flash_attn_fwd_bhsd(x, x, x, lens, lens,
+                                                     softmax_scale=0.1),
+        "fwd_varlen": lambda: varlen.varlen_attn_fwd(
+            packed, packed, packed, cu, cu, 64, 64, softmax_scale=0.1),
+        "decode": lambda: flash_decode.decode_attn_bhsd(x, x, x, lens,
+                                                        softmax_scale=0.1),
+        "bwd": lambda: flash_bwd.flash_attn_bwd_bhsd(
+            x, x, x, x, x, lse, lens, lens, softmax_scale=0.1),
+        "bwd_varlen": lambda: varlen.varlen_attn_bwd(
+            packed, packed, packed, packed, packed, lse[0], cu, cu, 64, 64,
+            softmax_scale=0.1),
+    }
+    counts = (flash_fwd.launches, flash_bwd.launches_dq, flash_decode.launches,
+              varlen.launches_fwd, varlen.launches_dq)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        calls[which]()
+    assert counts == (flash_fwd.launches, flash_bwd.launches_dq,
+                      flash_decode.launches, varlen.launches_fwd,
+                      varlen.launches_dq)
 
 
 def test_cuda_train_step_matches_cpu_plain_path(cuda, tmp_path):
@@ -325,10 +380,10 @@ def test_vit_on_cuda_matches_cpu_plain_path(cuda):
     assert float(g0 @ g1 / (g0.norm() * g1.norm())) >= 0.999
 
 
-def _ref_layout_inputs(case, dtype, gen, dev):
+def _ref_layout_inputs(case, dtype, gen, dev, d=128):
     """q, caches and keyword arguments of one decode_attn_ref_layout call,
     and the dequantised float32 caches of its oracle."""
-    b, h, hk, d, sq, page, pps = 3, 8, 2, 128, 1, 64, 6
+    b, h, hk, sq, page, pps = 3, 8, 2, 1, 64, 6
     if case == "d64_window_chunk_alibi":
         d, sq = 64, 4
     if case == "rows_gt_64":
@@ -391,11 +446,29 @@ def test_decode_ref_layout_kernel_matches_plain(cuda, dtype, case, splits):
     oracle on the dequantised cache, the plain version in the cache's own
     precision as the low-precision yardstick, both at the split count the
     kernel launched (the case's own, or num_splits = 0's)."""
+    _check_ref_layout(cuda, dtype, case, splits)
+
+
+@pytest.mark.parametrize("d", [32, 80, 100, 192, 256])
+@pytest.mark.parametrize("case", ["paged", "int8_paged", "fp8_contiguous",
+                                  "rows_gt_64"])
+def test_decode_ref_layout_head_dims_match_plain(cuda, case, d):
+    """The reference-layout kernel at head dims other than 64 and 128
+    (bf16 q): d runs in the tile of d rounded up to 64; an 8-bit cache row
+    must be whole 16-byte chunks, so d = 80 runs as it is and d = 100 (as
+    104 for bf16, 112 for int8 / fp8) through the wrapper's padded
+    copies."""
+    before = flash_fwd.pad_copies
+    _check_ref_layout(cuda, torch.bfloat16, case, "auto", d)
+    assert flash_fwd.pad_copies - before == (d == 100)
+
+
+def _check_ref_layout(cuda, dtype, case, splits, d=128):
     from flash_attn_tpu_torch.utils.testing import dequantise_cache
 
     gen = torch.Generator(device=cuda).manual_seed(3)
     q, kc, vc, lens, kw, deq, fused = _ref_layout_inputs(case, dtype, gen,
-                                                         cuda)
+                                                         cuda, d)
     d = q.shape[-1]
     kw["softmax_scale"] = d ** -0.5
     kw.setdefault("num_splits", 1)
@@ -510,17 +583,17 @@ def test_decode_auto_split_is_one_when_the_grid_fills_the_card(cuda):
     check_close(lse, lse_ref, lse_pt)
 
 
-@pytest.mark.parametrize("option,match", [("head_dim_96", "head dim"),
+@pytest.mark.parametrize("option,match", [("head_dim_288", "head dim"),
                                           ("qv", "qv"),
                                           ("float32_q", "q dtype")])
 def test_decode_ref_layout_unsupported_raises_on_cuda(cuda, option, match):
     """Options the kernel does not take raise on a CUDA tensor instead of
-    running the plain version: head dim 96, qv (dv != d), a float32 q.
-    `flash_attn_with_kvcache` raises before it appends, so the caches are
-    as they were and a retry appends once."""
+    running the plain version: head dim 288 (above 256), qv (dv != d), a
+    float32 q.  `flash_attn_with_kvcache` raises before it appends, so the
+    caches are as they were and a retry appends once."""
     from flash_attn_tpu_torch.interface import flash_attn_with_kvcache
 
-    d = 96 if option == "head_dim_96" else 64
+    d = 288 if option == "head_dim_288" else 64
     dtype = torch.float32 if option == "float32_q" else torch.bfloat16
     q = torch.randn(2, 1, 4, d, device=cuda).to(dtype)
     kc = torch.randn(2, 64, 2, d, device=cuda).to(dtype)
@@ -567,14 +640,15 @@ def _varlen_inputs(case, dtype, d, gen, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 100, 128, 160, 256])
 @pytest.mark.parametrize("case", ["bert", "gqa_cross_empty",
                                   "window_softcap_alibi"])
 def test_varlen_kernels_match_plain(cuda, dtype, d, case):
     """The packed varlen forward and backward against their plain versions
     (fp32 oracle, low-precision yardstick); rows with no key and tokens past
     the last sequence are o = 0, lse = +inf; the backward is bitwise
-    deterministic."""
+    deterministic.  Above d = 128 the backward raises NotImplementedError
+    and launches nothing."""
     from flash_attn_tpu_torch.kernels import varlen
 
     gen = torch.Generator(device=cuda).manual_seed(4)
@@ -592,6 +666,11 @@ def test_varlen_kernels_match_plain(cuda, dtype, d, case):
     check_close(lse[fin], lse_ref[fin], lse_pt[fin], label="lse")
     assert not o[-3:].any() and torch.isposinf(lse[:, -3:]).all()
     do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
+    if d > 128:
+        with pytest.raises(NotImplementedError, match="head dim"):
+            varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
+        assert (varlen.launches_dq, varlen.launches_dkv) == before[1:]
+        return
     dq, dk, dv = varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
     assert (varlen.launches_fwd, varlen.launches_dq, varlen.launches_dkv) \
         == (before[0] + 1, before[1] + 1, before[2] + 1)
@@ -862,8 +941,8 @@ def test_varlen_fwd_tiles_match_plain(cuda, case, d, dtype):
 
 def test_varlen_func_gradient_on_cuda(cuda):
     """flash_attn_varlen_func's packed route on CUDA launches the varlen
-    kernels and its gradient the varlen backward; float32 q and head dim 96
-    raise NotImplementedError."""
+    kernels and its gradient the varlen backward; float32 q and head dim 288
+    (above 256) raise NotImplementedError."""
     from flash_attn_tpu_torch.interface import flash_attn_varlen_func
     from flash_attn_tpu_torch.kernels import varlen
 
@@ -877,7 +956,8 @@ def test_varlen_func_gradient_on_cuda(cuda):
     assert (varlen.launches_fwd, varlen.launches_dq) == (before[0] + 1,
                                                          before[1] + 1)
     assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
-    for bad in (q.detach().float(), q.detach()[..., :48].contiguous()):
+    wide = torch.zeros(*q.shape[:-1], 288, dtype=q.dtype, device=cuda)
+    for bad in (q.detach().float(), wide):
         with pytest.raises(NotImplementedError):
             flash_attn_varlen_func(bad, bad, bad, cu_q, cu_q, mq, mq)
 

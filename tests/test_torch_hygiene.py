@@ -225,13 +225,16 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_depends_on_its_source_and_headers_only(monkeypatch,
                                                        tmp_path):
-    """A kernel is rebuilt when `csrc/<name>.cu` or a shared header changes,
-    not when another source sharing its prefix does."""
+    """A kernel is rebuilt when `csrc/<name>.cu` (a derived library: its
+    source's) or a shared header changes, not when another source sharing
+    its prefix does."""
     from flash_attn_tpu_torch.kernels import _build
 
     names = {p.name for p in _build.sources("flash_decode_ref")}
     assert names == {"flash_decode_ref.cu", "fa_common.cuh", "hopper.cuh"}
-    assert all((_build.CSRC_DIR / f"{n}.cu").exists() for n in _build.KERNELS)
+    assert _build.sources("flash_decode_ref_wide") == _build.sources(
+        "flash_decode_ref")
+    assert all(_build.sources(n)[0].exists() for n in _build.KERNELS)
     for f in ("k.cu", "k_other.cu", "shared.cuh"):
         (tmp_path / f).write_text("")
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
