@@ -62,9 +62,21 @@ checkpoint against `Trainer.evaluate(use_ema=True)`; `native_loader`
 builds the C++ token loader with g++ and holds its rows to the memmap
 dataset's and its order to the pinned one; `families` runs a cached
 prefill and decode steps of Baichuan-7B, Pythia-1.4B, Falcon-7B and
-StarCoderBase-1B at their published widths (2 layers each) against fp32
-on the CPU.  The kernel cases at those paths' shapes are forward (g) and
-(h), backward (e) and (f), and decode (e).  The last phase, `diag`, holds the diagnostic probes' kernels
+StarCoderBase-1B and BTLM-3B-8K at their published widths (2 layers
+each) against fp32 on the CPU.  The kernel cases at those paths' shapes
+are forward (g) and (h), backward (e) and (f), and decode (e).  Head dims:
+`kernel_headdim` holds the forward, decode and backward kernels at d 32
+to 256 (the backward's D 192 / 256 wide tiles with ragged, window +
+softcap, ALiBi and dropout cases, and the forward and backward at
+`gptj_train`'s and `btlm_train`'s own shapes) and checks that d 288
+raises; the build fails on a spill or a serialized wgmma in a Hopper
+kernel;
+`gpt3_train` trains the GPT-3 2.7B recipe (d 80), `gptj_serve` serves
+GPT-J-6B (d 256), `gptj_train` trains GPT-J-6B at 8 of its 28 layers
+(d 256 through the wide backward, no mods) and `btlm_train` BTLM-3B-8K
+at all 32 layers with remat (d 80, ALiBi through the mods kernels, muP),
+each followed by a
+2-layer gradient check against fp32 on the CPU.  The last phase, `diag`, holds the diagnostic probes' kernels
 (`csrc/diag_*.cu`) against their plain twins and runs the three probes
 (`flash_attn_tpu_torch.diag`: the paged DMA stream, the decode-body ladder,
 the varlen tick bisect) at the JAX scripts' full shapes.  The kernel launch
@@ -76,6 +88,7 @@ Any failed check raises, and the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -90,6 +103,9 @@ PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_OPS_8BIT = 1979e12  # H100 SXM dense int8 / fp8 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 L2_BYTES = 50 * 2**20  # H100 SXM L2
+# host time a profiler window stays open before the first launch and after
+# the last kernel (`device_profiler`)
+PROFILE_PAD_S = 0.05
 
 
 T_START = time.perf_counter()
@@ -201,12 +217,42 @@ def check_attention(name, o, lse, o_ref, lse_ref, o_pt, lse_pt, rows_ok):
     return err_o, err_o_pt, err_l, err_l_pt
 
 
+def plain_by_heads(fn, args, kinds, kw, heads=None):
+    """fn(*args, **kw), a plain version, over `heads` q heads at a time and
+    their kv heads (`kinds`: "q", "kv" or None, the arguments' head axis 1),
+    the outputs joined on that axis: a shape whose (s, s) scores do not fit
+    the card at once (BTLM's 8192 tokens) is held head by head.  The keep
+    mask of dropout hashes the head index, so it runs whole."""
+    import torch
+
+    if heads is None:
+        return fn(*args, **kw)
+    if kw.get("dropout_p"):
+        raise ValueError("dropout runs its plain version over all heads")
+    h, hk = (next(a.shape[1] for a, k in zip(args, kinds) if k == want)
+             for want in ("q", "kv"))
+    g = h // hk
+    if heads % g:
+        raise ValueError(f"{heads} heads split a group of {g}")
+    parts = []
+    for i in range(0, h, heads):
+        sl = dict(q=slice(i, i + heads), kv=slice(i // g, (i + heads) // g))
+        kwi = dict(kw)
+        if kw.get("alibi_slopes") is not None:
+            kwi["alibi_slopes"] = kw["alibi_slopes"][:, sl["q"]]
+        parts.append(fn(*(a[:, sl[k]] if k else a
+                          for a, k in zip(args, kinds)), **kwi))
+    return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+
+
 def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
              causal=True, window=(-1, -1), softcap=0.0, alibi=False,
-             library=None, phase="kernel_fwd", timed=True):
+             library=None, phase="kernel_fwd", timed=True,
+             softmax_scale=None, plain_heads=None):
     """The dense forward against its plain version (fp32 oracle, bf16
-    yardstick) on rows < seqused_q; with `timed`, kernel, plain version and
-    `library` timed beside the bound (counted at the call's d)."""
+    yardstick; `plain_by_heads(heads=plain_heads)`) on rows < seqused_q;
+    with `timed`, kernel, plain version and `library` timed beside the
+    bound (counted at the call's d)."""
     import torch
     from flash_attn_tpu_torch.kernels import flash_fwd as ff
 
@@ -218,13 +264,16 @@ def fwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     sku = torch.tensor(seqused_k, dtype=torch.int32, device=dev)
     slopes = (torch.rand(b, h, generator=gen, device=dev) * 0.3
               if alibi else None)
-    kw = dict(softmax_scale=d ** -0.5, causal=causal, window_size=window,
-              softcap=softcap, alibi_slopes=slopes)
+    kw = dict(softmax_scale=softmax_scale or d ** -0.5, causal=causal,
+              window_size=window, softcap=softcap, alibi_slopes=slopes)
     o, lse = ff.flash_attn_fwd_bhsd(q, k, v, squ, sku, **kw)
     torch.cuda.synchronize()
-    o_ref, lse_ref = ff.flash_attn_fwd_bhsd_ref(
-        q.float(), k.float(), v.float(), squ, sku, **kw)
-    o_pt, lse_pt = ff.flash_attn_fwd_bhsd_ref(q, k, v, squ, sku, **kw)
+    kinds = ("q", "kv", "kv", None, None)
+    o_ref, lse_ref = plain_by_heads(
+        ff.flash_attn_fwd_bhsd_ref,
+        (q.float(), k.float(), v.float(), squ, sku), kinds, kw, plain_heads)
+    o_pt, lse_pt = plain_by_heads(ff.flash_attn_fwd_bhsd_ref,
+                                  (q, k, v, squ, sku), kinds, kw, plain_heads)
     rows_ok = (torch.arange(sq, device=dev)[None, None, :]
                < squ[:, None, None]).expand(b, h, sq)
     err_o, err_o_pt, err_l, err_l_pt = check_attention(
@@ -294,31 +343,38 @@ def live_pairs(sq, sk, squ, sku, causal, window):
 def kernel_device_ms(fn, args, names, iters=20, attempts=3):
     """Median device time of each kernel whose name contains one of `names`,
     over `iters` calls fn(*args[j]) (cycling over the input sets), from
-    `torch.profiler`'s device activity.  Returns {name: ms}.  The profiler
-    may miss records now and then (19 of 20 were seen once, and once none
-    of a kernel's 20 in a run that saw them all when repeated), so the
-    median is over the records it kept, fewer than half of them may fail,
-    and a window that keeps fewer is profiled again, up to `attempts`
-    times."""
+    `torch.profiler`'s device activity in a padded window
+    (`device_profiler`).  Returns {name: ms}.  The profiler may miss
+    records now and then (19 of 20 were seen once; unpadded windows once
+    kept none of a kernel's 20 in a run that saw them all when repeated,
+    and once none in three windows running), so the median is over the
+    records it kept, fewer than half of them may fail, and a window that
+    keeps fewer is profiled again with four times the padding, up to
+    `attempts` times; each retry is reported on stderr."""
     import torch
 
     for j in range(3):
         fn(*args[j % len(args)])
     torch.cuda.synchronize()
-    cuda = torch.profiler.ProfilerActivity.CUDA
+    pad_s = PROFILE_PAD_S
     for attempt in range(attempts):
-        with torch.profiler.profile(activities=[cuda]) as prof:
+        with device_profiler(pad_s) as prof:
             for j in range(iters):
                 fn(*args[j % len(args)])
-            torch.cuda.synchronize()
-        seen = {name: sorted(e.time_range.elapsed_us() for e in prof.events()
-                             if e.device_type == torch.autograd.DeviceType.CUDA
-                             and name in e.name)
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = {name: sorted(e.time_range.elapsed_us() for e in device
+                             if name in e.name)
                 for name in names}
         short = {name: len(t) for name, t in seen.items()
                  if len(t) < iters // 2}
         if not short:
             return {name: t[len(t) // 2] * 1e-3 for name, t in seen.items()}
+        print(f"chip_smoke: profiler window {attempt + 1} of {attempts} "
+              f"(padded {pad_s * 1e3:.0f} ms) saw {short} of {iters} "
+              f"launches and {len(device)} device records in all",
+              file=sys.stderr)
+        pad_s *= 4
     raise RuntimeError(f"profiler saw {short} launches in each of {attempts} "
                        f"windows, expected {iters} of each")
 
@@ -333,13 +389,18 @@ def bound(flops, bytes_, peak_flops=PEAK_FLOPS):
 
 def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
              causal=True, window=(-1, -1), softcap=0.0, alibi=False,
-             library=False, repeat=False, phase="kernel_bwd"):
+             library=False, repeat=False, phase="kernel_bwd", timed=True,
+             dropout=False, softmax_scale=None, plain_heads=None):
     """The backward kernels against the plain version (fp32 oracle, bf16
-    yardstick) on dq (rows < seqused_q), dk and dv; times of the whole
-    backward, of each kernel (profiler; the dQ kernel's time includes the
-    dO.O preprocess, which it forms), of the plain version and, with
-    `library`, of SDPA's causal backward on the same inputs.  With
-    `repeat`, a second call on the same inputs must be bitwise equal."""
+    yardstick; `plain_by_heads(heads=plain_heads)`) on dq (rows <
+    seqused_q), dk and dv; with `timed`, times of
+    the whole backward, of each kernel (profiler; the dQ kernel's time
+    includes the dO.O preprocess, which it forms), of the plain version
+    and, with `library`, of SDPA's causal backward on the same inputs
+    (`sdpa_backward_ms`, the backend its dispatch took named).  With `repeat`, a second call
+    on the same inputs must be bitwise equal; with `dropout`, forward and
+    backward run the dropout kernels (DROPOUT_P, DROPOUT_SEED), the plain
+    version the same keep mask."""
     import torch
     from flash_attn_tpu_torch.kernels import flash_bwd as fb
     from flash_attn_tpu_torch.kernels import flash_fwd as ff
@@ -353,20 +414,26 @@ def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     sku = torch.tensor(seqused_k, dtype=torch.int32, device=dev)
     slopes = (torch.rand(b, h, generator=gen, device=dev) * 0.3
               if alibi else None)
-    kw = dict(softmax_scale=d ** -0.5, causal=causal, window_size=window,
-              softcap=softcap, alibi_slopes=slopes)
+    kw = dict(softmax_scale=softmax_scale or d ** -0.5, causal=causal,
+              window_size=window, softcap=softcap, alibi_slopes=slopes)
+    if dropout:
+        kw.update(dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED)
     rows_ok = (torch.arange(sq, device=dev)[None, None, :]
                < squ[:, None, None]).expand(b, h, sq)
     # callers pass do = 0 on rows past seqused_q
     do = (torch.randn(b, h, sq, d, generator=gen, device=dev)
           * rows_ok[..., None]).bfloat16()
-    before = ff.launches, fb.launches_dq, fb.launches_dkv
+    before = dropout_counts()  # every dense count: this is no main path
     o, lse = ff.flash_attn_fwd_bhsd(q, k, v, squ, sku, **kw)
     dq, dk, dv = fb.flash_attn_bwd_bhsd(do, q, k, v, o, lse, squ, sku, **kw)
     torch.cuda.synchronize()
-    ref = fb.flash_attn_bwd_bhsd_ref(do.float(), q.float(), k.float(),
-                                     v.float(), o.float(), lse, squ, sku, **kw)
-    pt = fb.flash_attn_bwd_bhsd_ref(do, q, k, v, o, lse, squ, sku, **kw)
+    kinds = ("q", "q", "kv", "kv", "q", "q", None, None)
+    ref = plain_by_heads(fb.flash_attn_bwd_bhsd_ref,
+                         (do.float(), q.float(), k.float(), v.float(),
+                          o.float(), lse, squ, sku), kinds, kw, plain_heads)
+    pt = plain_by_heads(fb.flash_attn_bwd_bhsd_ref,
+                        (do, q, k, v, o, lse, squ, sku), kinds, kw,
+                        plain_heads)
     sel = rows_ok[..., None].expand_as(dq)
     errs = {}
     for name, x, r, y, m in (("dq", dq, ref[0], pt[0], sel),
@@ -390,6 +457,18 @@ def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
             raise AssertionError(f"{label}: dk/dv past seqused_k")
         if n == 0 and dq[i].any():
             raise AssertionError(f"{label}: dq of a row with no key")
+    res = dict(phase=phase, case=label, b=b, h=h, hk=hk, sq=sq, sk=sk,
+               d=d, kernel_d=ff.kernel_head_dim(d), causal=causal,
+               window=list(window), softcap=softcap, alibi=alibi,
+               dropout_p=kw.get("dropout_p", 0.0),
+               seqused_q=list(seqused_q), seqused_k=list(seqused_k),
+               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
+               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
+               bitwise_repeat=bitwise_repeat, dq_items=fb.last_dq_items)
+    if not timed:
+        set_dropout_counts(before)
+        emit(res)
+        return res
 
     pairs = int(live_pairs(sq, sk, squ, sku, causal, window).sum()) * h
     elt = 2
@@ -410,35 +489,31 @@ def bwd_case(label, b, h, hk, sq, sk, d, seqused_q, seqused_k, gen,
     # below CUDA's launch-queue depth.
     plain_ms = time_ms(lambda *a: fb.flash_attn_bwd_bhsd_ref(*a, **kw), args,
                        iters=8)
-    ff.launches, fb.launches_dq, fb.launches_dkv = before  # not a main path
-    library_ms = None
+    set_dropout_counts(before)
+    library_ms = library_backend = None
     if library:
-        library_ms = sdpa_backward_ms(q, k, v, do, causal=causal)
-    res = dict(phase=phase, case=label, b=b, h=h, hk=hk, sq=sq, sk=sk,
-               d=d, kernel_d=ff.kernel_head_dim(d), causal=causal, window=list(window), softcap=softcap,
-               alibi=alibi, seqused_q=list(seqused_q),
-               seqused_k=list(seqused_k),
-               **{f"max_abs_err_{n}": e[0] for n, e in errs.items()},
-               **{f"plain_bf16_err_{n}": e[1] for n, e in errs.items()},
-               kernel_ms=kernel_ms,
+        library_ms, library_backend = sdpa_backward_ms(q, k, v, do,
+                                                       causal=causal)
+    res.update(kernel_ms=kernel_ms,
                dq_kernel_ms=dev_ms["flash_bwd_dq_kernel"],
                dkv_kernel_ms=dev_ms["flash_bwd_dkv_kernel"],
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
                dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
-               library_ms=library_ms, flops=10 * d * pairs,
-               share_of_bound=bound_ms / kernel_ms,
-               bitwise_repeat=bitwise_repeat, dq_items=fb.last_dq_items)
+               library_ms=library_ms, library_backend=library_backend,
+               flops=10 * d * pairs, share_of_bound=bound_ms / kernel_ms)
     emit(res)
     return res
 
 
 def sdpa_backward_ms(q, k, v, do, causal=True):
     """Device time of the backward of `F.scaled_dot_product_attention(
-    is_causal=causal)` on the same (b, h, s, d) inputs: one retained graph
-    per input set, `torch.autograd.grad(out, (q, k, v), do,
-    retain_graph=True)` timed.  A yardstick only: the port never calls
-    it."""
+    is_causal=causal)` on the same (b, h, s, d) inputs, on the backend
+    SDPA's own dispatch picks: one retained graph per input set,
+    `torch.autograd.grad(out, (q, k, v), do, retain_graph=True)` timed.
+    Returns (ms, the backend), named from the kernels one profiled
+    backward ran: "cudnn", "flash", "efficient" (cutlass fmha) or "math".
+    A yardstick only: the port never calls it."""
     import torch
     import torch.nn.functional as F
 
@@ -449,8 +524,18 @@ def sdpa_backward_ms(q, k, v, do, causal=True):
         out = F.scaled_dot_product_attention(qc, kc, vc, is_causal=causal,
                                              enable_gqa=gqa)
         graphs.append((out, (qc, kc, vc), dc))
-    return time_ms(lambda out, ins, dc: torch.autograd.grad(
+    ms = time_ms(lambda out, ins, dc: torch.autograd.grad(
         out, ins, dc, retain_graph=True), graphs)
+    out, ins, dc = graphs[0]
+    with device_profiler() as prof:
+        torch.autograd.grad(out, ins, dc, retain_graph=True)
+        torch.cuda.synchronize()
+    names = " ".join(e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    names = names.lower()
+    backend = ("cudnn" if "cudnn" in names else "flash" if "flash" in names
+               else "efficient" if "fmha" in names else "math")
+    return ms, backend
 
 
 def sdpa_masked(q, k, v, live):
@@ -693,15 +778,29 @@ def train_phase():
     return res
 
 
-def device_profiler():
+@contextlib.contextmanager
+def device_profiler(pad_s=PROFILE_PAD_S):
     """A `torch.profiler` window that records the card's activity only:
     `profile_summary` reads nothing else, and the host ops' events took
     most of a window's time to collect (35 s of `llama_serve`'s window on
-    an H100 machine's host)."""
+    an H100 machine's host).
+
+    The window opens on an idle card and stays open `pad_s` of host time
+    before the first launch and after the last kernel ends.  The profiler
+    keeps only device records that fall inside the window on the host's
+    clock, converted from the card's; a window of a few ms lost every
+    record of its 20 kernels in three windows running (`kernel_device_ms`
+    on the BERT batch, 0.11 ms a kernel, ten minutes into a run), which
+    an offset between the two clocks explains and the padding absorbs."""
     import torch
 
-    return torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
 
 
 def profile_summary(prof, n, step_s, unit, share, match, top=10):
@@ -1313,21 +1412,32 @@ def fwd_ptxas(varlen):
 
 
 def ptxas_summary(name):
-    """Registers, static shared memory, spills and warnings of each
-    instantiation of kernel library `name`, from `nvcc -Xptxas -v`
-    (`_build.build_info`): {"kernel<template arguments of the mangled
-    name>": {registers, smem_bytes, spill_stores, spill_loads, warnings}}."""
+    """Registers, static shared memory, spills, warnings and wgmma
+    serialization notes of each instantiation of kernel library `name`,
+    from `nvcc -Xptxas -v` (`_build.build_info`): {"kernel<template
+    arguments of the mangled name>": {registers, smem_bytes, spill_stores,
+    spill_loads, warnings, serialized}}.  `serialized` holds ptxas's
+    "Potential Performance Loss: wgmma.mma_async instructions are
+    serialized" info lines (C7520 and its kin), filed under the function
+    they name."""
     import re
     from flash_attn_tpu_torch.kernels import _build
+
+    def key(mangled):
+        t = re.search(r"([a-z_]+_kernel)I(\w+?)Ev", mangled)
+        return f"{t.group(1)}<{t.group(2)}>" if t else mangled
 
     out, fn = {}, None
     for ln in _build.build_info.get(name, {}).get("ptxas", []):
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            fn = m.group(1)
-            t = re.search(r"([a-z_]+_kernel)I(\w+?)Ev", fn)
-            fn = f"{t.group(1)}<{t.group(2)}>" if t else fn
-            out[fn] = {}
+            fn = key(m.group(1))
+            out.setdefault(fn, {})
+            continue
+        if "Potential Performance Loss" in ln:
+            m = re.search(r"function '(\w+)'", ln)
+            where = key(m.group(1)) if m else fn
+            out.setdefault(where, {}).setdefault("serialized", []).append(ln)
             continue
         if fn is None:
             continue
@@ -1889,9 +1999,10 @@ def kernel_varlen_phases():
 # recipe (80), GPT-NeoX-20B (96), GPT-J-6B (256), the JAX sweep's others
 # (32, 160, 192, 224), and 100, which is not a multiple of 8 and goes
 # through the wrappers' zero-padded copies.  Each runs in the kernels'
-# tile of d rounded up to a multiple of 64 (`kernel_head_dim`); the
-# backward takes d up to 128.
+# tile of d rounded up to a multiple of 64 (`kernel_head_dim`), the
+# backward's too (D 192 and 256 since the wide tiles); d 288 raises.
 HEADDIM_DS = (32, 80, 96, 100, 160, 192, 224, 256)
+HEADDIM_REFUSED = 288
 
 
 def quantise_paged_fp8(cache, table):
@@ -1945,14 +2056,20 @@ def kernel_headdim_phase(gen):
     flash backend; non-causal over ragged lengths with an empty key
     range), the packed varlen forward (causal GQA), decode on a heads-first
     bf16 cache (GPT-J's serving shape, timed beside SDPA) and on paged
-    int8 and fp8 caches; at d <= 128 the dense backward (timed beside
-    SDPA's) and the varlen backward.  The wrappers' pad copies are counted
-    (d = 100 only).  Bounds count the work at the true d (what the kernels
-    refuse is held by `tests/test_torch_gpu.py`)."""
+    int8 and fp8 caches, the dense backward (causal GQA, timed beside
+    SDPA's, its backend named) and the varlen backward; above d 128 (the
+    wide tiles) the dense backward also non-causal over ragged seqused
+    lengths, with a local window and softcap, with ALiBi and with dropout;
+    at d 256 and d 80 the forward and backward at `gptj_train`'s and
+    `btlm_train`'s own shapes (`train_path_shapes`).
+    The wrappers' pad copies are counted (d = 100 only).  Bounds count the
+    work at the true d.  At d HEADDIM_REFUSED every kernel wrapper raises
+    NotImplementedError and launches nothing (`refused_d`)."""
     import torch
     from flash_attn_tpu_torch.kernels import flash_fwd as ff
 
     docs = varlen_lengths(torch.Generator().manual_seed(17), 6, 64, 1024)
+    shapes = train_path_shapes()
     out = {}
     for d in HEADDIM_DS:
         tag, r = f"d {d}", {}
@@ -1971,19 +2088,115 @@ def kernel_headdim_phase(gen):
         r["decode"] = decode_case(f"{tag}: decode bf16", 8, 16, 16, 1, 2048,
                                   d, gen, library=True, **kw)
         r["decode_int8"], r["decode_fp8"] = headdim_paged_decode(tag, d, gen)
-        if d <= ff.MAX_BWD_HEAD_DIM:
-            r["bwd"] = bwd_case(f"{tag}: causal GQA", 2, 16, 4, 2048, 2048, d,
-                                [2048] * 2, [2048] * 2, gen, library=True,
-                                repeat=True, **kw)
-            r["varlen_bwd"] = varlen_bwd_case(
-                f"{tag}: varlen causal GQA", docs, docs, 16, 4, d, gen,
-                causal=True, timed=False, **kw)
+        r["bwd"] = bwd_case(f"{tag}: causal GQA", 2, 16, 4, 2048, 2048, d,
+                            [2048] * 2, [2048] * 2, gen, library=True,
+                            repeat=True, **kw)
+        r["varlen_bwd"] = varlen_bwd_case(
+            f"{tag}: varlen causal GQA", docs, docs, 16, 4, d, gen,
+            causal=True, timed=False, **kw)
+        if ff.kernel_head_dim(d) > 128:
+            two = dict(seqused_q=[1024] * 2, seqused_k=[1024] * 2)
+            wide = {
+                "bwd_ragged": ((f"{tag}: non-causal, ragged seqused", 3, 8,
+                                8, 300, 500, d, [300, 200, 300],
+                                [500, 97, 0]), dict(causal=False)),
+                "bwd_window_softcap": (
+                    (f"{tag}: local window (256, 64), softcap", 2, 8, 4,
+                     1024, 1024, d, *two.values()),
+                    dict(causal=False, window=(256, 64), softcap=30.0)),
+                "bwd_alibi": ((f"{tag}: causal ALiBi", 2, 8, 8, 1024, 1024,
+                               d, *two.values()), dict(alibi=True)),
+                "bwd_dropout": ((f"{tag}: causal GQA dropout", 2, 8, 2, 1024,
+                                 1024, d, *two.values()),
+                                dict(dropout=True, repeat=True))}
+            for key, (args, extra) in wide.items():
+                r[key] = bwd_case(*args, gen, timed=False, **extra, **kw)
+        if d in shapes:
+            r.update(path_shape_cases(d, *shapes[d], gen, **kw))
         r["pad_copies"] = ff.pad_copies - pads
         if (r["pad_copies"] > 0) != (d % 8 != 0):
             raise AssertionError(f"d {d}: {r['pad_copies']} pad copies")
         out[d] = r
         torch.cuda.empty_cache()
+    out["refused_d"] = refused_head_dim(HEADDIM_REFUSED)
     return out
+
+
+def train_path_shapes():
+    """{d: (path, (b, h, hk, s), options)}: the attention of `gptj_train`
+    (GPT-J-6B: 16 heads of d 256, no GQA) and `btlm_train` (BTLM-3B-8K: 32
+    heads of d 80 under ALiBi, muP's softmax scale 1 / 80) at those paths'
+    batch and sequence, causal; BTLM's plain version four heads at a time
+    (its (8192, 8192) scores of all heads take 8.6 GB in fp32)."""
+    from flash_attn_tpu_torch.models.btlm import btlm_config_to_gpt2_config
+    from flash_attn_tpu_torch.serve_profile import BTLM_3B_8K, GPTJ_6B
+
+    btlm = btlm_config_to_gpt2_config(BTLM_3B_8K)
+    d = btlm.n_embd // btlm.n_head
+    return {
+        GPTJ_6B.n_embd // GPTJ_6B.n_head: (
+            "gptj_train", (GPTJ_TRAIN_BATCH, GPTJ_6B.n_head, GPTJ_6B.n_head,
+                           GPTJ_TRAIN_SEQ), {}),
+        d: ("btlm_train", (BTLM_TRAIN_BATCH, btlm.n_head, btlm.n_head,
+                           BTLM_TRAIN_SEQ),
+            dict(alibi=True, plain_heads=4,
+                 softmax_scale=d ** -0.5 * btlm.mup_attn_multiplier))}
+
+
+def path_shape_cases(d, path, shape, options, gen, **kw):
+    """The forward and both backward kernels at a training path's own shape
+    (`train_path_shapes`), untimed, each held to its plain version."""
+    b, h, hk, s = shape
+    tag = f"d {d}: {path} shape"
+    lens = [s] * b
+    return {f"{path}_fwd": fwd_case(tag, b, h, hk, s, s, d, lens, lens, gen,
+                                    timed=False, **options, **kw),
+            f"{path}_bwd": bwd_case(tag, b, h, hk, s, s, d, lens, lens, gen,
+                                    timed=False, **options, **kw)}
+
+
+def refused_head_dim(d):
+    """Every kernel wrapper (dense and varlen forward and backward, decode)
+    at head dim d above the kernels' 256: NotImplementedError, no launch,
+    no plain version run."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_decode as fd
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.kernels import varlen as vl
+
+    x = torch.zeros(1, 2, 64, d, device=DEV, dtype=torch.bfloat16)
+    lens = torch.tensor([64], dtype=torch.int32, device=DEV)
+    cu = torch.tensor([0, 64], dtype=torch.int32, device=DEV)
+    packed = x[0].transpose(0, 1).contiguous()
+    lse = torch.zeros(1, 2, 64, device=DEV)
+    calls = {
+        "flash_fwd": lambda: ff.flash_attn_fwd_bhsd(x, x, x, lens, lens,
+                                                    softmax_scale=0.1),
+        "flash_bwd": lambda: fb.flash_attn_bwd_bhsd(
+            x, x, x, x, x, lse, lens, lens, softmax_scale=0.1),
+        "varlen_fwd": lambda: vl.varlen_attn_fwd(
+            packed, packed, packed, cu, cu, 64, 64, softmax_scale=0.1),
+        "varlen_bwd": lambda: vl.varlen_attn_bwd(
+            packed, packed, packed, packed, packed, lse[0], cu, cu, 64, 64,
+            softmax_scale=0.1),
+        "decode": lambda: fd.decode_attn_bhsd(x, x, x, lens,
+                                              softmax_scale=0.1)}
+    before = dropout_counts(), fd.launches
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+            raised[name] = False
+        except NotImplementedError:
+            raised[name] = True
+    res = dict(phase="kernel_headdim", case=f"d {d} refused", d=d,
+               raised=raised, launched=(dropout_counts(), fd.launches)
+               != before)
+    emit(res)
+    if not all(raised.values()) or res["launched"]:
+        raise AssertionError(f"d {d}: {res}")
+    return res
 
 
 def headdim_summary(hd):
@@ -2002,13 +2215,20 @@ def headdim_summary(hd):
     out = {k: {} for k in ("flash_fwd", "flash_decode", "flash_bwd_dq",
                            "flash_bwd_dkv", "flash_decode_ref",
                            "flash_fwd_varlen", "flash_bwd_varlen")}
+    extra = ("bwd_ragged", "bwd_window_softcap", "bwd_alibi", "bwd_dropout")
     for d, r in hd.items():
+        if d == "refused_d":
+            continue
+        paths = {k[:-4]: (r[k], r[k[:-4] + "_bwd"]) for k in r
+                 if k.endswith("_train_fwd")}
         out["flash_fwd"][d] = dict(
             timed(r["fwd"], r["fwd"]["max_abs_err_o"]),
             kernel_device_ms=r["fwd"]["kernel_device_ms"],
             kernel_d=r["fwd"]["kernel_d"],
             ragged_max_abs_err=r["fwd_ragged"]["max_abs_err_o"],
-            pad_copies=r["pad_copies"])
+            pad_copies=r["pad_copies"],
+            **{f"{k}_shape_max_abs_err": f["max_abs_err_o"]
+               for k, (f, _) in paths.items()})
         out["flash_decode"][d] = timed(r["decode"],
                                        r["decode"]["max_abs_err_o"])
         out["flash_decode_ref"][d] = dict(
@@ -2016,16 +2236,23 @@ def headdim_summary(hd):
             fp8_max_abs_err=r["decode_fp8"]["max_abs_err_o"])
         out["flash_fwd_varlen"][d] = dict(
             max_abs_err=r["varlen"]["max_abs_err_o"])
-        if "bwd" in r:
-            b = r["bwd"]
-            out["flash_bwd_dq"][d] = dict(
-                timed(b, errs(b, "dq"), "dq_kernel_ms", "dq_bound_ms"),
-                bound_by=b["dq_bound_by"], whole_ms=b["kernel_ms"])
-            out["flash_bwd_dkv"][d] = dict(
-                timed(b, errs(b, "dk", "dv"), "dkv_kernel_ms",
-                      "dkv_bound_ms"), bound_by=b["dkv_bound_by"])
-            out["flash_bwd_varlen"][d] = dict(
-                max_abs_err=errs(r["varlen_bwd"], "dq", "dk", "dv"))
+        b = r["bwd"]
+        cases = {**{k: r[k] for k in extra if k in r},
+                 **{f"{k}_shape": g for k, (_, g) in paths.items()}}
+        out["flash_bwd_dq"][d] = dict(
+            timed(b, errs(b, "dq"), "dq_kernel_ms", "dq_bound_ms"),
+            bound_by=b["dq_bound_by"], whole_ms=b["kernel_ms"],
+            kernel_d=b["kernel_d"], library_backend=b["library_backend"],
+            **{f"{k}_max_abs_err": errs(c, "dq") for k, c in cases.items()})
+        out["flash_bwd_dkv"][d] = dict(
+            timed(b, errs(b, "dk", "dv"), "dkv_kernel_ms", "dkv_bound_ms"),
+            bound_by=b["dkv_bound_by"], kernel_d=b["kernel_d"],
+            library_backend=b["library_backend"],
+            **{f"{k}_max_abs_err": errs(c, "dk", "dv")
+               for k, c in cases.items()})
+        out["flash_bwd_varlen"][d] = dict(
+            max_abs_err=errs(r["varlen_bwd"], "dq", "dk", "dv"),
+            kernel_d=b["kernel_d"])
     return out
 
 
@@ -3636,13 +3863,14 @@ GPT3_CHECK_SEQ = 256
 INIT_STD = 0.02  # `models.common.init_weights`, JAX's normal(0.02)
 
 
-def first_loss_expected(n_embd, vocab=50257):
+def first_loss_expected(n_embd, vocab=50257, mult=1.0):
     """The expected first loss on uniform tokens of a model drawn from
     N(0, INIT_STD): the final norm's unit-variance output against an
-    N(0, INIT_STD^2) head gives logits of variance n_embd INIT_STD^2, and
-    E[logsumexp - logit] = ln V + that variance / 2: ln V + 0.51 at GPT-3
-    2.7B's 2560 (ln V + 0.15 at GPT-2 small's 768)."""
-    return math.log(vocab) + n_embd * INIT_STD ** 2 / 2
+    N(0, INIT_STD^2) head gives logits of variance n_embd INIT_STD^2
+    (times mult^2, a muP output multiplier), and E[logsumexp - logit] = ln
+    V + that variance / 2: ln V + 0.51 at GPT-3 2.7B's 2560 (ln V + 0.15 at
+    GPT-2 small's 768, + 0.82 at GPT-J's 4096)."""
+    return math.log(vocab) + n_embd * INIT_STD ** 2 * mult ** 2 / 2
 
 
 def gpt3_train_config(**over):
@@ -3769,6 +3997,275 @@ def gpt3_check_phase():
     emit(res)
     check_grads("gpt3_train_check", res)
     return res
+
+
+# GPT-J-6B trained (`serve_profile.GPTJ_6B`, HF EleutherAI/gpt-j-6b
+# config.json): its head dim 256 through the wide backward.  Depth is cut
+# to 8 of 28 layers: fp32 weights, gradients and AdamW's two moments take
+# 16 B a parameter, 97 GB at 6.05 B parameters, ~32 GB at 2.0 B (8 layers).
+# BTLM-3B-8K (`serve_profile.BTLM_3B_8K`, HF cerebras/btlm-3b-8k-base
+# config.json) at all 32 layers with block remat, at its 8192-token
+# context, batch 1 (cut from the published batch): head dim 80 (D 128)
+# with ALiBi, and muP.  Both: bf16 autocast over fp32 weights, AdamW with
+# the global-norm clip (`training.optim`, `TrainConfig`'s defaults),
+# uniform tokens drawn on the card from a seed.
+GPTJ_TRAIN_LAYERS = 8
+GPTJ_TRAIN_SEQ, GPTJ_TRAIN_BATCH = 2048, 2
+GPTJ_CHECK_SEQ = 128
+BTLM_TRAIN_SEQ, BTLM_TRAIN_BATCH = 8192, 1
+BTLM_CHECK_SEQ = 256
+LM_TRAIN_STEPS = 3
+LM_PROFILE_STEPS = 1
+
+
+def logits_loss(model, ids):
+    """Mean next-token loss of a (b, s + 1) batch from the model's own
+    logits (an untied head's bias included) through `losses.cross_entropy`:
+    JAX's `chunked_lm_loss` drops that bias (`training/loss.py:22-33`)."""
+    from flash_attn_tpu_torch.losses.cross_entropy import cross_entropy_loss
+
+    logits = model(ids[:, :-1]).logits
+    losses, _ = cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                                   ids[:, 1:].reshape(-1))
+    return losses.mean()
+
+
+def model_grads(model, ids, loss_fn):
+    """(loss, {name: gradient}) of one batch, the forward and loss under
+    bf16 autocast on the card (fp32 on the CPU), the gradients cleared."""
+    import torch
+
+    with torch.autocast("cuda", dtype=torch.bfloat16,
+                        enabled=ids.device.type == "cuda"):
+        loss = loss_fn(model, ids)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def profiled_kernel_dims(prof, names):
+    """{kernel: sorted template arguments after the dtype, e.g. "256,
+    false, false, false" (D, kVarlen, kMods, kDropout)} of the device
+    kernels whose (demangled) name holds one of `names`: which
+    instantiations ran."""
+    import re
+
+    import torch
+
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            m = re.search(rf"{name}<[^,<>]+,\s*([^<>]+)>", e.name)
+            if m:
+                out.setdefault(name, set()).add(m.group(1))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def lm_train_phase(phase, model, loss_fn, seq, batch, expect_fwd, about,
+                   mods):
+    """TRAIN_WARMUP_STEPS, then LM_TRAIN_STEPS timed AdamW steps of `model`
+    (fp32 weights on the card) on uniform token batches (b, seq + 1) drawn
+    on the card: the forward and `loss_fn` under bf16 autocast, backward,
+    `clip_by_global_norm` at 1.0, the optimizer and scheduler steps.  The
+    kernels' launches are counted on the timed steps (`expect_fwd`
+    forwards a layer a step: 2 under remat), then LM_PROFILE_STEPS steps
+    run under `torch.profiler` (device idle share, the instantiations that
+    ran: every one at the model's D, dense, without dropout, and with the
+    mods, softcap / ALiBi, exactly when `mods`).  Losses finite, from about
+    ln(vocab)."""
+    import torch
+    from flash_attn_tpu_torch.kernels import flash_bwd as fb
+    from flash_attn_tpu_torch.kernels import flash_fwd as ff
+    from flash_attn_tpu_torch.training.config import (OptimizerConfig,
+                                                      SchedulerConfig)
+    from flash_attn_tpu_torch.training.optim import (clip_by_global_norm,
+                                                     make_optimizer)
+
+    c = model.config
+    mult = c.mup_output_multiplier if c.use_mup else 1.0
+    model.train()
+    params = list(model.parameters())
+    opt, sched = make_optimizer(OptimizerConfig(), SchedulerConfig(), model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def step():
+        ids = torch.randint(0, c.vocab_size, (batch, seq + 1), generator=gen,
+                            device="cuda")
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = loss_fn(model, ids)
+        loss.backward()
+        clip_by_global_norm(params, OptimizerConfig().grad_clip)
+        opt.step()
+        sched.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    losses = [step() for _ in range(TRAIN_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ff.launches = fb.launches_dq = fb.launches_dkv = 0
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(LM_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(flash_fwd=ff.launches, flash_bwd_dq=fb.launches_dq,
+                  flash_bwd_dkv=fb.launches_dkv)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    step_s = wall / LM_TRAIN_STEPS
+    tokens = batch * seq * LM_TRAIN_STEPS
+    head_dim = c.n_embd // c.n_head
+    flops = palm_flops_per_token(model, seq) * tokens
+    t1 = time.perf_counter()
+    with device_profiler() as prof:
+        for _ in range(LM_PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+    profile = profile_summary(prof, LM_PROFILE_STEPS, step_s, "step",
+                              "attention", "flash_")
+    profile["seconds"] = time.perf_counter() - t1
+    ran = profiled_kernel_dims(prof, ("flash_fwd_kernel",
+                                      "flash_bwd_dq_kernel",
+                                      "flash_bwd_dkv_kernel"))
+    n_params = sum(p.numel() for p in params)
+    del prof, opt, sched, params
+    res = dict(phase=phase, **about, layers=c.n_layer, head_dim=head_dim,
+               kernel_head_dim=ff.kernel_head_dim(head_dim), params=n_params,
+               param_dtype="float32", compute_dtype="bfloat16",
+               remat=c.remat_blocks, use_alibi=c.use_alibi,
+               use_mup=c.use_mup, seq_len=seq, batch_size=batch,
+               steps=LM_TRAIN_STEPS, warmup_steps=TRAIN_WARMUP_STEPS,
+               wall_s=wall, step_ms=step_s * 1e3,
+               tokens_per_s=tokens / wall, model_tflops=flops / wall / 1e12,
+               share_of_989_tflops=flops / wall / PEAK_FLOPS,
+               flops_formula="6 N + 12 L h d s a token (PaLM); a remat "
+               "recompute is not counted",
+               peak_gb=peak / 1e9, losses=losses,
+               first_loss_expected=first_loss_expected(
+                   c.n_embd, c.vocab_size, mult),
+               first_loss_minus_ln_vocab=losses[0] - math.log(c.vocab_size),
+               launches=counts, launches_per_step={
+                   k: v / LM_TRAIN_STEPS for k, v in counts.items()},
+               kernels_ran=ran, profile=profile)
+    emit(res)
+    want = c.n_layer * LM_TRAIN_STEPS
+    if counts != dict(flash_fwd=expect_fwd * want, flash_bwd_dq=want,
+                      flash_bwd_dkv=want):
+        raise AssertionError(f"{phase} launches {counts}, expected "
+                             f"{expect_fwd * want} forwards and {want} of "
+                             "each backward kernel")
+    want_ran = [f"{ff.kernel_head_dim(head_dim)}, false, "
+                f"{str(mods).lower()}, false"]
+    if ran != {k: want_ran for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                     "flash_bwd_dkv_kernel")}:
+        raise AssertionError(f"{phase}: kernels ran {ran}, expected each as "
+                             f"{want_ran} (D, kVarlen, kMods, kDropout)")
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - res["first_loss_expected"]) > 0.5:
+        raise AssertionError(f"{phase} losses {losses}, expected the first "
+                             f"within 0.5 of {res['first_loss_expected']}")
+    if peak >= 80e9:
+        raise AssertionError(f"{phase} peak {peak} B")
+    return res
+
+
+def gptj_train_phase(seed=0):
+    """GPT-J-6B at GPTJ_TRAIN_LAYERS of its 28 layers (`lm_train_phase`):
+    the loss of its own logits, head bias included (`logits_loss`); every
+    attention launch at D 256."""
+    import torch
+    from flash_attn_tpu_torch.serve_profile import gptj_6b
+
+    t0 = time.perf_counter()
+    model = gptj_6b(seed, GPTJ_TRAIN_LAYERS, dtype=torch.float32)
+    about = dict(model="GPT-J-6B, HF EleutherAI/gpt-j-6b config.json "
+                 "(random weights, seed 0)",
+                 reduced=f"{GPTJ_TRAIN_LAYERS} of 28 layers: fp32 weights, "
+                 "gradients and AdamW state take 16 B a parameter (97 GB at "
+                 "6.05 B)", init_s=time.perf_counter() - t0,
+                 loss="the model's logits (head bias included) through "
+                 "losses.cross_entropy")
+    res = lm_train_phase("gptj_train", model, logits_loss, GPTJ_TRAIN_SEQ,
+                         GPTJ_TRAIN_BATCH, 1, about, mods=False)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def btlm_train_phase(seed=0):
+    """BTLM-3B-8K at all 32 layers with block remat (policy "none") at
+    8192 tokens (`lm_train_phase`), the loss through `chunked_lm_loss` (the
+    muP output multiplier); every attention launch at D 128 (d 80) with
+    ALiBi."""
+    import torch
+    from flash_attn_tpu_torch.serve_profile import btlm_3b
+    from flash_attn_tpu_torch.training.loss import chunked_lm_loss
+
+    t0 = time.perf_counter()
+    model = btlm_3b(seed, 32, dtype=torch.float32)
+    model.config.remat_blocks = True
+    about = dict(model="BTLM-3B-8K, HF cerebras/btlm-3b-8k-base config.json "
+                 "(random weights, seed 0)",
+                 reduced=f"batch {BTLM_TRAIN_BATCH} of {BTLM_TRAIN_SEQ} "
+                 "tokens; block remat on (policy none)",
+                 init_s=time.perf_counter() - t0,
+                 loss="training.loss.chunked_lm_loss (tied head times the "
+                 "muP output multiplier "
+                 f"{model.config.mup_output_multiplier:.4f})",
+                 softmax_scale=model.transformer.layers[0].mixer.softmax_scale)
+    res = lm_train_phase("btlm_train", model, chunked_lm_loss,
+                         BTLM_TRAIN_SEQ, BTLM_TRAIN_BATCH, 2, about, mods=True)
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_check_phase(phase, model, loss_fn, seq):
+    """One (1, seq + 1) uniform batch through `model` on the card (bf16
+    autocast, the kernels) and through its fp32 copy on the CPU (the plain
+    path), gradients compared (`check_grads`: loss within 0.02, cosine >=
+    GRAD_COSINE, each matrix's >= 0.99)."""
+    import torch
+
+    ids = torch.randint(0, model.config.vocab_size, (1, seq + 1),
+                        generator=torch.Generator().manual_seed(3))
+    ref = cpu_reference(model)
+    model.train()
+    card = model_grads(model, ids.cuda(), loss_fn)
+    del model
+    torch.cuda.empty_cache()
+    res = dict(phase=phase, layers=ref.config.n_layer, seq_len=seq,
+               **compare_grads(card, model_grads(ref, ids, loss_fn)))
+    del ref, card
+    emit(res)
+    check_grads(phase, res)
+    return res
+
+
+def gptj_check_phase(seed=0):
+    """GPT-J-6B at full width, 2 layers, GPTJ_CHECK_SEQ tokens
+    (`lm_check_phase`, `logits_loss`)."""
+    import torch
+    from flash_attn_tpu_torch.serve_profile import gptj_6b
+
+    return lm_check_phase("gptj_train_check",
+                          gptj_6b(seed, 2, dtype=torch.float32), logits_loss,
+                          GPTJ_CHECK_SEQ)
+
+
+def btlm_check_phase(seed=0):
+    """BTLM-3B-8K at full width, 2 layers, BTLM_CHECK_SEQ tokens
+    (`lm_check_phase`, `chunked_lm_loss`: ALiBi and muP on both sides)."""
+    import torch
+    from flash_attn_tpu_torch.serve_profile import btlm_3b
+    from flash_attn_tpu_torch.training.loss import chunked_lm_loss
+
+    return lm_check_phase("btlm_train_check",
+                          btlm_3b(seed, 2, dtype=torch.float32),
+                          chunked_lm_loss, BTLM_CHECK_SEQ)
 
 
 # ViT-B/16 on ImageNet-sized inputs: the JAX package's recipe
@@ -4020,8 +4517,10 @@ def family_configs():
         bigcode_config_to_gpt2_config
     from flash_attn_tpu_torch.models.falcon import \
         falcon_config_to_gpt2_config
+    from flash_attn_tpu_torch.models.btlm import btlm_config_to_gpt2_config
     from flash_attn_tpu_torch.models.gpt_neox import \
         gpt_neox_config_to_gpt2_config
+    from flash_attn_tpu_torch.serve_profile import BTLM_3B_8K
 
     return {
         # HF baichuan-inc/Baichuan-7B config.json
@@ -4047,6 +4546,8 @@ def family_configs():
             n_head=16, n_inner=8192, multi_query=True,
             activation_function="gelu_pytorch_tanh",
             layer_norm_epsilon=1e-5)),
+        # HF cerebras/btlm-3b-8k-base config.json: ALiBi, SwiGLU, muP
+        "BTLM-3B-8K": btlm_config_to_gpt2_config(BTLM_3B_8K),
     }
 
 
@@ -4693,16 +5194,19 @@ def main():
     info = _build.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               kernels=info))
-    spills = {k: v for name in ("flex", "flash_bwd", "flash_fwd",
-                                "flash_decode_ref", "flash_decode_ref_wide",
+    spills = {k: v for name in ("flex", "flash_bwd", "flash_bwd_wide",
+                                "flash_fwd", "flash_decode_ref",
+                                "flash_decode_ref_wide",
                                 "diag_int8_decode", "diag_varlen_bisect")
               for k, v in ptxas_summary(name).items()
               if k.startswith(("flex_fwd_kernel", "flex_bwd_", "flash_bwd_",
                                "flash_fwd_kernel", "flash_decode_ref_kernel",
                                "decode_ladder_kernel", "bisect_kernel"))
-              and (v.get("spill_stores") or v.get("spill_loads"))}
+              and (v.get("spill_stores") or v.get("spill_loads")
+                   or v.get("serialized"))}
     if spills:
-        raise AssertionError(f"Hopper kernels spill registers: {spills}")
+        raise AssertionError("Hopper kernels spill registers or have their "
+                             f"wgmma serialized: {spills}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     fwd = {}
@@ -4772,6 +5276,10 @@ def main():
     flexpath = flex_phase()
     lserve = llama_serve_phase()
     gptj = gptj_serve_phase()
+    jtrain = gptj_train_phase()
+    gptj_check_phase()
+    btrain = btlm_train_phase()
+    btlm_check_phase()
     import tempfile
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -4803,7 +5311,9 @@ def main():
              + vit["launches"]["flash_fwd"]
              + fam["launches"]["flash_fwd"]
              + dgpt["launches"]["flash_fwd"]
-             + gptj["flash_fwd_launches"] + g3["launches"]["flash_fwd"],
+             + gptj["flash_fwd_launches"] + g3["launches"]["flash_fwd"]
+             + jtrain["launches"]["flash_fwd"]
+             + btrain["launches"]["flash_fwd"],
              launches_by_path=dict(
                  serve=serve["flash_fwd_launches"],
                  train=train["launches"]["flash_fwd"],
@@ -4815,7 +5325,9 @@ def main():
                  vit_evaluation=vit["eval_launches"]["flash_fwd"],
                  families=fam["launches"]["flash_fwd"],
                  gptj_serve_d256=gptj["flash_fwd_launches"],
-                 gpt3_train_d80=g3["launches"]["flash_fwd"]),
+                 gpt3_train_d80=g3["launches"]["flash_fwd"],
+                 gptj_train_d256=jtrain["launches"]["flash_fwd"],
+                 btlm_train_d80=btrain["launches"]["flash_fwd"]),
              by_head_dim=hd["flash_fwd"],
              max_abs_err=fwd["a"]["max_abs_err_o"], ms=fwd["a"]["kernel_ms"],
              kernel_device_ms=fwd["a"]["kernel_device_ms"],
@@ -4866,13 +5378,17 @@ def main():
              + ltrain["launches"]["flash_bwd_dq"]
              + vit["launches"]["flash_bwd_dq"]
              + dgpt["launches"]["flash_bwd_dq"]
-             + g3["launches"]["flash_bwd_dq"],
+             + g3["launches"]["flash_bwd_dq"]
+             + jtrain["launches"]["flash_bwd_dq"]
+             + btrain["launches"]["flash_bwd_dq"],
              launches_by_path=dict(
                  train=train["launches"]["flash_bwd_dq"],
                  dropout_gpt=dgpt["launches"]["flash_bwd_dq"],
                  llama_train=ltrain["launches"]["flash_bwd_dq"],
                  vit_train=vit["launches"]["flash_bwd_dq"],
-                 gpt3_train_d80=g3["launches"]["flash_bwd_dq"]),
+                 gpt3_train_d80=g3["launches"]["flash_bwd_dq"],
+                 gptj_train_d256=jtrain["launches"]["flash_bwd_dq"],
+                 btlm_train_d80=btrain["launches"]["flash_bwd_dq"]),
              by_head_dim=hd["flash_bwd_dq"],
              max_abs_err=a["max_abs_err_dq"], ms=a["dq_kernel_ms"],
              dropout=dropout_entry(dcases, ("i", "ii", "iii"), "dq",
@@ -4887,7 +5403,8 @@ def main():
                               library_ms=r["library_ms"],
                               max_abs_err=r["max_abs_err_dq"])
                       for k, r in bwd.items()},
-             ptxas={k: v for k, v in ptxas_summary("flash_bwd").items()
+             ptxas={k: v for lib in ("flash_bwd", "flash_bwd_wide")
+                    for k, v in ptxas_summary(lib).items()
                     if k.startswith("flash_bwd_dq_kernel")}),
         dict(name="flash_bwd_dkv", route="cuda",
              source="flash_attn_tpu_torch/csrc/flash_bwd.cu",
@@ -4896,13 +5413,17 @@ def main():
              + ltrain["launches"]["flash_bwd_dkv"]
              + vit["launches"]["flash_bwd_dkv"]
              + dgpt["launches"]["flash_bwd_dkv"]
-             + g3["launches"]["flash_bwd_dkv"],
+             + g3["launches"]["flash_bwd_dkv"]
+             + jtrain["launches"]["flash_bwd_dkv"]
+             + btrain["launches"]["flash_bwd_dkv"],
              launches_by_path=dict(
                  train=train["launches"]["flash_bwd_dkv"],
                  dropout_gpt=dgpt["launches"]["flash_bwd_dkv"],
                  llama_train=ltrain["launches"]["flash_bwd_dkv"],
                  vit_train=vit["launches"]["flash_bwd_dkv"],
-                 gpt3_train_d80=g3["launches"]["flash_bwd_dkv"]),
+                 gpt3_train_d80=g3["launches"]["flash_bwd_dkv"],
+                 gptj_train_d256=jtrain["launches"]["flash_bwd_dkv"],
+                 btlm_train_d80=btrain["launches"]["flash_bwd_dkv"]),
              by_head_dim=hd["flash_bwd_dkv"],
              max_abs_err=max(a["max_abs_err_dk"], a["max_abs_err_dv"]),
              ms=a["dkv_kernel_ms"], plain_ms=a["plain_ms"],
@@ -4917,7 +5438,8 @@ def main():
                               max_abs_err=max(r["max_abs_err_dk"],
                                               r["max_abs_err_dv"]))
                       for k, r in bwd.items()},
-             ptxas={k: v for k, v in ptxas_summary("flash_bwd").items()
+             ptxas={k: v for lib in ("flash_bwd", "flash_bwd_wide")
+                    for k, v in ptxas_summary(lib).items()
                     if k.startswith("flash_bwd_dkv_kernel")}),
         dict(name="flash_decode_ref", route="cuda",
              source="flash_attn_tpu_torch/csrc/flash_decode_ref.cu",

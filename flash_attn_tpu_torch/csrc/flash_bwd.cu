@@ -30,7 +30,8 @@
 // its block lists and bits).  The dQ kernel runs first, then the dK/dV
 // kernel, on one stream, because the second reads what the first writes:
 // * flash_bwd_dq_kernel: a block owns 128 q rows of one (head, batch), two
-//   consumer warpgroups of 64 rows; one producer thread loads Q, dO and O
+//   consumer warpgroups of 64 rows (at D > 128 64 rows, one warpgroup: see
+//   Wide head dims); one producer thread loads Q, dO and O
 //   once by TMA and keeps a ring of K/V stages full (128 keys at d = 64, 64
 //   at d = 128, as the registers allow).  The consumers first form delta =
 //   rowsum(dO O) - dlse in fp32 from the shared tiles, in a fixed order,
@@ -43,7 +44,8 @@
 //   (named barriers).  Under a causal or right-windowed mask the blocks run
 //   in reverse order of their q tile: heaviest first.
 // * flash_bwd_dkv_kernel: a block owns 128 keys of one (kv head, batch), K
-//   and V resident, two consumer warpgroups of 64 keys.  It walks its GQA
+//   and V resident, two consumer warpgroups of 64 keys (at D > 128 64
+//   keys, the warpgroups splitting d: Wide head dims).  It walks its GQA
 //   group's heads, then the live 64-row q tiles (32 with a mod at d = 128,
 //   for registers), in a fixed order: the producer thread keeps a ring of
 //   (Q, dO) stages full by TMA, the rows' lse and delta coming from the
@@ -73,15 +75,40 @@
 //   48-120 bytes a thread at 128-key stages, and takes 64-key stages; the
 //   d = 128 dK/dV kernel with dropout spilled 16-28 at 64-row stages, and
 //   takes 32-row stages (DqTiles, DkvTiles).
-// * Head dims: the kernels are instantiated at D = 64 and 128, and a call's
-//   d (a multiple of 8, up to 128) runs at D = d rounded up to a multiple
-//   of 64 (kernels/flash_fwd.py::kernel_head_dim), its true d riding in
-//   BwdMaps: the tensor maps span d columns, so the TMA fills Q's, dO's,
-//   O's, K's and V's columns d..D-1 in shared memory with zeros (delta and
-//   every product stay exact; dQ, dK and dV get zero columns there), and the
-//   stores skip them.  D 192 and 256 need a tile design of their own: at D
-//   256 the dQ kernel's resident Q, dO and O take 192 KB before any K/V
-//   stage, and dK plus dV 256 registers a consumer thread at 64 keys.
+// * Head dims: the kernels are instantiated at D = 64, 128, 192 and 256,
+//   and a call's d (a multiple of 8, up to 256) runs at D = d rounded up to
+//   a multiple of 64 (kernels/flash_fwd.py::kernel_head_dim), its true d
+//   riding in BwdMaps: the tensor maps span d columns, so the TMA fills Q's,
+//   dO's, O's, K's and V's columns d..D-1 in shared memory with zeros
+//   (delta and every product stay exact; dQ, dK and dV get zero columns
+//   there), and the stores skip them.
+// * Wide head dims (D 192 and 256, built into a library of their own with
+//   FA_BWD_WIDE) have tiles of their own.  At D 256 the dQ kernel's
+//   resident Q, dO and O of 128 rows take 192 KB before any K/V stage, so
+//   its items are 64 rows of one consumer warpgroup (DqTiles<D, ., true>:
+//   96 KB, beside four 32-key stages of 32 KB).  dK plus dV of 64 keys take
+//   256 registers a thread over one warpgroup, above 240, so the dK/dV
+//   kernel splits d across its two consumer warpgroups (DkvTiles<D, .,
+//   true>): both own the block's 64 keys, each holds dK and dV of 128
+//   columns (64 + 64 registers).  Of each 64-row (Q, dO) stage, each
+//   forms S^T, dP^T, P^T and dS^T of 32 rows (m64n32 products over all of
+//   d), and the two swap their packed P^T and dS^T through 16 KB of shared
+//   memory: thread t of one warpgroup holds the same keys as thread t of
+//   the other, for the other rows, so its fragments are the other's A
+//   operand for those k16 steps, copied word for word, no layout to build.
+//   Then each issues dV += P^T dO and dK += dS^T Q over all 64 rows for its
+//   columns.  Every product is issued once, as at D 128.  The other way
+//   (dK^T = Q^T dS, M running over d) needs dS and P as wgmma's B operand,
+//   in shared memory in the 128-byte swizzle and transposed, where this
+//   one keeps the narrow kernel's register-A products and copies
+//   fragments.  The price is a named barrier (3) a stage between the two
+//   warpgroups, and at D 192 a third more dV / dK work: both warpgroups
+//   issue 128-column products (columns 0-127 and 64-191).
+//   Neither wide kernel may issue a wgmma in a branch that only some
+//   iterations or warpgroups take: ptxas then serializes every wgmma of
+//   the kernel (C7520 in `-Xptxas -v`).  A 64-column product for
+//   warpgroup 1 alone at D 192 cost dK/dV 1.86x, the dQ kernel's
+//   dS K skipped at its first key tile 1.6-1.8x.
 // * What is hard: registers.  dK/dV's consumers hold dK and dV (64 + 64
 //   fp32 a thread at d = 128), S^T and dP^T (32 + 32) and their 16-bit
 //   packs; setmaxnreg gives them 240 and the producer 24, which is why the
@@ -237,8 +264,10 @@ __device__ __forceinline__ float dot8(float sum, uint4 a, uint4 b) {
 // is the producer.  Tiles as
 // hopper.cuh's: D / 64 column blocks of (rows, 64) in the 128-byte swizzle,
 // 1024-byte aligned.  kTight: the kernel carries both the mods and dropout.
-template <int D, bool kTight>
+// D 192 and 256 have their own specialisation below.
+template <int D, bool kTight, bool kWide = (D > 128)>
 struct DqTiles {
+  static constexpr int kConsumers = 2;
   static constexpr int kRows = 128;
   // keys of a K/V stage: 128 at d = 64 (S, dP, dQ and dS fit in 240
   // registers), 64 at d = 128 and with both the mods and dropout
@@ -266,6 +295,32 @@ struct DqTiles {
       1024 + kBarOffset + (kMaxItems + 2 * kStages) * 8;
 };
 
+// D 192 and 256 (the note's Wide head dims): 64-row items of one consumer
+// warpgroup, whose Q, dO and O (72 KB at D 192, 96 KB at 256) fit beside
+// K/V stages, where 128 rows (144 and 192 KB) do not.  The dQ accumulator
+// takes D / 2 registers a thread (128 at D 256), S, dP and dS of a 64-key
+// stage 80 more: at D 256 that spilled 4-28 bytes a thread (all 255
+// registers taken), so D 256 takes 32-key stages (four of 32 KB), D 192
+// 64-key ones (three of 48 KB).  One block an SM, so the consumer is given
+// every register and no setmaxnreg.
+template <int D, bool kTight>
+struct DqTiles<D, kTight, true> {
+  static constexpr int kConsumers = 1;
+  static constexpr int kRows = 64;
+  static constexpr int kKeys = D == 256 ? 32 : 64;
+  static constexpr int kMaxItems = 1;
+  static constexpr int kThreads = 2 * 128;
+  static constexpr int kQBytes = kRows * D * 2;
+  static constexpr int kItemBytes = 3 * kQBytes;
+  static constexpr int kTileBytes = kKeys * D * 2;
+  static constexpr int kFit =
+      (227 * 1024 - 1024 - kItemBytes - 64) / (2 * kTileBytes);
+  static constexpr int kStages = kFit < 2 ? 2 : kFit > 4 ? 4 : kFit;
+  static constexpr int kRingOffset = kItemBytes;
+  static constexpr int kBarOffset = kRingOffset + kStages * 2 * kTileBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + (1 + 2 * kStages) * 8;
+};
+
 // The key tiles [lo, lo + n) of kKeys keys that any row (< rows_in) of the
 // q tile of kRows rows at row0 sees.
 template <int kRows, int kKeys>
@@ -284,11 +339,16 @@ __device__ __forceinline__ int2 key_tiles(const BwdParams& p, int row0,
 // with K and V resident, and walks Q / dO in kRows-row tiles through a ring
 // whose stages also carry the rows' lse2 and delta.  kRows is 64, and 32
 // with a mod or dropout (kExtra) at d = 128: there dK, dV, S^T, dP^T and
-// the mod's arithmetic spilled 24-44 bytes a thread at 64 rows.
-template <int D, bool kExtra>
+// the mod's arithmetic spilled 24-44 bytes a thread at 64 rows.  kSplit
+// (D 192 and 256, the specialisation below): the warpgroups split d, not
+// the keys.
+template <int D, bool kExtra, bool kWide = (D > 128)>
 struct DkvTiles {
+  static constexpr bool kSplit = false;
   static constexpr int kKeys = 128;
   static constexpr int kRows = kExtra && D == 128 ? 32 : 64;
+  static constexpr int kOwnRows = kRows;  // the rows a warpgroup forms
+  static constexpr int kCols = D;         // dK / dV columns a warpgroup holds
   static constexpr int kThreads = 3 * 128;
   static constexpr int kKBytes = kKeys * D * 2;     // K or V
   static constexpr int kTileBytes = kRows * D * 2;  // Q or dO
@@ -301,6 +361,40 @@ struct DkvTiles {
   static constexpr int kMetaOffset = 2 * kKBytes + kStages * 2 * kTileBytes;
   static constexpr int kBarOffset = kMetaOffset + kStages * kMetaBytes;
   // barriers: K and V, then full[kStages], then empty[kStages]
+  static constexpr int kSmem = 1024 + kBarOffset + (1 + 2 * kStages) * 8;
+};
+
+// D 192 and 256: a block owns 64 keys, K and V resident (64 KB at D 256),
+// and both consumer warpgroups own all of them; warpgroup cw holds dK and
+// dV of the 128 columns from (D - 128) cw (at D 192 the two overlap in
+// column block 1, stored by warpgroup 0 alone): 128 registers a thread,
+// where all D columns of 64 keys would take 256.  Of a 64-row (Q, dO) stage each warpgroup forms S^T, dP^T, P^T and
+// dS^T of 32 rows, and the two exchange their packed P^T and dS^T through
+// kXBytes of shared memory, so that each runs dV += P^T dO and dK += dS^T Q
+// over all 64 rows and its columns.  Two stages fit at D 256, three at 192.
+template <int D, bool kExtra>
+struct DkvTiles<D, kExtra, true> {
+  static constexpr bool kSplit = true;
+  static constexpr int kKeys = 64;
+  static constexpr int kRows = 64;
+  static constexpr int kOwnRows = kRows / 2;  // the rows a warpgroup forms
+  static constexpr int kCols = 128;  // dK / dV columns a warpgroup holds
+  static constexpr int kThreads = 3 * 128;
+  static constexpr int kKBytes = kKeys * D * 2;
+  static constexpr int kTileBytes = kRows * D * 2;
+  static constexpr int kMetaBytes = 2 * kRows * 4;
+  // P^T then dS^T of a stage, as A fragments: [kRows / 16][4] words of each
+  // consumer thread, the thread index fastest
+  static constexpr int kXWords = kRows / 16 * 4 * 128;
+  static constexpr int kXBytes = 2 * kXWords * 4;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  static constexpr int kFit = (227 * 1024 - 1024 - 2 * kKBytes - kXBytes -
+                               64) / (2 * kTileBytes + kMetaBytes);
+  static constexpr int kStages = kFit < 2 ? 2 : kFit > 4 ? 4 : kFit;
+  static constexpr int kMetaOffset = 2 * kKBytes + kStages * 2 * kTileBytes;
+  static constexpr int kXOffset = kMetaOffset + kStages * kMetaBytes;
+  static constexpr int kBarOffset = kXOffset + kXBytes;
   static constexpr int kSmem = 1024 + kBarOffset + (1 + 2 * kStages) * 8;
 };
 
@@ -369,6 +463,10 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
     flash_bwd_dq_kernel(const BwdParams p,
                         const __grid_constant__ BwdMaps maps) {
   using Cfg = DqTiles<D, kMods && kDropout>;
+  static_assert(Cfg::kSmem <= 227 * 1024, "dQ tiles exceed 227 KB");
+  // two consumer warpgroups take the tensor cores in turns; one (D > 128)
+  // has them to itself
+  constexpr bool kTurns = Cfg::kConsumers == 2;
   constexpr int kRows = Cfg::kRows;
   constexpr int kKeys = Cfg::kKeys;
   constexpr int kMaxItems = Cfg::kMaxItems;
@@ -427,7 +525,8 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
     for (int j = 0; j < kMaxItems; ++j) mbar_init(&bar_q[j], 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&bar_full[s], 1);
-      mbar_init(&bar_empty[s], 8);  // one arrival per consumer warp
+      // one arrival per consumer warp
+      mbar_init(&bar_empty[s], 4 * Cfg::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -437,8 +536,9 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
     // Producer: one thread loads every item's Q, dO and O at once, then
     // keeps the K/V ring full, item after item; the rest of the warpgroup
     // gives its registers to the consumers and leaves.
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        Cfg::kProducerRegs));
+    if constexpr (kTurns)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          Cfg::kProducerRegs));
     if (threadIdx.x != 0) return;
     const int hkv = hq / p.g;
     for (int j = 0; j < n_items; ++j) {
@@ -477,8 +577,9 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
 
   // Consumers: warpgroup cw owns rows [64 cw, 64 cw + 64) of each item;
   // this thread rows r_lo and r_lo + 8.
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      Cfg::kConsumerRegs));
+  if constexpr (kTurns)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        Cfg::kConsumerRegs));
   const int ct = threadIdx.x - 128;
   const int cw = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -492,7 +593,7 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
     dbase = drop_base(maps.drop.seed, kVarlen ? 0 : bb, hq);
     dcol = (uint32_t)(k_start + tig * 2) * kHashC4;
   }
-  if (cw == 1) their_turn<true>(cw);  // warpgroup 0 goes first
+  if (cw == 1) their_turn<kTurns>(cw);  // warpgroup 0 goes first
 
   int it = 0;  // the ring's stages, counted over the items
   for (int j = 0; j < n_items; ++j) {
@@ -552,8 +653,18 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
     const uint32_t do_lo = kmajor_lo(sdO(j) + cw * 64 * 64);
 
     // dS of the previous tile (the A operand of its dS K, issued beside
-    // the next tile's S and dP)
+    // the next tile's S and dP).  One consumer (D > 128) issues that
+    // product at t = 0 too, on a zero dS and the current stage's K: with
+    // the product in a branch there, ptxas serialized every wgmma of the
+    // kernel (C7520) and dQ took 1.6-1.8x the time.  The two-consumer
+    // kernels (D <= 128) keep the branch: ptxas does not serialize them.
     uint32_t pa[kKeys / 16][4];
+    if constexpr (!kTurns) {
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[kk][r] = 0u;
+    }
     for (int t = 0; t < kt.y; ++t, ++it) {
       const int col0 = (kt.x + t) * kKeys;
       const int stage = it % kStages;
@@ -562,15 +673,19 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
 
       // S = Q K^T, dP = dO V^T, and dQ += dS K of the previous tile
       float s[kKeys / 2], dp[kKeys / 2];
-      my_turn<true>(cw);
+      my_turn<kTurns>(cw);
       fence_regs<D / 2>(acc);
       fence_regs<kKeys / 4>(&pa[0][0]);
       wgmma_fence();
       qk_product<D, kKeys, T>(s, q_lo, kRows, kmajor_lo(sK(stage)));
       qk_product<D, kKeys, T>(dp, do_lo, kRows, kmajor_lo(sV(stage)));
-      if (t > 0) pv_product<D, kKeys>(acc, pa, sK(prev));
+      if constexpr (kTurns) {
+        if (t > 0) pv_product<D, kKeys>(acc, pa, sK(prev));
+      } else {
+        pv_product<D, kKeys>(acc, pa, sK(t > 0 ? prev : stage));
+      }
       wgmma_commit();
-      their_turn<true>(cw);
+      their_turn<kTurns>(cw);
       wgmma_wait_all();
       fence_regs<kKeys / 2>(s);
       fence_regs<kKeys / 2>(dp);
@@ -590,13 +705,13 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
     }
     if (kt.y > 0) {  // the last tile's dS K
       const int last = (it + kStages - 1) % kStages;
-      my_turn<true>(cw);
+      my_turn<kTurns>(cw);
       fence_regs<D / 2>(acc);
       fence_regs<kKeys / 4>(&pa[0][0]);
       wgmma_fence();
       pv_product<D, kKeys>(acc, pa, sK(last));
       wgmma_commit();
-      their_turn<true>(cw);
+      their_turn<kTurns>(cw);
       wgmma_wait_all();
       fence_regs<D / 2>(acc);
       fence_regs<kKeys / 4>(&pa[0][0]);
@@ -617,7 +732,7 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
                            acc[4 * n + 2 * i + 1] * p.scale);
     }
   }
-  if (cw == 0) my_turn<true>(cw);  // the turn warpgroup 1 gave first
+  if (cw == 0) my_turn<kTurns>(cw);  // the turn warpgroup 1 gave first
 }
 
 // P^T and dS^T of one stage for one dK/dV consumer thread: st (S^T, then
@@ -626,8 +741,11 @@ __global__ void __launch_bounds__(DqTiles<D, kMods && kDropout>::kThreads,
 // (e & 1)), the rows' lse2 and delta at ml, packed into pa and pds as the A
 // operands of dV += P^T dO and dK += dS^T Q.  kDropout: dP^T is dropped
 // and scaled, and P^T for dV dropped (its scale applied at the store); dkey
-// are the keys' hash terms, dstage the row term of row row0 + 2 tig.
-template <bool kMods, bool kMask, bool kDropout, int kRows, typename T>
+// are the keys' hash terms, dstage the row term of row row0 + 2 tig.  The
+// rows' delta lie kMetaRows after their lse2 (a stage's rows: the wide
+// kernels form half of them here).
+template <bool kMods, bool kMask, bool kDropout, int kRows, typename T,
+          int kMetaRows = kRows>
 __device__ __forceinline__ void dkv_tile_p_ds(const BwdParams& p,
                                               float slope, float* st,
                                               float* dpt,
@@ -651,7 +769,8 @@ __device__ __forceinline__ void dkv_tile_p_ds(const BwdParams& p,
     for (int jj = 2 * kk; jj < 2 * kk + 2; ++jj) {
       const int qc = jj * 8 + tig * 2;  // q row in the stage
       const float2 l2 = *reinterpret_cast<const float2*>(ml + qc);
-      const float2 dl = *reinterpret_cast<const float2*>(ml + kRows + qc);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(ml + kMetaRows + qc);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = e & 1, i = e >> 1;
@@ -686,6 +805,8 @@ __global__ void __launch_bounds__(
     flash_bwd_dkv_kernel(const BwdParams p,
                          const __grid_constant__ BwdMaps maps) {
   using Cfg = DkvTiles<D, kMods || kDropout>;
+  static_assert(Cfg::kSmem <= 227 * 1024, "dK/dV tiles exceed 227 KB");
+  constexpr bool kSplit = Cfg::kSplit;
   constexpr int kRows = Cfg::kRows;
   constexpr int kKeys = Cfg::kKeys;
   constexpr int kStages = Cfg::kStages;
@@ -784,20 +905,27 @@ __global__ void __launch_bounds__(
     return;
   }
 
-  // Consumers: warpgroup cw owns keys [64 cw, 64 cw + 64) of the block;
-  // this thread keys key_lo and key_lo + 8.
+  // Consumers: warpgroup cw owns keys [64 cw, 64 cw + 64) of the block
+  // (kSplit: all 64 keys, the columns [c0, c0 + kCols) and the stage rows
+  // [rw, rw + kOwnRows)); this thread keys key_lo and key_lo + 8.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
       Cfg::kConsumerRegs));
   const int ct = threadIdx.x - 128;
   const int cw = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int kw = cw * 64;
+  const int kw = kSplit ? 0 : cw * 64;
   const int w_col0 = col0 + kw;
   const int key_lo = w_col0 + warp * 16 + gid;
+  constexpr int kCols = Cfg::kCols;
+  constexpr int kOwnRows = Cfg::kOwnRows;
+  // the first column of this warpgroup's products, and of its stores
+  const int c0 = kSplit ? cw * (D - kCols) : 0;
+  const int c_store = kSplit ? cw * kCols : 0;
+  const int rw = kSplit ? cw * kOwnRows : 0;
 
-  float dk[D / 2], dv[D / 2];  // m64nD accumulators
+  float dk[kCols / 2], dv[kCols / 2];  // m64nD (kSplit: m64n128) accumulators
 #pragma unroll
-  for (int n = 0; n < D / 2; ++n) dk[n] = dv[n] = 0.f;
+  for (int n = 0; n < kCols / 2; ++n) dk[n] = dv[n] = 0.f;
   // K, V: this warpgroup's 64 rows, K-major (the A operands of S^T and
   // dP^T); Q, dO of a stage: K-major as B of those, MN-major as B of
   // dK += dS^T Q and dV += P^T dO.
@@ -823,43 +951,92 @@ __global__ void __launch_bounds__(
       const int stage = it % kStages;
       mbar_wait(&bar_full[stage], (it / kStages) & 1);
 
-      // S^T = K Q^T, dP^T = V dO^T
-      float st[kRows / 2], dpt[kRows / 2];
+      // S^T = K Q^T, dP^T = V dO^T (kSplit: of the rows [rw, rw +
+      // kOwnRows), their column blocks kRows * 128 bytes apart)
+      float st[kOwnRows / 2], dpt[kOwnRows / 2];
       my_turn<true>(cw);
       wgmma_fence();
-      qk_product<D, kRows, T>(st, k_lo, kKeys, kmajor_lo(sQ(stage)));
-      qk_product<D, kRows, T>(dpt, v_lo, kKeys, kmajor_lo(sdO(stage)));
+      qk_product<D, kOwnRows, T>(st, k_lo, kKeys,
+                                 kmajor_lo(sQ(stage) + rw * 64), kRows);
+      qk_product<D, kOwnRows, T>(dpt, v_lo, kKeys,
+                                 kmajor_lo(sdO(stage) + rw * 64), kRows);
       wgmma_commit();
       their_turn<true>(cw);
       wgmma_wait_all();
-      fence_regs<kRows / 2>(st);
-      fence_regs<kRows / 2>(dpt);
+      fence_regs<kOwnRows / 2>(st);
+      fence_regs<kOwnRows / 2>(dpt);
 
       uint32_t pa[kRows / 16][4], pds[kRows / 16][4];
-      const uint32_t dstage = (uint32_t)(q_start + row0 + tig * 2) * kHashC3;
-      if (interior(p, row0, kRows, w_col0, 64, offset, sk_b))
+      const uint32_t dstage =
+          (uint32_t)(q_start + row0 + rw + tig * 2) * kHashC3;
+      if constexpr (kSplit) {
+        // this warpgroup's rows, then the exchange: each thread's P^T and
+        // dS^T fragments of k16 steps rw / 16.. into xs, and after both
+        // warpgroups have written, every step's back.  One buffer is
+        // enough: a warpgroup writes the next stage's only after its next
+        // turn, which the other gives after issuing (so after reading the
+        // fragments of) this stage's products.
+        uint32_t oa[kOwnRows / 16][4], ods[kOwnRows / 16][4];
+        if (interior(p, row0 + rw, kOwnRows, w_col0, kKeys, offset, sk_b))
+          dkv_tile_p_ds<kMods, false, kDropout, kOwnRows, T, kRows>(
+              p, slope, st, dpt, oa, ods, meta(stage) + rw, row0 + rw,
+              key_lo, offset, sk_b, tig, dkey, dstage, maps.drop);
+        else
+          dkv_tile_p_ds<kMods, true, kDropout, kOwnRows, T, kRows>(
+              p, slope, st, dpt, oa, ods, meta(stage) + rw, row0 + rw,
+              key_lo, offset, sk_b, tig, dkey, dstage, maps.drop);
+        uint32_t* xs = reinterpret_cast<uint32_t*>(smem + Cfg::kXOffset);
+        const int xt = ct & 127;  // the thread in its warpgroup
+#pragma unroll
+        for (int kk = 0; kk < kOwnRows / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int w = ((rw / 16 + kk) * 4 + r) * 128 + xt;
+            xs[w] = oa[kk][r];
+            xs[Cfg::kXWords + w] = ods[kk][r];
+          }
+        asm volatile("bar.sync 3, 256;\n" ::: "memory");
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int w = (kk * 4 + r) * 128 + xt;
+            pa[kk][r] = xs[w];
+            pds[kk][r] = xs[Cfg::kXWords + w];
+          }
+      } else if (interior(p, row0, kRows, w_col0, 64, offset, sk_b)) {
         dkv_tile_p_ds<kMods, false, kDropout, kRows, T>(
             p, slope, st, dpt, pa, pds, meta(stage), row0, key_lo, offset,
             sk_b, tig, dkey, dstage, maps.drop);
-      else
+      } else {
         dkv_tile_p_ds<kMods, true, kDropout, kRows, T>(
             p, slope, st, dpt, pa, pds, meta(stage), row0, key_lo, offset,
             sk_b, tig, dkey, dstage, maps.drop);
+      }
 
-      // dV += P^T dO, dK += dS^T Q
+      // dV += P^T dO, dK += dS^T Q (kSplit: 128 columns from column c0,
+      // the same products in both warpgroups: at D 192 they overlap in
+      // column block 1, which warpgroup 1 computes and does not store; a
+      // 64-column product for it in a branch on cw made ptxas serialize
+      // every wgmma of the kernel, C7520, and cost 1.86x)
       my_turn<true>(cw);
-      fence_regs<D / 2>(dk);
-      fence_regs<D / 2>(dv);
+      fence_regs<kCols / 2>(dk);
+      fence_regs<kCols / 2>(dv);
       fence_regs<kRows / 4>(&pa[0][0]);
       fence_regs<kRows / 4>(&pds[0][0]);
       wgmma_fence();
-      pv_product<D, kRows>(dv, pa, sdO(stage));
-      pv_product<D, kRows>(dk, pds, sQ(stage));
+      if constexpr (!kSplit) {
+        pv_product<D, kRows>(dv, pa, sdO(stage));
+        pv_product<D, kRows>(dk, pds, sQ(stage));
+      } else {
+        pv_product<kCols, kRows>(dv, pa, sdO(stage) + c0 * kRows);
+        pv_product<kCols, kRows>(dk, pds, sQ(stage) + c0 * kRows);
+      }
       wgmma_commit();
       their_turn<true>(cw);
       wgmma_wait_all();
-      fence_regs<D / 2>(dk);
-      fence_regs<D / 2>(dv);
+      fence_regs<kCols / 2>(dk);
+      fence_regs<kCols / 2>(dv);
       fence_regs<kRows / 4>(&pa[0][0]);
       fence_regs<kRows / 4>(&pds[0][0]);
       if (lane == 0) mbar_arrive(&bar_empty[stage]);
@@ -879,10 +1056,12 @@ __global__ void __launch_bounds__(
   for (int i = 0; i < 2; ++i) {
     const int key = key_lo + 8 * i;
     if (key >= Lo.k_rows) continue;
-    const size_t base = (size_t)key * Lo.k_rs + tig * 2;
+    const size_t base = (size_t)key * Lo.k_rs + c0 + tig * 2;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      if (n * 8 >= maps.d) continue;  // columns d..D-1 are padding
+    for (int n = 0; n < kCols / 8; ++n) {
+      // columns d..D-1 are padding; at D 192 warpgroup 1 stores only its
+      // second column block
+      if (c0 + n * 8 < c_store || c0 + n * 8 >= maps.d) continue;
       *reinterpret_cast<uint32_t*>(dkp + base + n * 8) = Mma<T>::pack(
           dk[4 * n + 2 * i] * p.scale, dk[4 * n + 2 * i + 1] * p.scale);
       *reinterpret_cast<uint32_t*>(dvp + base + n * 8) =
@@ -973,13 +1152,20 @@ int launch_mods(const BwdParams& p, const Dropout& drop, int total_k, int d,
   return launch<T, D, kVarlen, false, false>(p, drop, total_k, d, stream);
 }
 
-// D 64 and 128: d up to 128 (the note's Head dims)
+// D 64 and 128, or, built with FA_BWD_WIDE, D 192 and 256 (the note's Head
+// dims): two libraries from this source, each with half the head dims, so
+// that they build in parallel (kernels/_build.py's DERIVED)
 template <typename T, bool kVarlen>
 int launch_d(const BwdParams& p, const Dropout& drop, int total_k, int d,
              cudaStream_t s) {
   switch (kernel_head_dim(d)) {
+#ifdef FA_BWD_WIDE
+    case 192: return launch_mods<T, 192, kVarlen>(p, drop, total_k, d, s);
+    case 256: return launch_mods<T, 256, kVarlen>(p, drop, total_k, d, s);
+#else
     case 64: return launch_mods<T, 64, kVarlen>(p, drop, total_k, d, s);
     case 128: return launch_mods<T, 128, kVarlen>(p, drop, total_k, d, s);
+#endif
   }
   return cudaErrorInvalidValue;
 }
@@ -1003,8 +1189,8 @@ extern "C" const char* fa_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = bf16, 1 = fp16; d a multiple of 8 up to 128 (else
-// cudaErrorInvalidValue).  Launches the dQ kernel, then the dK/dV kernel,
+// dtype: 0 = bf16, 1 = fp16; d a multiple of 8 up to 128 (built with
+// FA_BWD_WIDE: 129 to 256; else cudaErrorInvalidValue).  Launches the dQ kernel, then the dK/dV kernel,
 // on `stream`; returns cudaGetLastError() after the launches (or a
 // tensor-map error, see fa_error_string).  do, q, o, dq (b, h, sq, d), k, v,
 // dk, dv (b, hk, sk, d), all contiguous and 16-byte aligned; lse and dlse

@@ -371,15 +371,17 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t lo) {
 
 // S = A B^T over d for one warpgroup: A (64 rows) and B (kN rows) K-major
 // in shared memory (descriptor lows a_lo, b_lo), their column blocks
-// a_rows * 128 and kN * 128 bytes apart.  The first k16 step overwrites S.
+// a_rows * 128 and b_rows * 128 bytes apart (B may be kN rows of a taller
+// tile).  The first k16 step overwrites S.
 template <int D, int kN, typename T>
 __device__ __forceinline__ void qk_product(float* s, uint32_t a_lo,
-                                           int a_rows, uint32_t b_lo) {
+                                           int a_rows, uint32_t b_lo,
+                                           int b_rows = kN) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     // d columns [16 kk, 16 kk + 16): column block kk / 4, 32 bytes a step
     const uint32_t a_off = (kk >> 2) * a_rows * 128 + (kk & 3) * 32;
-    const uint32_t b_off = (kk >> 2) * kN * 128 + (kk & 3) * 32;
+    const uint32_t b_off = (kk >> 2) * b_rows * 128 + (kk & 3) * 32;
     wgmma_ss<kN, T>(s, kmajor_desc(a_lo + (a_off >> 4)),
                     kmajor_desc(b_lo + (b_off >> 4)), kk > 0);
   }

@@ -35,8 +35,10 @@ dequantised to bf16 outside the kernels (forward only).
   (kept entries P / (1 - p), dropped -P).
 * Not ported yet, and raising `NotImplementedError`: in `flash_attn_func`,
   `qv`, `sinks`, fp8 descale and `attention_chunk`.  The CUDA kernels take
-  bf16 and fp16 with head dims 64 and 128 and raise `NotImplementedError`
-  on anything else (a float32 q on CUDA included).
+  bf16 and fp16 at head dims up to 256, forward and gradient (in tiles of
+  d rounded up to a multiple of 64; a d that is not a multiple of 8
+  through zero-padded copies), and raise `NotImplementedError` on
+  anything else (a float32 q on CUDA included).
 """
 
 from __future__ import annotations

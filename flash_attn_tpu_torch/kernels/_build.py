@@ -22,13 +22,15 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNELS = ("flash_fwd", "flash_decode_ref", "flash_decode_ref_wide",
-           "flash_bwd", "flex", "diag_dma_stream", "diag_int8_decode",
-           "diag_varlen_bisect")
-# name -> (source, extra nvcc flags): the decode kernel's head dims 192 and
-# 256 in a translation unit of their own, which builds beside the one of 64
-# and 128 (the four in one file took ~150 s of `nvcc`, the longest build)
+           "flash_bwd", "flash_bwd_wide", "flex", "diag_dma_stream",
+           "diag_int8_decode", "diag_varlen_bisect")
+# name -> (source, extra nvcc flags): the decode and backward kernels' head
+# dims 192 and 256 in translation units of their own, which build beside
+# the ones of 64 and 128 (the decode's four in one file took ~150 s of
+# `nvcc`, the longest build)
 DERIVED = {"flash_decode_ref_wide": ("flash_decode_ref",
-                                     ("-DFA_DECODE_WIDE",))}
+                                     ("-DFA_DECODE_WIDE",)),
+           "flash_bwd_wide": ("flash_bwd", ("-DFA_BWD_WIDE",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

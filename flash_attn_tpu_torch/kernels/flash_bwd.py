@@ -5,9 +5,10 @@ Pallas kernels are `_bwd_dq_kernel:121`, `_bwd_dkv_kernel:232`,
 
 `flash_attn_bwd_bhsd` launches the hand-written Hopper kernels of
 `csrc/flash_bwd.cu` (`flash_bwd_dq_kernel`, then `flash_bwd_dkv_kernel`,
-which reads the lse and delta rows the first one writes) for CUDA tensors
-and runs `flash_attn_bwd_bhsd_ref`, the plain PyTorch version with the same
-signature, for CPU tensors.  The two-kernel split serves every call the
+which reads the lse and delta rows the first one writes; kernel head dims
+192 and 256 from the library `flash_bwd_wide`, the same source built
+apart) for CUDA tensors and runs `flash_attn_bwd_bhsd_ref`, the plain
+PyTorch version with the same signature, for CPU tensors.  The two-kernel split serves every call the
 JAX package sends to any of its four kernels, and is deterministic bit for
 bit (no atomics; see the note in the source).  Its packed varlen mode
 (`flash_bwd_varlen`) is launched by `kernels/varlen.py`.
@@ -45,6 +46,7 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (MAX_BWD_HEAD_DIM,
                                                     unpad_head_dim)
 
 KERNEL = "flash_bwd"
+KERNEL_WIDE = "flash_bwd_wide"  # kernel head dims 192 and 256
 
 # Launches of each CUDA kernel (plain CPU runs do not count), and of their
 # dropout instantiations among them.
@@ -61,7 +63,7 @@ def _delta(do, o, dlse):
     return delta if dlse is None else delta - dlse.float()
 
 
-STATS_TILE = 128  # the dQ kernel's q rows
+STATS_TILE = 128  # the dQ kernel's q rows (64 at D > 128: `dq_rows`)
 STATS_GAP = 132   # `csrc/flash_bwd.cu::kStatsGap`
 
 
@@ -86,9 +88,24 @@ def varlen_stats_rows(b: int, total_q: int) -> int:
     return -(-(total_q + STATS_GAP * b) // 4) * 4
 
 
+def dq_rows(d: int) -> int:
+    """q rows of a dQ block's tile at kernel head dim d
+    (`csrc/flash_bwd.cu::DqTiles`): 128, two consumer warpgroups of 64,
+    up to D 128; 64 at D 192 and 256, whose resident Q, dO and O of 128
+    rows would not fit beside a K/V stage.  `stats_rows` rounds to 128,
+    which covers both."""
+    return 64 if d > 128 else 128
+
+
+def lib_name(d: int) -> str:
+    """The library holding the backward at kernel head dim d: D 192 and
+    256 build apart (`_build.DERIVED`)."""
+    return KERNEL_WIDE if d > 128 else KERNEL
+
+
 def dq_items(d: int, q_tiles: int, heads: int, b: int,
              sm_count: int) -> int:
-    """q tiles of 128 rows each block of the CUDA dQ kernel owns
+    """q tiles (of `dq_rows(d)` rows) each block of the CUDA dQ kernel owns
     (`csrc/flash_bwd.cu::DqTiles`; d is the kernel's head dim,
     `kernel_head_dim`): 2 at d = 64 where the grid of one-tile
     blocks (q_tiles x heads x b) holds at least 4 an SM, so that half as
@@ -185,7 +202,7 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     recompute its keep mask.
 
     CPU tensors run the plain version; CUDA tensors launch
-    `csrc/flash_bwd.cu` (bf16 or fp16, d up to 128: `kernel_head_dim`; a
+    `csrc/flash_bwd.cu` (bf16 or fp16, d up to 256: `kernel_head_dim`; a
     d that is not a multiple of 8 through zero-padded copies) or raise."""
     global launches_dq, launches_dkv, launches_dq_dropout
     global launches_dkv_dropout
@@ -204,7 +221,7 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     _unsupported(q, v.shape[-1], sinks, dropout_p, attention_chunk)
     if q.dtype not in _DTYPE_CODE:
         raise NotImplementedError(f"flash_bwd kernel: dtype {q.dtype}")
-    kernel_head_dim(d, MAX_BWD_HEAD_DIM)
+    kd = kernel_head_dim(d, MAX_BWD_HEAD_DIM)
     if (k.shape != (b, hk, sk, d) or v.shape != k.shape or h % hk
             or do.shape != q.shape or o.shape != q.shape
             or lse.shape != (b, h, sq)):
@@ -241,7 +258,7 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _lib()
+    lib = _lib(lib_name(kd))
     err = lib.flash_bwd(
         do.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(),
@@ -252,11 +269,10 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
         b, h, hk, sq, sk, q.shape[-1], _DTYPE_CODE[q.dtype],
         float(softmax_scale), int(has_upper), wr, int(has_lower), wl,
         float(softcap), rows,
-        _dq_items_for(q.device, kernel_head_dim(d), -(-sq // STATS_TILE), h,
-                      b),
+        _dq_items_for(q.device, kd, -(-sq // dq_rows(kd)), h, b),
         *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, KERNEL)
+    _build.check(lib, err, lib_name(kd))
     launches_dq += 1
     launches_dkv += 1
     launches_dq_dropout += dropout_p > 0.0
@@ -264,8 +280,9 @@ def flash_attn_bwd_bhsd(do, q, k, v, o, lse, seqused_q, seqused_k, *,
     return unpad_head_dim(d, dq, dk, dv)
 
 
-def _lib():
-    lib = _build.load(KERNEL)
+def _lib(name):
+    """The backward library `name` (`lib_name`), typed."""
+    lib = _build.load(name)
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_bwd.argtypes = ([P] * 14 + [I] * 7

@@ -44,7 +44,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 # The largest head dim of the forward and decode kernels (the JAX package's
 # sweep stops there too), and of the backward's.
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 128
+MAX_BWD_HEAD_DIM = 256
 
 # Number of times the CUDA kernel was launched (plain CPU runs do not count),
 # and how many of those launches ran its dropout instantiation.
@@ -59,9 +59,9 @@ def kernel_head_dim(d: int, max_d: int = MAX_HEAD_DIM) -> int:
     """The head dim D the CUDA kernels run a call of head dim d at: d
     rounded up to a multiple of 64, the width of a tile's column block in
     the 128-byte swizzle (`csrc/fa_common.cuh::kernel_head_dim`).  The
-    kernels are instantiated at D = 64, 128, 192 and 256 (the backward at
-    64 and 128: `max_d`); the columns d..D-1 of their tiles are zeros and
-    are never stored.  Raises NotImplementedError for d above `max_d`."""
+    forward, backward and decode kernels are instantiated at D = 64, 128,
+    192 and 256; the columns d..D-1 of their tiles are zeros and are never
+    stored.  Raises NotImplementedError for d above `max_d`."""
     if not 0 < d <= max_d:
         raise NotImplementedError(
             f"head dim {d}: the CUDA kernels take 1..{max_d}")

@@ -54,9 +54,9 @@ import math
 import torch
 
 from flash_attn_tpu_torch.kernels import _build
-from flash_attn_tpu_torch.kernels.flash_bwd import (STATS_TILE,
-                                                    _dq_items_for,
+from flash_attn_tpu_torch.kernels.flash_bwd import (_dq_items_for, dq_rows,
                                                     flash_attn_bwd_bhsd_ref,
+                                                    lib_name,
                                                     varlen_stats_rows)
 from flash_attn_tpu_torch.kernels.flash_fwd import (MAX_BWD_HEAD_DIM,
                                                     MAX_HEAD_DIM,
@@ -71,7 +71,6 @@ from flash_attn_tpu_torch.kernels.flash_fwd import (MAX_BWD_HEAD_DIM,
                                                     unpad_head_dim)
 
 KERNEL_FWD = "flash_fwd"
-KERNEL_BWD = "flash_bwd"
 MAX_SEQLEN = 0xFFFF  # per-sequence limit of the JAX aux words (`:1063`)
 
 # Launches of each CUDA kernel (plain CPU runs do not count), and of their
@@ -257,7 +256,7 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
     dv = 0, and tokens outside every sequence get 0.
 
     CPU tensors run the plain version; CUDA tensors launch
-    `csrc/flash_bwd.cu`'s varlen mode (d up to 128), whose dQ kernel also
+    `csrc/flash_bwd.cu`'s varlen mode (d up to 256), whose dQ kernel also
     forms the dO.O preprocess delta = rowsum(dO * O), or raise."""
     global launches_dq, launches_dkv, launches_dq_dropout
     global launches_dkv_dropout
@@ -289,7 +288,8 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
     rows = varlen_stats_rows(b, total_q)
     stats = torch.empty(2 * h * rows, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
-    lib = _lib_bwd()
+    kd = kernel_head_dim(d)
+    lib = _lib_bwd(lib_name(kd))
     err = lib.flash_bwd_varlen(
         do.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
@@ -299,11 +299,11 @@ def varlen_attn_bwd(do, q, k, v, o, lse, cu_seqlens_q, cu_seqlens_k,
         b, h, k.shape[1], int(max_seqlen_q), int(max_seqlen_k), total_q,
         k.shape[0], q.shape[-1], _DTYPE_CODE[q.dtype], float(softmax_scale),
         int(has_upper), wr, int(has_lower), wl, float(softcap), rows,
-        _dq_items_for(q.device, kernel_head_dim(d),
-                      -(-int(max_seqlen_q) // STATS_TILE), h, b),
+        _dq_items_for(q.device, kd, -(-int(max_seqlen_q) // dq_rows(kd)), h,
+                      b),
         *dropout_args(dropout_p, dropout_seed),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, KERNEL_BWD)
+    _build.check(lib, err, lib_name(kd))
     launches_dq += 1
     launches_dkv += 1
     launches_dq_dropout += dropout_p > 0.0
@@ -397,8 +397,9 @@ def _lib_fwd():
     return lib
 
 
-def _lib_bwd():
-    lib = _build.load(KERNEL_BWD)
+def _lib_bwd(name):
+    """The backward library `name` (`flash_bwd.lib_name`), typed."""
+    lib = _build.load(name)
     if not getattr(lib, "_typed_varlen", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_bwd_varlen.argtypes = ([P] * 13 + [I] * 9

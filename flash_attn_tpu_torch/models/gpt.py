@@ -8,7 +8,14 @@ maps onto this one skeleton (LLaMA, Baichuan, GPT-NeoX, Falcon, BigCode:
 `models/{llama,baichuan,gpt_neox,falcon,bigcode}.py`) maps onto the port's
 the same way: rotary (full or partial, interleaved or rotate-half), grouped
 and multi-query KV heads, RMSNorm, and parallel blocks with tied or untied
-norms.  Post-norm, muP and tensor parallelism raise `NotImplementedError`.
+norms.  Post-norm and tensor parallelism raise `NotImplementedError`.
+
+muP (`use_mup`, BTLM: `models/btlm.py`) follows JAX in its two places: the
+softmax scale is head_dim ** -0.5 * `mup_attn_multiplier`
+(`create_mixer_cls:58-62`) and the logits are multiplied by
+`mup_output_multiplier` (`GPTLMHeadModel:309-312`; `training/loss.py`'s
+head does the same).  `mup_embeddings_multiplier` is carried and, as in
+JAX, applied nowhere.
 
 Dropout follows JAX's `deterministic` argument (default True): with
 `deterministic=False` each layer's attention dropout (`attn_pdrop`) runs in
@@ -90,9 +97,14 @@ class GPTConfig:
     embd_pdrop: float = 0.0
     remat_blocks: bool = False
     remat_policy: str = "none"  # "none" | "dots" | "dots_no_batch"
+    # muP (see the module's note); the embeddings' multiplier is unused, as
+    # in JAX
+    use_mup: bool = False
+    mup_attn_multiplier: float = 1.0
+    mup_output_multiplier: float = 1.0
+    mup_embeddings_multiplier: float = 1.0
     # Not ported: any other value raises NotImplementedError.
     prenorm: bool = True
-    use_mup: bool = False
     tensor_parallel: bool = False
 
     @property
@@ -119,7 +131,6 @@ class GPTConfig:
 
     def check_supported(self):
         unsupported = {
-            "use_mup": self.use_mup,
             "tensor_parallel": self.tensor_parallel,
             "prenorm": not self.prenorm,  # GPTModel's post-norm path
         }
@@ -167,9 +178,13 @@ class CausalLMOutput:
 
 def create_mixer(config: GPTConfig, layer_idx: int, device, dtype,
                  rotary_emb: Optional[RotaryEmbedding] = None):
+    head_dim = config.head_dim or config.n_embd // config.n_head
+    scale = (head_dim ** -0.5 * config.mup_attn_multiplier
+             if config.use_mup else None)
     return MHA(config.n_embd, config.n_head, num_heads_kv=config.n_head_kv,
                head_dim=config.head_dim, qkv_proj_bias=config.qkv_proj_bias,
-               out_proj_bias=config.out_proj_bias, causal=True,
+               out_proj_bias=config.out_proj_bias, softmax_scale=scale,
+               causal=True,
                layer_idx=layer_idx, rotary_emb_dim=config.rotary_dim(),
                rotary_emb_base=config.rotary_emb_base,
                rotary_emb_scale_base=config.rotary_emb_scale_base,
@@ -322,6 +337,9 @@ class GPTLMHeadModel(nn.Module):
             logits = self.transformer.embeddings.attend(hidden_states)
         else:
             logits = self.lm_head(hidden_states)
+        mult = self.config.mup_output_multiplier if self.config.use_mup else 1.0
+        if mult != 1.0:
+            logits = logits * mult
         return CausalLMOutput(logits=logits, inference_params=inference_params)
 
 

@@ -9,6 +9,8 @@ sampled with top-k 20 at temperature 0.8.  The models, random weights from
 a seed, bfloat16: `gpt2_small` (GPT-2 124M, the `serve` phase),
 `llama3_8b` (Meta-Llama-3-8B's widths at a cut depth, the `llama_serve`
 phase) and `gptj_6b` (GPT-J-6B, head dim 256, the `gptj_serve` phase).
+`gptj_6b` in float32 and `btlm_3b` (BTLM-3B-8K: ALiBi, muP, head dim 80)
+are also the models of `chip_smoke.py`'s `gptj_train` and `btlm_train`.
 
 Run as a script, it serves that batch once to warm up, once timed without the
 profiler and once under `torch.profiler`, and prints one JSON line: the wall
@@ -28,6 +30,7 @@ import types
 import numpy as np
 import torch
 
+from flash_attn_tpu_torch.models.btlm import btlm_config_to_gpt2_config
 from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
 from flash_attn_tpu_torch.models.gptj import gptj_config_to_gpt2_config
 from flash_attn_tpu_torch.models.llama import llama_config_to_gpt2_config
@@ -79,13 +82,39 @@ GPTJ_6B = types.SimpleNamespace(
     eos_token_id=50256, tie_word_embeddings=False)
 
 
-def gptj_6b(seed: int = 0, n_layer: int = 28) -> GPTLMHeadModel:
+def gptj_6b(seed: int = 0, n_layer: int = 28,
+            dtype=torch.bfloat16) -> GPTLMHeadModel:
     """GPT-J-6B through `gptj_config_to_gpt2_config`, at `n_layer` of its
-    28 layers, random N(0, 0.02) weights drawn on the card from `seed`,
-    bfloat16, on CUDA."""
+    28 layers, random N(0, 0.02) weights drawn on the card from `seed`, in
+    `dtype` (float32 to train under autocast), on CUDA."""
     cfg = gptj_config_to_gpt2_config(GPTJ_6B)
     cfg.n_layer = n_layer
-    model = GPTLMHeadModel(cfg, dtype=torch.bfloat16)
+    model = GPTLMHeadModel(cfg, dtype=dtype)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    return model.init_weights(gen).eval()
+
+
+# cerebras/btlm-3b-8k-base's published config (HF config.json), with its
+# Hugging Face attribute names: head dim 2560 / 32 = 80, SwiGLU, ALiBi, and
+# muP (softmax scale 1 / 80, logits times 2.22 * 0.1).
+BTLM_3B_8K = types.SimpleNamespace(
+    vocab_size=50257, n_positions=8192, n_embd=2560, n_layer=32, n_head=32,
+    n_inner=6826, activation_function="swiglu", resid_pdrop=0.0,
+    embd_pdrop=0.0, attn_pdrop=0.0, layer_norm_epsilon=1e-5,
+    initializer_range=0.02, bos_token_id=50256, eos_token_id=50256,
+    position_embedding_type="alibi", mup_width_scale=0.1,
+    mup_embeddings_scale=14.6, mup_output_alpha=2.22,
+    mup_scale_qk_dot_by_d=True)
+
+
+def btlm_3b(seed: int = 0, n_layer: int = 32,
+            dtype=torch.bfloat16) -> GPTLMHeadModel:
+    """BTLM-3B-8K through `btlm_config_to_gpt2_config`, at `n_layer` of its
+    32 layers, random N(0, 0.02) weights drawn on the card from `seed`, in
+    `dtype`, on CUDA."""
+    cfg = btlm_config_to_gpt2_config(BTLM_3B_8K)
+    cfg.n_layer = n_layer
+    model = GPTLMHeadModel(cfg, dtype=dtype)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     return model.init_weights(gen).eval()
 

@@ -261,9 +261,14 @@ def test_bwd_stats_layout(seed):
     (64, 4, 12, 11, 2),   # 528 blocks: exactly 4 an SM
     (64, 4, 12, 10, 1),   # 480 blocks: fewer
     (128, 16, 32, 2, 1),  # d = 128: one set of Q, dO, O fits
+    (256, 32, 16, 8, 1),  # d = 256: 64-row items, one a block
 ])
 def test_dq_items_rule(d, q_tiles, heads, b, want):
     """`kernels.flash_bwd.dq_items`, the q tiles each CUDA dQ block owns,
     on the H100's 132 SMs: two at d = 64 where the one-tile grid holds at
-    least 4 blocks an SM."""
+    least 4 blocks an SM; the tile's rows (`dq_rows`: 64 at D 192 / 256)
+    and library (`lib_name`) by kernel head dim."""
     assert port_bwd.dq_items(d, q_tiles, heads, b, 132) == want
+    assert port_bwd.dq_rows(d) == (64 if d > 128 else 128)
+    assert port_bwd.lib_name(d) == ("flash_bwd_wide" if d > 128
+                                    else "flash_bwd")

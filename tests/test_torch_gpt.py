@@ -269,6 +269,37 @@ def test_gelu_approx_matches_jax():
 @pytest.mark.parametrize("field,value", [
     ("use_mup", True), ("tensor_parallel", True), ("prenorm", False)])
 def test_unported_features_raise(field, value):
+    """Tensor parallelism and the post-norm path raise NotImplementedError.
+    muP raised until it was ported; now it builds (its arithmetic:
+    `test_mup_scales_attention_and_logits`)."""
     cfg = GPTConfig(**TINY, **{field: value})
+    if field == "use_mup":
+        assert GPTLMHeadModel(cfg, device="cpu").config.use_mup
+        return
     with pytest.raises(NotImplementedError):
         GPTLMHeadModel(cfg, device="cpu")
+
+
+def test_mup_scales_attention_and_logits():
+    """muP (`use_mup`) as JAX applies it: the softmax scale is head_dim **
+    -0.5 * mup_attn_multiplier and the logits are multiplied by
+    mup_output_multiplier; without `use_mup` the multipliers are ignored.
+    (`tests/test_torch_wide_train.py` holds BTLM with muP to JAX.)"""
+    mult = dict(mup_attn_multiplier=0.5, mup_output_multiplier=0.25,
+                mup_embeddings_multiplier=7.0)
+    plain = GPTLMHeadModel(GPTConfig(**TINY, **mult), device="cpu")
+    mup = GPTLMHeadModel(GPTConfig(**TINY, use_mup=True, **mult),
+                         device="cpu")
+    mup.load_state_dict(plain.state_dict())
+    hd = TINY["n_embd"] // TINY["n_head"]
+    base = plain.transformer.layers[0].mixer.softmax_scale
+    assert base == pytest.approx(hd ** -0.5, rel=1e-12)
+    assert mup.transformer.layers[0].mixer.softmax_scale == pytest.approx(
+        base * 0.5, rel=1e-12)
+    for layer in mup.transformer.layers:  # the scale alone differs
+        layer.mixer.softmax_scale = base
+    ids = torch.arange(12).view(2, 6) % TINY["vocab_size"]
+    with torch.no_grad():
+        torch.testing.assert_close(mup(ids).logits,
+                                   plain(ids).logits * 0.25, rtol=0,
+                                   atol=1e-6)

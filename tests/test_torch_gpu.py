@@ -189,7 +189,8 @@ def test_llama_cached_path_on_cuda_matches_cpu_plain_path(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 80, 96, 100, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 96, 100, 128, 160, 192, 224,
+                               256])
 @pytest.mark.parametrize("case", ["causal", "gqa", "window_softcap_alibi",
                                   "ragged"])
 def test_bwd_kernel_matches_plain(cuda, dtype, d, case):
@@ -237,12 +238,12 @@ def test_bwd_kernel_matches_plain(cuda, dtype, d, case):
 
 
 @pytest.mark.parametrize("which,d", [("fwd", 288), ("fwd_varlen", 288),
-                                     ("decode", 288), ("bwd", 192),
-                                     ("bwd_varlen", 192)])
+                                     ("decode", 288), ("bwd", 288),
+                                     ("bwd_varlen", 288)])
 def test_head_dim_beyond_the_kernels_raises_on_cuda(cuda, which, d):
-    """The forward and decode kernels take head dims up to 256, the
-    backward up to 128: beyond that a CUDA call raises NotImplementedError,
-    launches nothing and runs no plain version."""
+    """The forward, backward and decode kernels take head dims up to 256:
+    beyond that a CUDA call raises NotImplementedError, launches nothing
+    and runs no plain version."""
     from flash_attn_tpu_torch.kernels import varlen
 
     x = torch.randn(1, 2, 64, d, device=cuda, dtype=torch.bfloat16)
@@ -640,15 +641,14 @@ def _varlen_inputs(case, dtype, d, gen, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [32, 64, 80, 100, 128, 160, 256])
+@pytest.mark.parametrize("d", [32, 64, 80, 100, 128, 160, 192, 224, 256])
 @pytest.mark.parametrize("case", ["bert", "gqa_cross_empty",
                                   "window_softcap_alibi"])
 def test_varlen_kernels_match_plain(cuda, dtype, d, case):
     """The packed varlen forward and backward against their plain versions
     (fp32 oracle, low-precision yardstick); rows with no key and tokens past
     the last sequence are o = 0, lse = +inf; the backward is bitwise
-    deterministic.  Above d = 128 the backward raises NotImplementedError
-    and launches nothing."""
+    deterministic."""
     from flash_attn_tpu_torch.kernels import varlen
 
     gen = torch.Generator(device=cuda).manual_seed(4)
@@ -666,11 +666,6 @@ def test_varlen_kernels_match_plain(cuda, dtype, d, case):
     check_close(lse[fin], lse_ref[fin], lse_pt[fin], label="lse")
     assert not o[-3:].any() and torch.isposinf(lse[:, -3:]).all()
     do = torch.randn(q.shape, generator=gen, device=cuda).to(dtype)
-    if d > 128:
-        with pytest.raises(NotImplementedError, match="head dim"):
-            varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
-        assert (varlen.launches_dq, varlen.launches_dkv) == before[1:]
-        return
     dq, dk, dv = varlen.varlen_attn_bwd(do, q, k, v, o, lse, *args, **kw)
     assert (varlen.launches_fwd, varlen.launches_dq, varlen.launches_dkv) \
         == (before[0] + 1, before[1] + 1, before[2] + 1)
@@ -696,11 +691,12 @@ _BWD_TILE_CASES = (
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("case", _BWD_TILE_CASES)
 def test_bwd_tiles_match_plain(cuda, case, d, dtype):
     """The dense backward's tiles (128-row dQ blocks, 128-key dK/dV blocks,
-    64-row and 64-key stages) at lengths on and off their edges, causal and
+    64-row and 64-key stages; at d 192 and 256 64-row dQ blocks and 64-key
+    dK/dV blocks) at lengths on and off their edges, causal and
     not, a one-sided window, seqused_k = 0 on one batch, GQA with g = 4, a
     dlse cotangent (folded into delta by the dQ kernel), the softcap +
     ALiBi instantiation, and a grid large enough for dQ blocks of two q
@@ -745,7 +741,7 @@ def test_bwd_tiles_match_plain(cuda, case, d, dtype):
         before[0] + 1, before[1] + 1)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert flash_bwd.last_dq_items == flash_bwd.dq_items(
-        d, -(-sq // 128), h, b, sms)
+        d, -(-sq // flash_bwd.dq_rows(d)), h, b, sms)
     if case.startswith("two_items") and d == 64:
         assert flash_bwd.last_dq_items == 2, f"{sms} SMs"
     ref = flash_bwd.flash_attn_bwd_bhsd_ref(
@@ -763,7 +759,7 @@ def test_bwd_tiles_match_plain(cuda, case, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("case", ["full", "causal", "gqa_causal",
                                   "two_items"])
 def test_varlen_bwd_tiles_match_plain(cuda, case, d, dtype):
@@ -1510,7 +1506,7 @@ def test_dropout_kernels_keep_mask_is_dropout_keep(cuda, layout):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 @pytest.mark.parametrize("case", ["causal_gqa", "window_softcap_alibi"])
 def test_dropout_kernels_match_plain(cuda, dtype, d, case):
     """The dropout forward and (dq, dk, dv) against the plain version with
@@ -1552,7 +1548,7 @@ def test_dropout_kernels_match_plain(cuda, dtype, d, case):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
 def test_varlen_dropout_kernels_match_plain(cuda, d):
     """The packed varlen dropout kernels against their plain versions at
     packed-stream coordinates (causal GQA, cross lengths), the backward

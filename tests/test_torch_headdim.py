@@ -2,7 +2,9 @@
 (`kernels.flash_fwd.kernel_head_dim`, `pad_head_dim`), its plain attention
 versions at d 80 and 256 against the JAX kernels, GPT-J (`models.gptj`,
 head dim 256 at its published widths) and the repo's GPT-3 2.7B recipe
-(head dim 80), on the CPU in float32.
+(head dim 80), on the CPU in float32; and three helpers of `chip_smoke.py`'s
+checks at the wide head dims (the plain version a few heads at a time,
+ptxas's wgmma serialization notes, the instantiations a profile names).
 
 The CUDA kernels run a call of head dim d in a tile of d rounded up to a
 multiple of 64, the columns past d zero, and copy inputs whose d is not a
@@ -92,9 +94,10 @@ def to_numpy_tree(tree):
 # ------------------------------------------------------------ the rule
 
 def test_kernel_head_dim_rule():
-    """d rounded up to 64 (the backward's up to 128), refused beyond; the
-    pad helper copies (and counts) only where d is not a multiple of 8
-    (16 for 8-bit caches), zero-filling the new columns, fp8 too."""
+    """d rounded up to 64 (the backward's too, since it takes D 192 and
+    256), refused beyond 256; the pad helper copies (and counts) only where
+    d is not a multiple of 8 (16 for 8-bit caches), zero-filling the new
+    columns, fp8 too."""
     ds = (1, 32, 64, 65, 80, 96, 100, 128, 129, 160, 192, 224, 256)
     assert [flash_fwd.kernel_head_dim(d) for d in ds] == [
         64, 64, 64, 128, 128, 128, 128, 128, 192, 192, 192, 256, 256]
@@ -102,8 +105,9 @@ def test_kernel_head_dim_rule():
         with pytest.raises(NotImplementedError, match="head dim"):
             flash_fwd.kernel_head_dim(d)
     assert flash_fwd.kernel_head_dim(100, flash_fwd.MAX_BWD_HEAD_DIM) == 128
+    assert flash_fwd.kernel_head_dim(160, flash_fwd.MAX_BWD_HEAD_DIM) == 192
     with pytest.raises(NotImplementedError, match="head dim"):
-        flash_fwd.kernel_head_dim(160, flash_fwd.MAX_BWD_HEAD_DIM)
+        flash_fwd.kernel_head_dim(288, flash_fwd.MAX_BWD_HEAD_DIM)
     assert [flash_fwd.fwd_rows(flash_fwd.kernel_head_dim(d))
             for d in (32, 80, 192, 256)] == [64, 128, 128, 128]
     assert [flash_fwd.padded_head_dim(d) for d in (80, 100, 256)] == [
@@ -392,3 +396,93 @@ def test_gpt3_recipe_step_matches_jax():
     for name, p in port.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), expected[name].numpy(),
                                    atol=1e-5, rtol=0, err_msg=name)
+
+
+# ------------------------------------------------- the smoke's own checks
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_smoke_plain_by_heads_equals_one_call(which):
+    """`chip_smoke.plain_by_heads`, which holds BTLM's 8192-token attention
+    to its plain version a few heads at a time on the card, gives the
+    plain version's own result over all heads (causal GQA under ALiBi,
+    two q heads of each kv head a part); it refuses dropout (the keep mask
+    hashes the head index) and a part that splits a group."""
+    g = torch.Generator().manual_seed(80)
+    b, h, hk, s, d = 2, 8, 4, 24, 80
+    q, o, do = (torch.randn(b, h, s, d, generator=g) for _ in range(3))
+    k, v = (torch.randn(b, hk, s, d, generator=g) for _ in range(2))
+    lens = torch.tensor([24, 17], dtype=torch.int32)
+    kw = dict(softmax_scale=1 / d, causal=True,
+              alibi_slopes=torch.rand(b, h, generator=g))
+    if which == "fwd":
+        fn, args = flash_fwd.flash_attn_fwd_bhsd_ref, (q, k, v, lens, lens)
+        kinds = ("q", "kv", "kv", None, None)
+    else:
+        lse = flash_fwd.flash_attn_fwd_bhsd_ref(q, k, v, lens, lens, **kw)[1]
+        fn, args = flash_bwd.flash_attn_bwd_bhsd_ref, (do, q, k, v, o, lse,
+                                                       lens, lens)
+        kinds = ("q", "q", "kv", "kv", "q", "q", None, None)
+    whole = fn(*args, **kw)
+    parts = chip_smoke.plain_by_heads(fn, args, kinds, kw, heads=2)
+    assert len(parts) == len(whole)
+    for x, y in zip(parts, whole):
+        torch.testing.assert_close(x, y, atol=PAD_ATOL, rtol=0)
+    with pytest.raises(ValueError, match="split a group"):
+        chip_smoke.plain_by_heads(fn, args, kinds, kw, heads=3)
+    with pytest.raises(ValueError, match="dropout"):
+        chip_smoke.plain_by_heads(fn, args, kinds,
+                                  dict(kw, dropout_p=0.1), heads=2)
+
+
+def test_smoke_ptxas_summary_files_serialized_wgmma(monkeypatch):
+    """`chip_smoke.ptxas_summary` keeps ptxas's wgmma serialization notes
+    (an info line, not a warning) under the instantiation they name, which
+    the smoke's build check then fails on, beside spills."""
+    from flash_attn_tpu_torch.kernels import _build
+
+    fn = ("_ZN45_GLOBAL__N__a304c3cb_12_flash_bwd_cu_fb72e9ae20flash_bwd_dq_"
+          "kernelI13__nv_bfloat16Li256ELb0ELb0ELb0EEEvNS_9BwdParamsENS_7Bwd"
+          "MapsE")
+    other = fn.replace("dq_kernelI13__nv_bfloat16Li256",
+                       "dq_kernelI13__nv_bfloat16Li192")
+    lines = [f"ptxas info    : Compiling entry function '{other}' for "
+             "'sm_90a'",
+             "ptxas info    : Used 228 registers",
+             "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+             f"ptxas info    : (C7520) Potential Performance Loss: "
+             "wgmma.mma_async instructions are serialized due to the "
+             f"presence of a wgmma in a branch in the function '{fn}'",
+             f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'",
+             "ptxas info    : Used 220 registers"]
+    monkeypatch.setitem(_build.build_info, "probe", {"ptxas": lines})
+    out = chip_smoke.ptxas_summary("probe")
+    wide = "flash_bwd_dq_kernel<13__nv_bfloat16Li256ELb0ELb0ELb0EE>"
+    narrow = wide.replace("Li256", "Li192")
+    assert out[wide]["registers"] == 220
+    assert out[wide]["serialized"] == [lines[3]]
+    assert "serialized" not in out[narrow]
+    assert out[narrow]["spill_stores"] == 0 and out[narrow]["registers"] == 228
+
+
+def test_smoke_profiled_kernel_dims_reads_instantiations():
+    """`chip_smoke.profiled_kernel_dims` reads the template arguments after
+    the dtype (D, kVarlen, kMods, kDropout) from the profiler's demangled
+    device kernel names, each instantiation once, host events skipped: what
+    `lm_train_phase` holds to the path's D and mods."""
+    import types
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    names = ["void (anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16,"
+             " 128, false, true, false>(BwdParams, BwdMaps)"] * 2 + [
+        "void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 256, "
+        "false, false, false>(FwdParams, FwdMaps)",
+        "void at::native::vectorized_elementwise_kernel<4>(int)"]
+    events = [types.SimpleNamespace(device_type=cuda, name=n) for n in names]
+    events.append(types.SimpleNamespace(device_type=cpu, name=names[0].replace(
+        "128", "64")))
+    prof = types.SimpleNamespace(events=lambda: events)
+    assert chip_smoke.profiled_kernel_dims(
+        prof, ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel")) == {
+        "flash_bwd_dkv_kernel": ["128, false, true, false"],
+        "flash_fwd_kernel": ["256, false, false, false"]}
